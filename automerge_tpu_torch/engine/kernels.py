@@ -1,0 +1,46 @@
+"""The murmur-style state-hash mixers of `automerge_tpu/engine/kernels.py`
+on torch tensors.
+
+The reference computes in uint32. Torch's `>>` on int32 is an arithmetic
+shift and its integer products overflow as signed values, so here every
+value is held in int64 in [0, 2**32): shifts are then logical, and each
+32x32-bit product is split into two products below 2**49 so that nothing
+overflows before the `& 0xFFFFFFFF` wrap.
+"""
+
+from __future__ import annotations
+
+import torch
+
+_MASK = 0xFFFFFFFF
+_M1 = 0x85EBCA6B
+_M2 = 0xC2B2AE35
+_GOLD = 0x9E3779B9
+
+
+def _mul32(h: torch.Tensor, m: int) -> torch.Tensor:
+    """(h * m) mod 2**32 for int64 h in [0, 2**32) and a uint32 constant."""
+    lo = h * (m & 0xFFFF)
+    hi = ((h * (m >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _MASK
+
+
+def _mix(h: torch.Tensor) -> torch.Tensor:
+    """32-bit finalizer over int64 tensors holding uint32 values."""
+    h = h & _MASK
+    h = h ^ (h >> 16)
+    h = _mul32(h, _M1)
+    h = h ^ (h >> 13)
+    h = _mul32(h, _M2)
+    h = h ^ (h >> 16)
+    return h
+
+
+def _mix4(a, b, c, d) -> torch.Tensor:
+    """mix4 of four int32 (or int64) tensors; returns int64 in [0, 2**32)."""
+    def u32(x):
+        return x.to(torch.int64) & _MASK
+    h = _mix(u32(a) + _GOLD)
+    h = _mix(h ^ u32(b))
+    h = _mix(h ^ u32(c))
+    return _mix(h ^ u32(d))

@@ -1,0 +1,68 @@
+"""The port imports neither jax nor the JAX package, and its entry points
+run on the card unless the caller asks for the CPU."""
+
+import os
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import automerge_tpu_torch
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def _modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        automerge_tpu_torch.__path__, "automerge_tpu_torch."))
+
+
+def test_every_module_imports_with_jax_and_reference_blocked():
+    mods = _modules()
+    assert "automerge_tpu_torch.engine.resident_rows" in mods
+    assert "automerge_tpu_torch.engine.cuda_kernels" in mods
+    code = "\n".join([
+        "import importlib, sys",
+        "for name in ('jax', 'jaxlib', 'automerge_tpu'):",
+        "    sys.modules[name] = None",
+        f"for m in {mods!r}:",
+        "    importlib.import_module(m)",
+        "bad = [m for m in sys.modules if sys.modules[m] is not None",
+        "       and m.split('.')[0] in ('jax', 'jaxlib', 'automerge_tpu')]",
+        "assert not bad, bad",
+        "from automerge_tpu_torch.engine.resident_rows import "
+        "ResidentRowsDocSet",
+        "ResidentRowsDocSet(['a', 'b'], device='cpu').hashes()",
+        "print('ok')",
+    ])
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_no_source_mentions_the_reference_or_jax():
+    for path in Path(automerge_tpu_torch.__file__).parent.rglob("*.py"):
+        for line in path.read_text().splitlines():
+            s = line.strip()
+            if s.startswith(("import ", "from ")):
+                assert "jax" not in s and "automerge_tpu." not in s \
+                    and s != "import automerge_tpu", (path, s)
+
+
+def test_default_device_without_a_card_raises():
+    from automerge_tpu_torch.device import resolve_device
+    from automerge_tpu_torch.engine.resident_rows import ResidentRowsDocSet
+    if torch.cuda.is_available():
+        assert resolve_device().type == "cuda"
+        return
+    for make in (lambda: ResidentRowsDocSet(["a"]),
+                 lambda: ResidentRowsDocSet(["a"], device="cuda:0"),
+                 resolve_device):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    assert ResidentRowsDocSet(["a"], device="cpu").device.type == "cpu"
