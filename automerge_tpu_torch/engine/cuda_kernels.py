@@ -1,12 +1,16 @@
-"""Hand-written CUDA kernels of the port (counterpart of `automerge_tpu/
-engine/pallas_kernels.py`), their plain PyTorch versions, and the build.
+"""The build and launch of the port's hand-written CUDA kernels, and the
+fused reconcile kernel (counterpart of `automerge_tpu/engine/
+pallas_kernels.py`) with its plain PyTorch version.
 
 `reconcile_rows_hash` dispatches on the device of the tensor it is given: a
 CUDA tensor launches the kernel of `csrc/reconcile_rows.cu` (or raises), a
-CPU tensor runs `reconcile_rows_hash_plain`. Nothing falls back.
+CPU tensor runs `reconcile_rows_hash_plain`. Nothing falls back. The span
+and move kernels' wrappers (`span_kernels.span_rank_hash`,
+`move_kernels.move_round` / `resolve_moves`) follow the same rule through
+`launch` below.
 
-The kernel library is compiled from the package's own `csrc/` at first use
-with `nvcc` for `sm_90a`, into `automerge_tpu_torch/build/` (named by the
+Each source of `csrc/` is compiled at first use with `nvcc` for `sm_90a`
+into its own library under `automerge_tpu_torch/build/` (named by the
 source's content hash, so an edited source never loads a stale library),
 and bound with ctypes: a plain C interface keeps the build to seconds.
 """
@@ -25,17 +29,34 @@ from pathlib import Path
 
 import torch
 
-from .kernels import _mix4
+from .kernels import _int32_bits, _mix4
 from .pack import row_bases, rows_count, rows_dims_eligible, ROWS_VMEM_BUDGET
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = {"reconcile_rows": CSRC / "reconcile_rows.cu"}
+SOURCES = {"reconcile_rows": CSRC / "reconcile_rows.cu",
+           "span_rank_hash": CSRC / "span_rank_hash.cu",
+           "move_round": CSRC / "move_round.cu"}
 
 # Launches of each kernel by its wrapper: one per launch, counted nowhere
 # else, so a run can show that its main path went through the kernel.
-LAUNCHES = {"reconcile_rows_hash": 0}
+LAUNCHES = {"reconcile_rows_hash": 0, "span_rank_hash": 0, "move_round": 0,
+            "resolve_moves": 0}
+
+# The C entry points of each source: argument types (every pointer and the
+# stream as c_void_p, so ctypes never cuts a pointer to 32 bits); each
+# returns cudaGetLastError() after its launch.
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "reconcile_rows": {
+        "amt_reconcile_rows_hash": [_P] * 5 + [_I] * 6 + [_P]},
+    "span_rank_hash": {
+        "amt_span_rank_hash": [_P] * 5 + [_I] * 2 + [_P]},
+    "move_round": {
+        "amt_move_round": [_P] * 5 + [_I] * 4 + [_P],
+        "amt_resolve_moves": [_P] * 8 + [_I] * 5 + [_P]},
+}
 
 # The reference's join block height: I and LE must be multiples of it.
 _BLK = 8
@@ -121,15 +142,33 @@ def _library(name: str) -> ctypes.CDLL:
     with _lock:
         if name not in _libs:
             lib = ctypes.CDLL(str(library_path(name)))
-            if name == "reconcile_rows":
-                lib.amt_reconcile_rows_hash.argtypes = (
-                    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                    + [ctypes.c_void_p])
-                lib.amt_reconcile_rows_hash.restype = ctypes.c_int
+            for fn, argtypes in _SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
             lib.amt_cuda_error_string.argtypes = [ctypes.c_int]
             lib.amt_cuda_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
     return _libs[name]
+
+
+def launch(source: str, fn: str, counter: str, *args) -> None:
+    """Call the C entry point `fn` of `source`'s library (building it at
+    first use) with `args`, raise if the launch was refused, and count one
+    launch of `counter`. Pointers are ints (tensor.data_ptr()) or None; the
+    caller passes the stream last and keeps every tensor alive."""
+    lib = _library(source)
+    err = getattr(lib, fn)(*args)
+    if err:
+        raise RuntimeError(f"{fn} launch failed: "
+                           f"{lib.amt_cuda_error_string(err).decode()} "
+                           f"({err})")
+    LAUNCHES[counter] += 1
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """The current CUDA stream of t's device, as the int the C entry
+    points take."""
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 # ---------------------------------------------------------------------------
@@ -172,22 +211,16 @@ def reconcile_rows_hash(rows: torch.Tensor, dims: tuple,
         raise ValueError("row buffer must be contiguous")
     i, a, le, a_set, a_del = dims
     d_pad = rows.shape[1]
-    lib = _library("reconcile_rows")
     with torch.cuda.device(rows.device):
         out = torch.empty(d_pad, dtype=torch.int32, device=rows.device)
         st = torch.empty((i, d_pad), dtype=torch.int32, device=rows.device)
         vis = torch.empty((le, d_pad), dtype=torch.int32, device=rows.device)
         rank = torch.empty((le, d_pad), dtype=torch.int32, device=rows.device)
-        stream = torch.cuda.current_stream(rows.device).cuda_stream
-        err = lib.amt_reconcile_rows_hash(
-            rows.data_ptr(), out.data_ptr(), st.data_ptr(),
-            vis.data_ptr() if le else None, rank.data_ptr() if le else None,
-            d_pad, i, a, le, a_set, a_del, stream)
-    if err:
-        raise RuntimeError(
-            f"reconcile_rows_hash launch failed: "
-            f"{lib.amt_cuda_error_string(err).decode()} ({err})")
-    LAUNCHES["reconcile_rows_hash"] += 1
+        launch("reconcile_rows", "amt_reconcile_rows_hash",
+               "reconcile_rows_hash", rows.data_ptr(), out.data_ptr(),
+               st.data_ptr(), vis.data_ptr() if le else None,
+               rank.data_ptr() if le else None, d_pad, i, a, le, a_set,
+               a_del, stream_of(rows))
     return out
 
 
@@ -257,6 +290,4 @@ def _plain_lanes(x, b, I, A, LE, a_set, a_del):
     for r in range(A):
         ah += torch.where(act == r, ah_rows[r][None], 0)
     contrib = _mix4(key1, key2, ah, vh)           # int64 in [0, 2**32)
-    total = torch.where(cand, contrib, 0).sum(0) & 0xFFFFFFFF
-    # the uint32 sum's bits as int32
-    return (total - ((total >> 31) << 32)).to(torch.int32)
+    return _int32_bits(torch.where(cand, contrib, 0).sum(0))

@@ -150,3 +150,101 @@ def apply_rows_hash(rows: torch.Tensor, dims: tuple,
     version for a CPU one."""
     from .cuda_kernels import reconcile_rows_hash
     return reconcile_rows_hash(rows, dims)[:n_docs]
+
+
+# ---------------------------------------------------------------------------
+# Span-table lane layout (the batched text-merge plane's wire shape)
+#
+# Per document, one int32 [len(SPAN_FIELDS), S_pad] block with the span
+# axis minor, so a fleet of divergent documents merges as one
+# [D, F, S_pad] dispatch. Merge-order encoding (span_kernels sorts by it):
+#   slot       2*i for the i-th span of the base (common-history) table,
+#              2*g+1 for a concurrent span anchored in the gap after base
+#              span g (-1 for the head gap);
+#   prio_elem/prio_actor  RGA sibling priority of the span's head element,
+#              concurrent spans in one gap order by it DESCENDING;
+#   block_seq  ascending tiebreak keeping one side's flattened subtree
+#              block contiguous and in its side-local order.
+
+SPAN_FIELDS = ("span_mask", "origin_hash", "start_id", "vis_len", "slot",
+               "prio_elem", "prio_actor", "block_seq")
+
+
+def pack_spans(doc_spans: list) -> np.ndarray:
+    """Pack per-document span tables into [D, len(SPAN_FIELDS), S_pad]
+    int32 lanes. Each span is an (origin_hash, start_id, vis_len, slot,
+    prio_elem, prio_actor, block_seq) tuple; the mask row is synthesized.
+    The span axis pads to the lane width (pad_to_lanes); padded slots are
+    all zero and mask out."""
+    d = len(doc_spans)
+    s_max = max((len(sp) for sp in doc_spans), default=0)
+    s_pad = pad_to_lanes(max(s_max, 1))
+    out = np.zeros((d, len(SPAN_FIELDS), s_pad), np.int32)
+    for i, spans in enumerate(doc_spans):
+        if not spans:
+            continue
+        arr = np.asarray(spans, np.int64).T  # [7, s]
+        if arr.shape[0] != len(SPAN_FIELDS) - 1:
+            raise ValueError(
+                f"span tuples must have {len(SPAN_FIELDS) - 1} columns "
+                f"({SPAN_FIELDS[1:]}), got {arr.shape[0]}")
+        out[i, 0, :arr.shape[1]] = 1
+        out[i, 1:, :arr.shape[1]] = arr.astype(np.int32)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Move-resolution tables: one realm (core/moves.MoveProblem) packs into two
+# lane blocks,
+#
+#   nodes [D, 4, N_pad]:  mask, base_parent_slot (-1 root), cand_off,
+#                         cand_cnt
+#   cands [D, 3, K_pad]:  parent_slot, prio_hi, prio_lo
+#
+# Candidates are sorted per node by priority DESCENDING and concatenated in
+# node-slot order (cand_off/cand_cnt index the runs), so a node's current
+# winner is one gather at cand_off + ptr. Both priority components are
+# RANK-compressed within the realm: integer compares reproduce the host
+# tuple order exactly, priorities stay unique (the cycle-drop rule needs
+# it), and no rank can reach the MOVE_PRIO_PAD sentinel.
+
+MOVE_NODE_FIELDS = ("node_mask", "base_parent", "cand_off", "cand_cnt")
+MOVE_CAND_FIELDS = ("cand_parent", "cand_hi", "cand_lo")
+MOVE_PRIO_PAD = np.iinfo(np.int32).max
+
+
+def pack_moves(problems: list) -> dict:
+    """Pack MoveProblems into the move-resolution lane layout. Returns
+    {"nodes": [D, 4, N_pad] int32, "cands": [D, 3, K_pad] int32}."""
+    d = len(problems)
+    n_max = max((len(p.nodes) for p in problems), default=0)
+    k_max = max((sum(len(c) for c in p.cands) for p in problems), default=0)
+    n_pad = pad_to_lanes(max(n_max, 1))
+    k_pad = pad_to_lanes(max(k_max, 1))
+    nodes = np.zeros((d, len(MOVE_NODE_FIELDS), n_pad), np.int32)
+    nodes[:, 1, :] = -1
+    cands = np.zeros((d, len(MOVE_CAND_FIELDS), k_pad), np.int32)
+    cands[:, 0, :] = -1
+    cands[:, 1:, :] = MOVE_PRIO_PAD
+    for i, p in enumerate(problems):
+        n = len(p.nodes)
+        if n == 0:
+            continue
+        # raw lamport sums can exceed int32 and a local unstamped preview
+        # op carries a 2^62 sentinel: ranks are order-isomorphic and
+        # bounded by the candidate count
+        hi_rank = {v: r for r, v in enumerate(
+            sorted({c[0] for cl in p.cands for c in cl}))}
+        lo_rank = {v: r for r, v in enumerate(
+            sorted({c[1] for cl in p.cands for c in cl}))}
+        nodes[i, 0, :n] = 1
+        nodes[i, 1, :n] = np.asarray(p.base[:n], np.int32) if p.base else -1
+        cnt = np.fromiter((len(cl) for cl in p.cands[:n]), np.int64, n)
+        nodes[i, 3, :n] = cnt
+        nodes[i, 2, :n] = np.cumsum(cnt) - cnt
+        flat = [c for cl in p.cands[:n] for c in cl]
+        k = len(flat)
+        cands[i, 0, :k] = [-1 if c[2] is None else c[2] for c in flat]
+        cands[i, 1, :k] = [hi_rank[c[0]] for c in flat]
+        cands[i, 2, :k] = [lo_rank[c[1]] for c in flat]
+    return {"nodes": nodes, "cands": cands}

@@ -13,6 +13,24 @@ the random kernel inputs of the tests and of `chip_smoke.py`.
   runs: every actor types `chars` characters after its own cursor, deletes
   about one in four of them, and the changes arrive interleaved over a few
   rounds.
+
+The batched planes' workloads (span tables and move realms):
+
+- `span_bulk_merge`: the reference's bench config 10 (`bench.py::
+  run_bulk_merge_config`): one 1,000,000-char document, two sides at 1%
+  concurrency (10,000 char ops each, bursts of 8-32 chars, p_delete
+  0.12), merged as one span table.
+- `span_fleet`: config 10's small-doc shape (4,096-char bases, max(8, 1%)
+  char ops per side), widened to a fleet merged as one dispatch.
+- `move_storm`: the storm of bench config 16(b) (`bench.py::
+  run_move_config`): 1,536 mutually concurrent reparents of 1,600 map
+  objects by 7 writers, built directly as the realm the reference's
+  `_build_map_problem` makes of it; `move_fleet` is many such realms.
+
+A span table depends only on the base length and the edit events, so the
+generators replay the bench's event draws (`divergent_side_events`) and
+build the table from them (`merge_table_from_events`) without building
+any document.
 """
 
 from __future__ import annotations
@@ -24,6 +42,8 @@ import numpy as np
 
 from .core.change import Change, Op
 from .core.ids import HEAD, ROOT_ID, make_elem_id
+from .core.moves import MoveProblem
+from .core.textspans import merge_table
 from .engine.encode import A_DEL, A_INS, A_MOVE, A_SET
 from .engine.pack import row_bases, rows_count
 
@@ -150,3 +170,258 @@ def reference_streams():
     ids, heavy, storm = map_storm(**SMALL_MAP)
     tids, trounds = text_fleet(**SMALL_TEXT)
     return [("map", ids, [[heavy], storm]), ("text", tids, [trounds])]
+
+
+# ---------------------------------------------------------------------------
+# span tables (the text-merge plane)
+
+# config 10's sibling ranks and origin hashes of its two sides
+SPAN_ARANK = {"C": 2, "B": 1}
+SPAN_ORIGINS = {"C": 2, "B": 3}
+
+
+def divergent_side_events(base_len: int, base_max_elem: int,
+                          n_char_ops: int, seed: int, burst=(8, 32),
+                          p_delete: float = 0.12) -> list:
+    """The edit events of one side of a divergent text history, with the
+    rng draws of the bench's `gen_divergent_side`: bursts chain-insert
+    8..32 chars anchored at base positions, deletes remove contiguous
+    windows of base characters. Returns ("ins", base_pos, head_elem, len)
+    and ("del", base_pos, len) events; element counters continue from
+    `base_max_elem`."""
+    rng = random.Random(seed)
+    elem = base_max_elem
+    events = []
+    done = 0
+    while done < n_char_ops:
+        if rng.random() < p_delete and base_len and done:
+            k = min(rng.randint(2, 16), n_char_ops - done, base_len)
+            at = rng.randrange(base_len - k + 1)
+            events.append(("del", at, k))
+        else:
+            k = min(rng.randint(*burst), n_char_ops - done)
+            pos = rng.randint(0, base_len)
+            events.append(("ins", pos, elem + 1, k))
+            elem += k
+        done += k
+    return events
+
+
+def merge_table_from_events(base_len: int, side_events: dict, arank: dict,
+                            origins: dict):
+    """The merge span table of a base of `base_len` chars and the sides'
+    events (the bench's `_merge_table_from_events`): the base is cut at
+    every concurrent anchor and deletion boundary, each region between
+    cuts is one row (vis_len 0 when the merge deletes it), and each
+    concurrent burst is one row with its head element's sibling priority.
+    Returns (rows, n_base_rows, n_concurrent_rows, expected_visible_len).
+
+    Every deletion window's ends are cuts, so a region between two cuts
+    is deleted whole or not at all."""
+    cuts = {0, base_len}
+    deleted = set()
+    for events in side_events.values():
+        for ev in events:
+            if ev[0] == "ins":
+                cuts.add(ev[1])
+            else:
+                _, at, k = ev
+                cuts.update((at, at + k))
+                deleted.update(range(at, at + k))
+    bounds = sorted(cuts)
+    base_spans, gap_of = [], {0: -1}
+    for lo, hi in zip(bounds, bounds[1:]):
+        base_spans.append((1, lo + 1, 0 if lo in deleted else hi - lo))
+        gap_of[hi] = len(base_spans) - 1
+    blocks = []
+    inserted = 0
+    for side, events in side_events.items():
+        for ev in events:
+            if ev[0] == "ins":
+                _, pos, head, k = ev
+                blocks.append((gap_of[pos], head, arank[side],
+                               [(origins[side], head, k)]))
+                inserted += k
+    rows = merge_table(base_spans, blocks)
+    return rows, len(base_spans), len(blocks), \
+        base_len - len(deleted) + inserted
+
+
+def _divergent_table(base_len: int, n_side: int, seeds: tuple):
+    """(rows, expected visible length) of one document whose base was
+    typed as elements 1..base_len by one actor."""
+    ev_c = divergent_side_events(base_len, base_len, n_side, seeds[0])
+    ev_b = divergent_side_events(base_len, base_len, n_side, seeds[1])
+    rows, _nb, _nc, expected = merge_table_from_events(
+        base_len, {"C": ev_c, "B": ev_b}, SPAN_ARANK, SPAN_ORIGINS)
+    return rows, expected
+
+
+def span_bulk_merge(base_len: int = 1_000_000, concurrency: float = 0.01,
+                    seeds: tuple = (21, 22)):
+    """Config 10's bulk merge: returns ([rows], [expected visible
+    length]) for one document."""
+    rows, expected = _divergent_table(
+        base_len, int(round(base_len * concurrency)), seeds)
+    return [rows], [expected]
+
+
+def span_fleet(n_docs: int = 10_000, base_len: int = 4096,
+               concurrency: float = 0.01):
+    """Config 10's small-doc shape over a fleet: document i's sides use
+    the bench's seeds 300 + i and 600 + i. Returns (tables, expected
+    visible lengths)."""
+    n_side = max(8, int(round(base_len * concurrency)))
+    tables, expected = [], []
+    for i in range(n_docs):
+        rows, exp = _divergent_table(base_len, n_side, (300 + i, 600 + i))
+        tables.append(rows)
+        expected.append(exp)
+    return tables, expected
+
+
+def random_span_tables(rng: np.random.Generator, n_docs: int, n_spans: int,
+                       full_range: bool = False) -> list:
+    """Random span tables of exactly `n_spans` rows. With `full_range`
+    every column takes any int32 value (the sort keys' negation wraps,
+    the sums overflow); otherwise the ranges of a real merge table."""
+    if full_range:
+        cols = rng.integers(-2**31, 2**31, size=(n_docs, n_spans, 7))
+    else:
+        cols = np.stack([
+            rng.integers(1, 1 << 20, (n_docs, n_spans)),
+            rng.integers(0, 1 << 20, (n_docs, n_spans)),
+            rng.integers(0, 60, (n_docs, n_spans)),
+            rng.integers(-1, 2 * n_spans, (n_docs, n_spans)),
+            rng.integers(0, 1 << 15, (n_docs, n_spans)),
+            rng.integers(0, 64, (n_docs, n_spans)),
+            np.broadcast_to(np.arange(n_spans), (n_docs, n_spans))], -1)
+    return [[tuple(int(v) for v in row) for row in doc] for doc in cols]
+
+
+# ---------------------------------------------------------------------------
+# move realms (the move plane)
+
+
+def move_storm_ops(n_objs: int = 1600, n_moves: int = 1536,
+                   writers: int = 7, seed: int = 16) -> list:
+    """The draws of bench config 16(b)'s storm: `n_moves` distinct objects
+    each moved once under a random other object, writer j % `writers`
+    issuing move j as the next seq of its chain on the base. Returns
+    [(writer, seq, dst, moved)] in the order the moves are made."""
+    rng = random.Random(seed)
+    movers = rng.sample(range(n_objs), n_moves)
+    wseq: dict[str, int] = {}
+    out = []
+    for j, m in enumerate(movers):
+        dst = rng.randrange(n_objs)
+        while dst == m:
+            dst = rng.randrange(n_objs)
+        w = f"w{j % writers}"
+        wseq[w] = wseq.get(w, 0) + 1
+        out.append((w, wseq[w], dst, m))
+    return out
+
+
+def storm_key(obj: int) -> str:
+    """The storm's object id for object number `obj`."""
+    return f"o{obj:05d}"
+
+
+def move_storm(n_objs: int = 1600, n_moves: int = 1536, writers: int = 7,
+               seed: int = 16) -> MoveProblem:
+    """The map realm of one storm (move_storm_ops), as the reference's
+    `_build_map_problem` builds it after admitting the storm: every moved
+    object and every destination is a node, every base edge is the root
+    link (-1), and each moved object has its one move as candidate with
+    priority (lamport, (writer, moved-id)); the lamport clock of a
+    writer's seq-s change on the base is s."""
+    p = MoveProblem()
+    ops = move_storm_ops(n_objs, n_moves, writers, seed)
+    for (_w, _s, _dst, m) in ops:
+        p.moved.append(p.slot(storm_key(m)))
+    for (w, s, dst, m) in ops:
+        p.cands[p.index[storm_key(m)]] = [
+            (s, (w, storm_key(m)), p.slot(storm_key(dst)), None)]
+    return p
+
+
+def move_fleet(n_realms: int = 1024, seed0: int = 1000, **storm) -> list:
+    """`n_realms` storm realms, realm r drawn from seed seed0 + r."""
+    return [move_storm(seed=seed0 + r, **storm) for r in range(n_realms)]
+
+
+def random_move_problem(rng: random.Random, n_nodes: int,
+                        n_moves: int) -> MoveProblem:
+    """A random realm (the reference's tests' generator): random base
+    forest, `n_moves` candidates with unique priorities on random nodes,
+    random targets (cycles and self-loops included)."""
+    p = MoveProblem()
+    for i in range(n_nodes):
+        p.slot(f"n{i}")
+    for s in range(n_nodes):
+        p.base[s] = rng.randrange(-1, s) if s else -1
+    prios = rng.sample(range(max(10_000, n_moves)), n_moves)
+    by_node: dict[int, list] = {}
+    for m in range(n_moves):
+        s = rng.randrange(n_nodes)
+        by_node.setdefault(s, []).append(
+            (prios[m] // 40, ("a%02d" % (prios[m] % 40), "v"),
+             rng.randrange(-1, n_nodes)))
+    for s, cl in by_node.items():
+        cl.sort(key=lambda t: (t[0], t[1]), reverse=True)
+        p.cands[s] = [(hi, lo, tgt, None) for (hi, lo, tgt) in cl]
+        p.moved.append(s)
+    return p
+
+
+def random_move_lanes(rng: np.random.Generator, d: int, n_pad: int,
+                      k_pad: int):
+    """Random packed move lanes (nodes [d, 4, n_pad], cands [d, 3, k_pad],
+    ptr [d, n_pad], int32) in the ranges pack_moves produces: each realm
+    a random node count, candidate runs tiling a prefix of the candidate
+    axis, parents in [-1, n), priorities in [0, k_pad) or the pad, and
+    winner pointers past a run's end too."""
+    from .engine.pack import MOVE_PRIO_PAD
+    nodes = np.zeros((d, 4, n_pad), np.int32)
+    nodes[:, 1] = -1
+    cands = np.full((d, 3, k_pad), MOVE_PRIO_PAD, np.int32)
+    cands[:, 0] = -1
+    ptr = np.zeros((d, n_pad), np.int32)
+    for r in range(d):
+        n = int(rng.integers(1, n_pad + 1))
+        cnt = np.zeros(n, np.int64)
+        k = int(rng.integers(0, k_pad + 1))
+        np.add.at(cnt, rng.integers(0, n, k), 1)
+        nodes[r, 0, :n] = 1
+        nodes[r, 1, :n] = rng.integers(-1, n, n)
+        nodes[r, 2, :n] = np.cumsum(cnt) - cnt
+        nodes[r, 3, :n] = cnt
+        cands[r, 0, :k] = rng.integers(-1, n, k)
+        cands[r, 1, :k] = rng.integers(0, k_pad, k)
+        cands[r, 2, :k] = rng.permutation(k_pad)[:k]
+        ptr[r, :n] = rng.integers(0, cnt + 2)
+    return nodes, cands, ptr
+
+
+# Small span tables and move realms whose outputs the JAX reference
+# computed, committed in testdata/reference_hashes.npz.
+
+
+def reference_span_tables() -> list:
+    """A small fleet of config-10 tables plus one random table of every
+    range, an empty one and a padded one."""
+    tables, _ = span_fleet(n_docs=6)
+    rng = np.random.default_rng(10)
+    tables += random_span_tables(rng, 1, 40, full_range=True)
+    return tables + [[], [(7, 0, 3, 0, 0, 0, 0)]]
+
+
+def reference_move_problems() -> list:
+    """Small storm realms (seeds whose storms drop cycle edges) and random
+    realms."""
+    rng = random.Random(16)
+    probs = [move_storm(n_objs=80, n_moves=64, seed=s) for s in (3, 4)]
+    return probs + [random_move_problem(rng, rng.randrange(2, 48),
+                                        rng.randrange(0, 40))
+                    for _ in range(5)]

@@ -1,14 +1,21 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (automerge_tpu_torch) on one NVIDIA
 GPU: builds the hand-written kernels from the checkout, holds each against
-its plain PyTorch version, and drives the rows engine's main path
-(`ResidentRowsDocSet.apply_rounds`, `hashes`, `hashes_for`) at fleet size.
+its plain PyTorch version, and drives the port's main paths at full size:
+the rows engine (`ResidentRowsDocSet.apply_rounds`, `hashes`,
+`hashes_for`), the text-merge plane (`dispatch.merge_spans_adaptive`) and
+the move plane (`dispatch.resolve_moves_adaptive`).
 
     python3 chip_smoke.py
 
 Phases:
   1. build (one nvcc per kernel source, all started together) and kernel
-     parity on random buffers at the base shape and the XL-only shape;
+     parity on random inputs: the reconcile kernel at the base shape and
+     the XL-only shape; the span rank+hash kernel at S_pad 128 and 4,096
+     (pre-sorted and through an order); the move source's round kernel
+     (move_round) and fixpoint kernel (resolve_moves, the one the move
+     plane launches) at N_pad 512 (K_pad 512), 4,096 and 8,192 (global
+     scratch);
   2. the map storm of the reference's bench config 20: 10,000 docs, 8 heavy
      docs of 400 ops, 8 zipf(1.1) rounds of ~1K dirty docs, then a
      minority-dirty hashes_for read;
@@ -16,8 +23,19 @@ Phases:
      half of the kernel runs; its startup read takes the full-buffer path;
   4. both paths' final hashes recomputed from the device buffer by the plain
      version, and the launch counts of both paths;
-  5. small fixed-seed streams against hashes the JAX reference computed
-     (automerge_tpu_torch/testdata/reference_hashes.npz).
+  5. small fixed-seed workloads against outputs the JAX reference computed
+     (automerge_tpu_torch/testdata/reference_hashes.npz): the rows streams'
+     hashes, span-table merges and move resolutions;
+  6. the text-merge plane: bench config 10's 1,000,000-char bulk merge and
+     a 10,000-doc fleet of its small-doc shape, each one routed dispatch
+     (the plan must pick the device, the kernel must launch once), held
+     against the plain version and the numpy oracle;
+  7. the move plane: bench config 16's storm realm (1,536 concurrent
+     reparents of 1,600 objects) and a fleet of 1,024 such realms, held
+     against the plain version, the numpy oracle and (one realm) the host
+     walk;
+  8. the router's cost constants measured on this machine (the "link"
+     line: launch + readback, host<->device copies, the numpy oracles).
 Then the kernel timings, a `kernels` JSON line, the card's name and power
 limit, and the last line {"ok": true, "device": {...}}. Any failure exits
 non-zero; without a CUDA device, or outside a checkout, it prints no result.
@@ -36,6 +54,15 @@ from pathlib import Path
 # int32 lanes are no faster than its float32 lanes).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
+
+# Integer operations a lane of each plane's kernel needs at least: an
+# unmasked span lane of the rank+hash takes four murmur finalizers (8 ops
+# each), their four mixes, the scan add and the masked selects; a move
+# node does ~12 for its winner gather and ~8 per doubling step (two label
+# loads, three compares, three selects).
+SPAN_LANE_OPS = 40
+MOVE_GATHER_OPS = 12
+MOVE_STEP_OPS = 8
 
 
 def check(cond, msg: str) -> None:
@@ -66,6 +93,14 @@ def max_abs_err(got, want) -> int:
         initial=0))
 
 
+def bound_of(nbytes: int, ops: int):
+    """(bound_ms, bound_by): the larger of the bytes over the HBM rate and
+    the operations over the compute rate."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def bound(rows, dims):
     """(bound_ms, bound_by) of one reconcile of `rows`: its bytes (read
     once, hashes written once) over the HBM rate, against the pairwise
@@ -80,9 +115,60 @@ def bound(rows, dims):
             & (rows[b["if"]:b["if"] + le] >= 0)).sum(0, dtype=torch.int64)
     ops = int((n_ops * n_ops + n_el * n_el + n_ops * n_el).sum())
     nbytes = rows.numel() * 4 + rows.shape[1] * 4
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_OPS_PER_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
+    return (*bound_of(nbytes, ops), nbytes, ops)
+
+
+def span_bound(spans):
+    """(bound_ms, bound_by, bytes, ops) of one rank+hash launch through an
+    order, for this data: the mask and the order read and the starts
+    written on every lane; origin, start_id and vis_len read on unmasked
+    lanes only (the function needs nothing else of a masked lane, nor the
+    sort keys); hash and total written once per document; SPAN_LANE_OPS
+    per unmasked lane."""
+    from automerge_tpu_torch.engine.span_kernels import F_MASK
+    d, _f, s = spans.shape
+    real = int((spans[:, F_MASK] > 0).sum())
+    nbytes = d * s * 3 * 4 + real * 3 * 4 + d * 2 * 4
+    ops = real * SPAN_LANE_OPS
+    return (*bound_of(nbytes, ops), nbytes, ops)
+
+
+def move_rounds(nodes, cands):
+    """Per realm, the fixpoint rounds the resolution runs before its final
+    round (the rounds with drops and the one that finds none), from the
+    plain round on the same lanes."""
+    import torch
+    from automerge_tpu_torch.engine.move_kernels import _round_plain
+    d = nodes.shape[0]
+    ptr = torch.zeros((d, nodes.shape[2]), dtype=torch.int32,
+                      device=nodes.device)
+    active = torch.ones(d, dtype=torch.bool, device=nodes.device)
+    rounds = torch.zeros(d, dtype=torch.int64, device=nodes.device)
+    for _ in range(cands.shape[2] + 1):
+        _parent, drop, _unres = _round_plain(nodes, cands, ptr)
+        rounds += active
+        active &= drop.any(1)
+        if not bool(active.any()):
+            break
+        ptr = ptr + drop.to(torch.int32)
+    return rounds
+
+
+def move_bound(nodes, cands):
+    """(bound_ms, bound_by, bytes, ops) of one fixpoint launch: the lanes
+    read once and ptr, parent, resolved, dropped and hash written once;
+    per real node and round run (this data's rounds plus the final one),
+    one winner gather and ceil(log2 N) + 1 doubling steps."""
+    from automerge_tpu_torch.engine.move_kernels import _ceil_log2
+    d, _f, n = nodes.shape
+    k = cands.shape[2]
+    steps = _ceil_log2(n) + 1
+    real = (nodes[:, 0] > 0).sum(1)
+    runs = move_rounds(nodes, cands) + 1
+    ops = int((runs * real).sum()) * (MOVE_GATHER_OPS
+                                      + steps * MOVE_STEP_OPS)
+    nbytes = d * (16 * n + 12 * k) + d * (9 * n + 8)
+    return (*bound_of(nbytes, ops), nbytes, ops)
 
 
 def phase_kernel_parity(torch, dev, report):
@@ -116,10 +202,91 @@ def phase_kernel_parity(torch, dev, report):
               f"bound_ms={b_ms:.5f} ({b_by}) max_abs_err={err}")
         check(launches == 1, "the wrapper did not launch its kernel")
         check(err == 0 and (got == want).all(), "kernel != plain version")
-        report["errs"].append(err)
+        report["reconcile_rows_hash"].append(err)
     check(not rows_dims_eligible(512, 8, 512)
           and ck.rows_dims_eligible_xl(512, 8, 512),
           "the XL-only shape is not XL-only")
+
+
+def hold_equal(got: dict, want: dict, what: str, report: list) -> None:
+    """Every key of `want` equal in `got` (numpy arrays); the largest
+    absolute difference goes to `report`."""
+    for k, w in want.items():
+        g = got[k]
+        check(g.shape == w.shape, f"{what}: {k} shape {g.shape} != {w.shape}")
+        err = max_abs_err(g, w)
+        report.append(err)
+        check(err == 0 and (g == w).all(), f"{what}: {k} differs")
+
+
+def counted(name: str, fn):
+    """fn() and the launches of kernel `name` it made, by a delta of the
+    wrapper's counter."""
+    import torch
+    from automerge_tpu_torch.engine import cuda_kernels as ck
+    before = ck.LAUNCHES[name]
+    out = fn()
+    torch.cuda.synchronize()
+    return out, ck.LAUNCHES[name] - before
+
+
+def phase_plane_kernel_parity(torch, dev, report):
+    """Phase 1, the batched planes' kernels on random inputs: each call
+    launches its kernel once and equals the plain version bit for bit."""
+    import numpy as np
+    from automerge_tpu_torch.engine import move_kernels as mk
+    from automerge_tpu_torch.engine import span_kernels as sk
+    from automerge_tpu_torch.engine.pack import pack_spans
+    from automerge_tpu_torch.workloads import (random_move_lanes,
+                                               random_span_tables)
+
+    rng = np.random.default_rng(2)
+    for d, s_pad in [(512, 128), (64, 4096)]:
+        tables = (random_span_tables(rng, d // 2, s_pad - 5)
+                  + random_span_tables(rng, d - d // 2, s_pad - 5,
+                                       full_range=True))
+        spans = torch.from_numpy(pack_spans(tables)).to(dev)
+        check(spans.shape == (d, 8, s_pad), f"span shape {spans.shape}")
+        order = torch.argsort(torch.rand((d, s_pad), device=dev),
+                              dim=1).to(torch.int32)
+        for label, args in (("pre-sorted", (spans,)),
+                            ("through order", (spans, order))):
+            got, n = counted("span_rank_hash",
+                             lambda: sk.span_rank_hash(*args))
+            want = sk.span_rank_hash_plain(*args)
+            check(n == 1, f"span_rank_hash launched {n} times")
+            hold_equal({k: g.cpu().numpy() for k, g in
+                        zip(("starts", "hash", "total"), got)},
+                       {k: w.cpu().numpy() for k, w in
+                        zip(("starts", "hash", "total"), want)},
+                       f"span_rank_hash {label} S_pad={s_pad}",
+                       report["span_rank_hash"])
+        print(f"phase 1: span_rank_hash D={d} S_pad={s_pad}: pre-sorted "
+              f"and through an order, one launch each, equal to the plain "
+              f"version")
+    for d, n_pad, k_pad in [(256, 512, 512), (32, 4096, 4096),
+                            (4, 8192, 1024)]:
+        nodes, cands, ptr = (torch.from_numpy(a).to(dev) for a in
+                             random_move_lanes(rng, d, n_pad, k_pad))
+        got, n = counted("move_round",
+                         lambda: mk.move_round(nodes, cands, ptr))
+        check(n == 1, f"move_round launched {n} times")
+        hold_equal({"out": got.cpu().numpy()},
+                   {"out": mk.move_round_plain(nodes, cands,
+                                               ptr).cpu().numpy()},
+                   f"move_round N_pad={n_pad}", report["move_round"])
+        got, n = counted("resolve_moves",
+                         lambda: mk.resolve_moves(nodes, cands))
+        check(n == 1, f"resolve_moves launched {n} times")
+        want = mk.resolve_moves_plain(nodes, cands)
+        hold_equal({k: v.cpu().numpy() for k, v in got.items()},
+                   {k: v.cpu().numpy() for k, v in want.items()},
+                   f"resolve_moves N_pad={n_pad}", report["resolve_moves"])
+        print(f"phase 1: move_round and resolve_moves D={d} N_pad={n_pad} "
+              f"K_pad={k_pad} "
+              f"({'shared memory' if n_pad <= mk.SMEM_MAX_NODES else 'global scratch'}): "
+              f"one round and the fixpoint, one launch each, equal to the "
+              f"plain version (cycle drops {int(want['dropped'].sum())})")
 
 
 def drive_map_storm(torch, dev):
@@ -199,7 +366,7 @@ def hold_to_plain(ds, final, name, report):
     kernel = ck.hashes_to_numpy(
         ck.reconcile_rows_hash(ds.rows_dev, ds.dims()))[:n]
     err = max(max_abs_err(final, plain), max_abs_err(kernel, plain))
-    report["errs"].append(err)
+    report["reconcile_rows_hash"].append(err)
     check(err == 0, f"{name}: engine or kernel hashes != plain version")
     print(f"phase 4: {name}: {n} engine and kernel hashes equal to the plain "
           f"version")
@@ -222,6 +389,233 @@ def phase_reference(dev):
         print(f"phase 5: {name}: {len(got)} hashes equal to the reference's")
 
 
+def drive_text_plane(torch, dev, report):
+    """Phase 6: both text-merge workloads through the router. Returns
+    {workload: (device spans, order)} for the timings and the launches of
+    the plane's kernel on this path."""
+    from automerge_tpu_torch.engine import cuda_kernels as ck
+    from automerge_tpu_torch.engine.dispatch import (merge_spans_adaptive,
+                                                     result_to_numpy)
+    from automerge_tpu_torch.engine.pack import pack_spans
+    from automerge_tpu_torch.engine.span_kernels import (merge_spans,
+                                                         merge_spans_host)
+    from automerge_tpu_torch.workloads import span_bulk_merge, span_fleet
+
+    t0 = time.perf_counter()
+    workloads = {"bulk merge": span_bulk_merge(),
+                 "span fleet": span_fleet()}
+    print(f"phase 6: generated both span workloads in "
+          f"{time.perf_counter() - t0:.2f} s")
+    inputs, launches = {}, 0
+    for name, (tables, expected) in workloads.items():
+        ck.LAUNCHES["span_rank_hash"] = 0
+        t0 = time.perf_counter()
+        plan, out = merge_spans_adaptive(tables, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = ck.LAUNCHES["span_rank_hash"]
+        launches += n
+        check(plan.backend == "device", f"{name}: the plan chose the host "
+              f"({plan})")
+        check(n == 1, f"{name}: span_rank_hash launched {n} times")
+        got = result_to_numpy(out)
+        spans = pack_spans(tables)
+        t0 = time.perf_counter()
+        host = merge_spans_host(spans)
+        host_wall = time.perf_counter() - t0
+        plain = result_to_numpy(merge_spans(torch.from_numpy(spans)))
+        hold_equal(got, plain, f"{name} vs plain", report["span_rank_hash"])
+        hold_equal(got, host, f"{name} vs numpy", report["span_rank_hash"])
+        check(got["total"].tolist() == list(expected),
+              f"{name}: totals != the generator's visible lengths")
+        spans_dev = torch.from_numpy(spans).to(dev)
+        inputs[name] = (spans_dev, torch.from_numpy(got["order"]).to(dev))
+        # the routed wall's legs, after the counted run
+        pack_s = host_s(lambda: pack_spans(tables), 3)
+        copy_s = host_s(lambda: (torch.from_numpy(spans).to(dev),
+                                 torch.cuda.synchronize()), 5)
+        merge_s = host_s(lambda: (merge_spans(spans_dev),
+                                  torch.cuda.synchronize()), 5)
+        rows = [len(t) for t in tables]
+        print(f"phase 6: {name}: {len(tables)} docs, spans per doc "
+              f"{min(rows)}-{max(rows)}, lanes {tuple(spans.shape)}; plan "
+              f"{plan.backend} (est device {plan.est_device_s * 1e3:.4f} ms, "
+              f"host {plan.est_host_s * 1e3:.4f} ms); routed wall "
+              f"{wall * 1e3:.3f} ms (pack {pack_s * 1e3:.3f} ms, copy "
+              f"{copy_s * 1e3:.3f} ms, merge_spans on the card "
+              f"{merge_s * 1e3:.3f} ms), numpy oracle after the pack "
+              f"{host_wall * 1e3:.3f} ms; launches {n}; visible length total "
+              f"{int(got['total'].astype('int64').sum())}; order, start, "
+              f"total, hash equal to the plain version and the oracle")
+    return inputs, launches
+
+
+def drive_move_plane(torch, dev, report):
+    """Phase 7: the storm realm and the realm fleet through the router.
+    Returns {workload: (device nodes, cands)} and the launches of the
+    plane's kernel on this path."""
+    from automerge_tpu_torch.core.moves import _resolve_walk
+    from automerge_tpu_torch.engine import cuda_kernels as ck
+    from automerge_tpu_torch.engine.dispatch import (resolve_moves_adaptive,
+                                                     result_to_numpy)
+    from automerge_tpu_torch.engine.move_kernels import (
+        resolve_moves, resolve_moves_host, resolve_moves_plain)
+    from automerge_tpu_torch.engine.pack import pack_moves
+    from automerge_tpu_torch.workloads import move_fleet, move_storm
+
+    t0 = time.perf_counter()
+    storm = move_storm()
+    workloads = {"storm realm": [storm], "realm fleet": move_fleet()}
+    packed = {k: pack_moves(v) for k, v in workloads.items()}
+    print(f"phase 7: built and packed both move workloads in "
+          f"{time.perf_counter() - t0:.2f} s")
+    inputs, launches = {}, 0
+    for name, pk in packed.items():
+        ck.LAUNCHES["resolve_moves"] = 0
+        t0 = time.perf_counter()
+        plan, out = resolve_moves_adaptive(pk, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = ck.LAUNCHES["resolve_moves"]
+        launches += n
+        check(plan.backend == "device", f"{name}: the plan chose the host "
+              f"({plan})")
+        check(n == 1, f"{name}: resolve_moves launched {n} times")
+        got = result_to_numpy(out)
+        nodes = torch.from_numpy(pk["nodes"]).to(dev)
+        cands = torch.from_numpy(pk["cands"]).to(dev)
+        t0 = time.perf_counter()
+        host = resolve_moves_host(pk)
+        host_wall = time.perf_counter() - t0
+        plain = result_to_numpy(resolve_moves_plain(nodes, cands))
+        hold_equal(got, plain, f"{name} vs plain", report["resolve_moves"])
+        hold_equal(got, host, f"{name} vs numpy", report["resolve_moves"])
+        if name == "storm realm":
+            walk_ptr, walk_dropped = _resolve_walk(storm)
+            check(got["ptr"][0][:len(storm.nodes)].tolist() == walk_ptr
+                  and int(got["dropped"][0]) == walk_dropped,
+                  "storm realm != the host walk")
+        inputs[name] = (nodes, cands)
+        pack_s = host_s(lambda: pack_moves(workloads[name]), 1)
+        resolve_s = host_s(lambda: (resolve_moves(nodes, cands),
+                                    torch.cuda.synchronize()), 5)
+        print(f"phase 7: {name}: {len(workloads[name])} realms, lanes "
+              f"nodes {tuple(pk['nodes'].shape)} cands "
+              f"{tuple(pk['cands'].shape)}; plan {plan.backend} (est device "
+              f"{plan.est_device_s * 1e3:.4f} ms, host "
+              f"{plan.est_host_s * 1e3:.4f} ms); routed wall from packed "
+              f"lanes {wall * 1e3:.3f} ms (resolve_moves on the card "
+              f"{resolve_s * 1e3:.3f} ms; pack_moves before it "
+              f"{pack_s * 1e3:.3f} ms), numpy oracle {host_wall * 1e3:.3f} ms; "
+              f"launches {n}; cycle drops {int(got['dropped'].sum())} "
+              f"(most in one realm {int(got['dropped'].max())}), "
+              f"unresolved nodes "
+              f"{int((pk['nodes'][:, 0] > 0).sum() - got['resolved'].sum())}"
+              f"; ptr, parent, resolved, dropped, hash equal to the plain "
+              f"version and the oracle"
+              + ("" if name != "storm realm" else " and the host walk"))
+    return inputs, launches
+
+
+def phase_plane_reference(torch, dev, report):
+    """Phase 5 for the batched planes: the committed reference outputs."""
+    import numpy as np
+    from automerge_tpu_torch.engine.dispatch import result_to_numpy
+    from automerge_tpu_torch.engine.move_kernels import resolve_moves
+    from automerge_tpu_torch.engine.pack import pack_moves, pack_spans
+    from automerge_tpu_torch.engine.span_kernels import merge_spans
+    from automerge_tpu_torch.workloads import (reference_move_problems,
+                                               reference_span_tables)
+
+    committed = np.load(Path(__file__).resolve().parent
+                        / "automerge_tpu_torch" / "testdata"
+                        / "reference_hashes.npz")
+    spans = torch.from_numpy(pack_spans(reference_span_tables())).to(dev)
+    got = result_to_numpy(merge_spans(spans))
+    hold_equal(got, {k: committed[f"spans_{k}"] for k in got},
+               "span tables vs reference", report["span_rank_hash"])
+    packed = pack_moves(reference_move_problems())
+    got = result_to_numpy(resolve_moves(
+        torch.from_numpy(packed["nodes"]).to(dev),
+        torch.from_numpy(packed["cands"]).to(dev)))
+    hold_equal(got, {k: committed[f"moves_{k}"] for k in got},
+               "move realms vs reference", report["resolve_moves"])
+    print(f"phase 5: {spans.shape[0]} span tables and "
+          f"{packed['nodes'].shape[0]} move realms equal to the reference's")
+
+
+def host_s(fn, reps: int) -> float:
+    """Median host seconds of fn() over `reps` calls, after one warm-up."""
+    import statistics
+    fn()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        walls.append(time.perf_counter() - t0)
+    return statistics.median(walls)
+
+
+def measure_link(torch, dev) -> dict:
+    """Phase 8: the router's cost constants on this machine. Link legs
+    through torch from pageable numpy memory, as the router ships; host
+    legs on the port's numpy oracles."""
+    import random
+
+    import numpy as np
+    from automerge_tpu_torch.engine.move_kernels import resolve_moves_host
+    from automerge_tpu_torch.engine.pack import pack_moves, pack_spans
+    from automerge_tpu_torch.engine.span_kernels import (merge_spans_host,
+                                                         span_rank_hash)
+    from automerge_tpu_torch.workloads import (move_fleet,
+                                               random_move_problem,
+                                               span_fleet)
+
+    small = torch.zeros(128, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    d2h = host_s(lambda: small.cpu(), 200)
+    tiny = torch.from_numpy(pack_spans([[(1, 2, 3, 0, 0, 0, 0)]])).to(dev)
+    tiny_total = host_s(lambda: span_rank_hash(tiny)[1].cpu(), 200)
+
+    def h2d(nbytes):
+        a = np.zeros(nbytes // 4, np.int32)
+        return host_s(lambda: (torch.from_numpy(a).to(dev),
+                               torch.cuda.synchronize()), 20)
+    h2d_small = h2d(1024)
+    t1, t64 = h2d(1 << 20), h2d(64 << 20)
+
+    fleet_spans = pack_spans(span_fleet(n_docs=2000)[0])
+    one_span = pack_spans([[(1, 2, 3, 0, 0, 0, 0)]])
+    span_fixed = host_s(lambda: merge_spans_host(one_span), 50)
+    span_big = host_s(lambda: merge_spans_host(fleet_spans), 5)
+    d, _f, s = fleet_spans.shape
+
+    one_realm = pack_moves([random_move_problem(random.Random(1), 20, 10)])
+    realms = pack_moves(move_fleet(n_realms=32))
+    move_fixed = host_s(lambda: resolve_moves_host(one_realm), 20)
+    move_big = host_s(lambda: resolve_moves_host(realms), 3)
+    rd, _f, n = realms["nodes"].shape
+    k = realms["cands"].shape[2]
+    link = {
+        "dispatch_fixed_s": max(tiny_total - d2h, 1e-7),
+        "h2d_call_s": h2d_small,
+        "h2d_bytes_per_s": (63 << 20) / max(t64 - t1, 1e-9),
+        "d2h_call_s": d2h,
+        "span_op_s": (span_big - span_fixed) / (d * s),
+        "span_fixed_s": span_fixed,
+        "move_lane_s": (move_big - move_fixed) / (rd * (n + k)),
+        "move_fixed_s": move_fixed,
+    }
+    print(f"phase 8: link legs: tiny launch + readback {tiny_total:.3e} s, "
+          f"512 B readback {d2h:.3e} s, 1 KiB copy {h2d_small:.3e} s, "
+          f"1 MiB {t1:.3e} s, 64 MiB {t64:.3e} s; host legs: "
+          f"merge_spans_host 1x128 {span_fixed:.3e} s, {d}x{s} "
+          f"{span_big:.3e} s; resolve_moves_host 1x(128+128) "
+          f"{move_fixed:.3e} s, {rd}x({n}+{k}) {move_big:.3e} s")
+    print("link " + json.dumps(link))
+    return link
+
+
 def time_kernel(torch, ds, label):
     from automerge_tpu_torch.engine import cuda_kernels as ck
     rows, dims = ds.rows_dev, ds.dims()
@@ -232,6 +626,41 @@ def time_kernel(torch, ds, label):
           f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.3f} bound_ms={b_ms:.5f} "
           f"({b_by}; bytes={nbytes} compares={ops})")
     return k_ms, p_ms, b_ms, b_by
+
+
+def time_span_kernel(torch, spans, order, label):
+    """The rank+hash launch that merge_spans makes on this workload."""
+    from automerge_tpu_torch.engine.span_kernels import (
+        span_rank_hash, span_rank_hash_plain)
+    k_ms = cuda_ms(lambda: span_rank_hash(spans, order), 20)
+    p_ms = cuda_ms(lambda: span_rank_hash_plain(spans, order), 3)
+    b_ms, b_by, nbytes, ops = span_bound(spans)
+    print(f"timing {label}: span_rank_hash lanes={tuple(spans.shape)} "
+          f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.3f} bound_ms={b_ms:.5f} "
+          f"({b_by}; bytes={nbytes} ops={ops})")
+    return k_ms, p_ms, b_ms, b_by
+
+
+def time_move_kernel(torch, nodes, cands, label):
+    """The fixpoint launch that resolve_moves makes on this workload."""
+    from automerge_tpu_torch.engine.move_kernels import (resolve_moves,
+                                                         resolve_moves_plain)
+    k_ms = cuda_ms(lambda: resolve_moves(nodes, cands), 20)
+    p_ms = cuda_ms(lambda: resolve_moves_plain(nodes, cands), 2)
+    b_ms, b_by, nbytes, ops = move_bound(nodes, cands)
+    print(f"timing {label}: resolve_moves (fixpoint) nodes="
+          f"{tuple(nodes.shape)} cands={tuple(cands.shape)} "
+          f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.3f} bound_ms={b_ms:.5f} "
+          f"({b_by}; bytes={nbytes} ops={ops})")
+    return k_ms, p_ms, b_ms, b_by
+
+
+def kernel_entry(name, source, replaces, launches, errs, times):
+    k_ms, p_ms, b_ms, b_by = times
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(errs), "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
 def main() -> int:
@@ -248,26 +677,47 @@ def main() -> int:
     sys.path.insert(0, str(repo))
     dev = torch.device("cuda", 0)
     t_all = time.perf_counter()
-    report = {"errs": []}
+    report = {"reconcile_rows_hash": [], "span_rank_hash": [],
+              "move_round": [], "resolve_moves": []}
 
     phase_kernel_parity(torch, dev, report)
+    phase_plane_kernel_parity(torch, dev, report)
     map_ds, map_final, map_launches = drive_map_storm(torch, dev)
     text_ds, text_final, text_launches = drive_text_fleet(torch, dev)
     check(map_launches > 0 and text_launches > 0, "a path skipped the kernel")
     hold_to_plain(map_ds, map_final, "map storm", report)
     hold_to_plain(text_ds, text_final, "text fleet", report)
     phase_reference(dev)
+    phase_plane_reference(torch, dev, report)
+    span_inputs, span_launches = drive_text_plane(torch, dev, report)
+    move_inputs, move_launches = drive_move_plane(torch, dev, report)
+    measure_link(torch, dev)
 
-    k_ms, p_ms, b_ms, b_by = time_kernel(torch, map_ds, "map storm")
+    rows_times = time_kernel(torch, map_ds, "map storm")
     time_kernel(torch, text_ds, "text fleet")
-    print(json.dumps({"kernels": [{
-        "name": "reconcile_rows_hash", "route": "cuda",
-        "source": "automerge_tpu_torch/csrc/reconcile_rows.cu",
-        "replaces": "automerge_tpu/engine/pallas_kernels.py:499",
-        "launches": map_launches + text_launches,
-        "max_abs_err": max(report["errs"]),
-        "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None}]}))
+    span_times = {k: time_span_kernel(torch, *v, k)
+                  for k, v in span_inputs.items()}
+    move_times = {k: time_move_kernel(torch, *v, k)
+                  for k, v in move_inputs.items()}
+    print(f"launches: rows engine {map_launches} (map storm) + "
+          f"{text_launches} (text fleet); text-merge plane {span_launches}; "
+          f"move plane {move_launches}")
+    print(json.dumps({"kernels": [
+        kernel_entry("reconcile_rows_hash",
+                     "automerge_tpu_torch/csrc/reconcile_rows.cu",
+                     "automerge_tpu/engine/pallas_kernels.py:499",
+                     map_launches + text_launches,
+                     report["reconcile_rows_hash"], rows_times),
+        kernel_entry("span_rank_hash",
+                     "automerge_tpu_torch/csrc/span_rank_hash.cu",
+                     "automerge_tpu/engine/span_kernels.py:184",
+                     span_launches, report["span_rank_hash"],
+                     span_times["span fleet"]),
+        kernel_entry("resolve_moves",
+                     "automerge_tpu_torch/csrc/move_round.cu",
+                     "automerge_tpu/engine/move_kernels.py:319",
+                     move_launches, report["resolve_moves"],
+                     move_times["realm fleet"])]}))
     print(f"total {time.perf_counter() - t_all:.1f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

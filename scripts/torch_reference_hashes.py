@@ -1,10 +1,19 @@
-"""Fix the hashes the port must reproduce: run small seeded streams of
-`automerge_tpu_torch.workloads` through the JAX reference's rows engine
-(pure-Python ingress, Pallas kernel in interpret mode, on the CPU) and write
-their final per-doc hashes to automerge_tpu_torch/testdata/
-reference_hashes.npz. `chip_smoke.py` holds the port to that file on a
-machine that has no JAX; `tests/test_torch_rows.py` checks that both
-packages still reproduce it.
+"""Fix the outputs the port must reproduce: run small seeded workloads of
+`automerge_tpu_torch.workloads` through the JAX reference on the CPU and
+write them to automerge_tpu_torch/testdata/reference_hashes.npz:
+
+- the rows streams through the reference's rows engine (pure-Python
+  ingress, Pallas kernel in interpret mode): the final per-doc hashes,
+  under each stream's name;
+- small span tables through the reference's XLA `merge_spans`:
+  `spans_order`, `spans_start`, `spans_total`, `spans_hash`;
+- small move realms through the reference's XLA `resolve_moves`:
+  `moves_ptr`, `moves_parent`, `moves_resolved`, `moves_dropped`,
+  `moves_hash`.
+
+`chip_smoke.py` holds the port to that file on a machine that has no JAX;
+`tests/test_torch_rows.py`, `test_torch_spans.py` and `test_torch_moves.py`
+check that both packages still reproduce it.
 
     JAX_PLATFORMS=cpu python scripts/torch_reference_hashes.py
 """
@@ -35,13 +44,33 @@ def reference_hashes() -> dict[str, np.ndarray]:
     return out
 
 
+def reference_span_outputs() -> dict[str, np.ndarray]:
+    from automerge_tpu.engine.pack import pack_spans
+    from automerge_tpu.engine.span_kernels import merge_spans
+    from automerge_tpu_torch.workloads import reference_span_tables
+
+    out = merge_spans(pack_spans(reference_span_tables()))
+    return {f"spans_{k}": np.asarray(v) for k, v in out.items()}
+
+
+def reference_move_outputs() -> dict[str, np.ndarray]:
+    from automerge_tpu.engine.move_kernels import resolve_moves
+    from automerge_tpu.engine.pack import pack_moves
+    from automerge_tpu_torch.workloads import reference_move_problems
+
+    packed = pack_moves(reference_move_problems())
+    out = resolve_moves(packed["nodes"], packed["cands"])
+    return {f"moves_{k}": np.asarray(v) for k, v in out.items()}
+
+
 def main() -> int:
     sys.path.insert(0, str(REPO))
-    hashes = reference_hashes()
+    outputs = {**reference_hashes(), **reference_span_outputs(),
+               **reference_move_outputs()}
     OUT.parent.mkdir(parents=True, exist_ok=True)
-    np.savez(OUT, **hashes)
+    np.savez(OUT, **outputs)
     print(f"wrote {OUT.relative_to(REPO)}: "
-          + ", ".join(f"{k} {v.shape}" for k, v in hashes.items()))
+          + ", ".join(f"{k} {v.shape}" for k, v in outputs.items()))
     return 0
 
 

@@ -1,24 +1,36 @@
-"""The port's CUDA kernel and rows engine on the card. Every test here is
-marked `cuda` and skips without a GPU. The file imports neither jax nor the
+"""The port's CUDA kernels, the rows engine and the batched planes on the
+card. Every test here is marked `cuda` and skips without a GPU. The file imports neither jax nor the
 JAX package, so it runs on a GPU machine that has neither:
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 
-Tolerance: exact (integer hashes). The CPU side of each comparison is the
-plain PyTorch version, which tests/test_torch_kernels.py and
-tests/test_torch_rows.py hold bit-equal to the reference."""
+Tolerance: exact (integer outputs and hashes). The other side of each
+comparison is the plain PyTorch version, which tests/test_torch_kernels.py,
+test_torch_rows.py, test_torch_spans.py and test_torch_moves.py hold
+bit-equal to the reference."""
 
 from pathlib import Path
 
 import numpy as np
 import pytest
 
+import torch
+
 from automerge_tpu_torch.engine import cuda_kernels
+from automerge_tpu_torch.engine import move_kernels as mk
+from automerge_tpu_torch.engine import span_kernels as sk
 from automerge_tpu_torch.engine.cuda_kernels import (
     hashes_to_numpy, reconcile_rows_hash, reconcile_rows_hash_plain)
-from automerge_tpu_torch.engine.pack import rows_from_numpy
+from automerge_tpu_torch.engine.dispatch import (merge_spans_adaptive,
+                                                 resolve_moves_adaptive,
+                                                 result_to_numpy)
+from automerge_tpu_torch.engine.pack import (pack_moves, pack_spans,
+                                             rows_from_numpy)
 from automerge_tpu_torch.engine.resident_rows import ResidentRowsDocSet
-from automerge_tpu_torch.workloads import reference_streams, text_fleet
+from automerge_tpu_torch.workloads import (
+    move_fleet, random_move_lanes, random_span_tables,
+    reference_move_problems, reference_span_tables, reference_streams,
+    span_fleet, text_fleet)
 
 from torch_port_helpers import cuda_device  # noqa: F401 (fixture)
 
@@ -56,3 +68,77 @@ def test_engine_on_the_card_reproduces_the_reference(cuda_device):
         np.testing.assert_array_equal(ds.hashes(), committed[name])
         np.testing.assert_array_equal(ds.rows_dev.cpu().numpy(),
                                       ds.rows_host)
+
+
+def _launched(name, fn):
+    before = cuda_kernels.LAUNCHES[name]
+    out = fn()
+    torch.cuda.synchronize()
+    assert cuda_kernels.LAUNCHES[name] == before + 1
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s_pad", [128, 1024, 4096])
+def test_span_kernel_matches_plain(cuda_device, s_pad):
+    rng = np.random.default_rng(s_pad)
+    tables = (random_span_tables(rng, 16, s_pad - 3)
+              + random_span_tables(rng, 16, s_pad - 3, full_range=True))
+    spans = torch.from_numpy(pack_spans(tables)).to(cuda_device)
+    order = torch.argsort(torch.rand(spans.shape[0], s_pad,
+                                     device=cuda_device), 1).to(torch.int32)
+    for args in ((spans,), (spans, order)):
+        got = _launched("span_rank_hash", lambda: sk.span_rank_hash(*args))
+        for g, w in zip(got, sk.span_rank_hash_plain(*args)):
+            assert torch.equal(g, w)
+    got = result_to_numpy(_launched("span_rank_hash",
+                                    lambda: sk.merge_spans(spans)))
+    want = sk.merge_spans_host(pack_spans(tables))
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_pad,k_pad", [(128, 256), (512, 512),
+                                         (4096, 1024), (8192, 512)])
+def test_move_kernel_matches_plain(cuda_device, n_pad, k_pad):
+    """Shared-memory realms and, at 8,192 nodes, the global scratch."""
+    nodes, cands, ptr = (torch.from_numpy(a).to(cuda_device) for a in
+                         random_move_lanes(np.random.default_rng(n_pad), 8,
+                                           n_pad, k_pad))
+    got = _launched("move_round", lambda: mk.move_round(nodes, cands, ptr))
+    assert torch.equal(got, mk.move_round_plain(nodes, cands, ptr))
+    got = _launched("resolve_moves", lambda: mk.resolve_moves(nodes, cands))
+    want = mk.resolve_moves_plain(nodes, cands)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.cuda
+def test_planes_route_to_the_card_and_reproduce_the_reference(cuda_device):
+    committed = np.load(REFERENCE)
+    tables, expected = span_fleet(n_docs=300)
+    before = cuda_kernels.LAUNCHES["span_rank_hash"]
+    plan, out = merge_spans_adaptive(tables, device=cuda_device)
+    assert plan.backend == "device"
+    assert cuda_kernels.LAUNCHES["span_rank_hash"] == before + 1
+    assert result_to_numpy(out)["total"].tolist() == expected
+    packed = pack_moves(move_fleet(n_realms=8))
+    before = cuda_kernels.LAUNCHES["resolve_moves"]
+    plan, out = resolve_moves_adaptive(packed, device=cuda_device)
+    assert plan.backend == "device"
+    assert cuda_kernels.LAUNCHES["resolve_moves"] == before + 1
+    want = mk.resolve_moves_host(packed)
+    got = result_to_numpy(out)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    got = result_to_numpy(sk.merge_spans(torch.from_numpy(
+        pack_spans(reference_span_tables())).to(cuda_device)))
+    for k in got:
+        np.testing.assert_array_equal(got[k], committed[f"spans_{k}"])
+    packed = pack_moves(reference_move_problems())
+    got = result_to_numpy(mk.resolve_moves(
+        torch.from_numpy(packed["nodes"]).to(cuda_device),
+        torch.from_numpy(packed["cands"]).to(cuda_device)))
+    for k in got:
+        np.testing.assert_array_equal(got[k], committed[f"moves_{k}"])

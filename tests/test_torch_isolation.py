@@ -22,8 +22,11 @@ def _modules():
 
 def test_every_module_imports_with_jax_and_reference_blocked():
     mods = _modules()
-    assert "automerge_tpu_torch.engine.resident_rows" in mods
-    assert "automerge_tpu_torch.engine.cuda_kernels" in mods
+    for m in ("engine.resident_rows", "engine.cuda_kernels",
+              "engine.span_kernels", "engine.move_kernels",
+              "engine.dispatch", "core.moves", "core.textspans",
+              "workloads"):
+        assert f"automerge_tpu_torch.{m}" in mods, m
     code = "\n".join([
         "import importlib, sys",
         "for name in ('jax', 'jaxlib', 'automerge_tpu'):",
@@ -36,6 +39,13 @@ def test_every_module_imports_with_jax_and_reference_blocked():
         "from automerge_tpu_torch.engine.resident_rows import "
         "ResidentRowsDocSet",
         "ResidentRowsDocSet(['a', 'b'], device='cpu').hashes()",
+        "from automerge_tpu_torch.engine.dispatch import (",
+        "    merge_spans_adaptive, resolve_moves_adaptive)",
+        "from automerge_tpu_torch.engine.pack import pack_moves",
+        "from automerge_tpu_torch.workloads import move_storm, span_fleet",
+        "merge_spans_adaptive(span_fleet(n_docs=3)[0], device='cpu')",
+        "resolve_moves_adaptive(pack_moves([move_storm(n_objs=90, "
+        "n_moves=80)]), device='cpu')",
         "print('ok')",
     ])
     env = dict(os.environ, PYTHONPATH=str(REPO))

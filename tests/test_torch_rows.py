@@ -21,7 +21,7 @@ from automerge_tpu_torch.engine.resident_rows import (
 
 from automerge_tpu_torch.workloads import reference_streams
 
-from torch_port_helpers import rounds_to_port
+from torch_port_helpers import load_reference_script, rounds_to_port
 
 
 def history(seed, actors=("A", "B", "C"), steps=24, lists=True):
@@ -336,22 +336,10 @@ def test_resident_bytes_counts_host_and_device():
     assert port.resident_bytes() == ref.resident_bytes()
 
 
-def _reference_script():
-    import importlib.util
-    from pathlib import Path
-    path = Path(__file__).resolve().parent.parent / "scripts" / \
-        "torch_reference_hashes.py"
-    spec = importlib.util.spec_from_file_location("torch_reference_hashes",
-                                                  path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 def test_committed_reference_hashes_hold_in_both_packages():
     """The .npz that chip_smoke.py holds the card to is what the reference
     computes today, and the port on the CPU reproduces it."""
-    mod = _reference_script()
+    mod = load_reference_script()
     committed = np.load(mod.OUT)
     ref = mod.reference_hashes()
     for name, ids, batches in reference_streams():
