@@ -1,10 +1,12 @@
 """The build and launch of the port's hand-written CUDA kernels, and the
-fused reconcile kernel (counterpart of `automerge_tpu/engine/
-pallas_kernels.py`) with its plain PyTorch version.
+two kernels of `automerge_tpu/engine/pallas_kernels.py` with their plain
+PyTorch versions: the fused reconcile over a docs-minor row buffer and the
+domination flags of the docs-major engine.
 
-`reconcile_rows_hash` dispatches on the device of the tensor it is given: a
-CUDA tensor launches the kernel of `csrc/reconcile_rows.cu` (or raises), a
-CPU tensor runs `reconcile_rows_hash_plain`. Nothing falls back. The span
+`reconcile_rows_hash` and `dominated` dispatch on the device of the tensor
+they are given: a CUDA tensor launches the kernel of `csrc/reconcile_rows.
+cu` or `csrc/dominated.cu` (or raises), a CPU tensor runs the plain
+version. Nothing falls back. The span
 and move kernels' wrappers (`span_kernels.span_rank_hash`,
 `move_kernels.move_round` / `resolve_moves`) follow the same rule through
 `launch` below.
@@ -37,12 +39,13 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 SOURCES = {"reconcile_rows": CSRC / "reconcile_rows.cu",
            "span_rank_hash": CSRC / "span_rank_hash.cu",
-           "move_round": CSRC / "move_round.cu"}
+           "move_round": CSRC / "move_round.cu",
+           "dominated": CSRC / "dominated.cu"}
 
 # Launches of each kernel by its wrapper: one per launch, counted nowhere
 # else, so a run can show that its main path went through the kernel.
 LAUNCHES = {"reconcile_rows_hash": 0, "span_rank_hash": 0, "move_round": 0,
-            "resolve_moves": 0}
+            "resolve_moves": 0, "dominated": 0}
 
 # The C entry points of each source: argument types (every pointer and the
 # stream as c_void_p, so ctypes never cuts a pointer to 32 bits); each
@@ -56,6 +59,8 @@ _SIGNATURES = {
     "move_round": {
         "amt_move_round": [_P] * 5 + [_I] * 4 + [_P],
         "amt_resolve_moves": [_P] * 8 + [_I] * 5 + [_P]},
+    "dominated": {
+        "amt_dominated": [_P] * 7 + [_I] * 3 + [_P]},
 }
 
 # The reference's join block height: I and LE must be multiples of it.
@@ -291,3 +296,95 @@ def _plain_lanes(x, b, I, A, LE, a_set, a_del):
         ah += torch.where(act == r, ah_rows[r][None], 0)
     contrib = _mix4(key1, key2, ah, vh)           # int64 in [0, 2**32)
     return _int32_bits(torch.where(cand, contrib, 0).sum(0))
+
+
+# ---------------------------------------------------------------------------
+# dominated (B5)
+
+def _check_dominated(clock_op, actor, fid, seq, change_idx, amask) -> None:
+    if clock_op.dim() != 3 or clock_op.dtype != torch.int32:
+        raise ValueError(f"clock_op must be [D, N, A] int32, got "
+                         f"{clock_op.dtype} {tuple(clock_op.shape)}")
+    shape = clock_op.shape[:2]
+    for name, x, dt in (("actor", actor, torch.int32),
+                        ("fid", fid, torch.int32), ("seq", seq, torch.int32),
+                        ("change_idx", change_idx, torch.int32),
+                        ("amask", amask, torch.bool)):
+        if x.shape != shape or x.dtype != dt:
+            raise ValueError(f"{name} must be {tuple(shape)} {dt}, got "
+                             f"{x.dtype} {tuple(x.shape)}")
+        if x.device != clock_op.device:
+            raise ValueError(f"{name} is on {x.device}, clock_op on "
+                             f"{clock_op.device}")
+
+
+def dominated(clock_op, actor, fid, seq, change_idx, amask) -> torch.Tensor:
+    """Per-op domination flags of a batch of documents (the contract of the
+    reference's dominated_pallas):
+
+        dominated[d, i] = exists j: amask[d, j] and amask[d, i]
+                          and fid[d, j] == fid[d, i]
+                          and change_idx[d, j] != change_idx[d, i]
+                          and clock_op[d, j, actor[d, i]] >= seq[d, i]
+
+    clock_op [D, N, A] int32 (each op's change-clock row); actor, fid, seq,
+    change_idx [D, N] int32; amask [D, N] bool. Returns [D, N] bool. An
+    actor outside [0, A) reads a clock of 0, as the reference's one-hot
+    contraction does. Compares are int32 and exact over the whole range;
+    the TPU kernel compares in float32, exact below 2**24 only, so the two
+    agree on values below 2**24.
+
+    A CUDA tensor launches the kernel of csrc/dominated.cu; a CPU tensor
+    runs dominated_plain."""
+    _check_dominated(clock_op, actor, fid, seq, change_idx, amask)
+    if clock_op.device.type == "cpu":
+        return dominated_plain(clock_op, actor, fid, seq, change_idx, amask)
+    if clock_op.device.type != "cuda":
+        raise ValueError(f"unsupported device {clock_op.device}")
+    d, n, a = clock_op.shape
+    args = [t.contiguous() for t in (clock_op, actor, fid, seq, change_idx)]
+    am = amask.contiguous()
+    with torch.cuda.device(clock_op.device):
+        out = torch.empty((d, n), dtype=torch.bool, device=clock_op.device)
+        if d and n:
+            launch("dominated", "amt_dominated", "dominated",
+                   *(t.data_ptr() for t in args), am.data_ptr(),
+                   out.data_ptr(), d, n, a, stream_of(clock_op))
+    return out
+
+
+# Most elements of one [D, j-chunk, N] pairwise intermediate of the plain
+# version; it steps over j (and docs) to stay under this.
+_PLAIN_PAIR_ELEMS = 1 << 24
+
+
+def dominated_plain(clock_op, actor, fid, seq, change_idx,
+                    amask) -> torch.Tensor:
+    """The plain PyTorch version of `dominated`: the pairwise definition
+    over chunks of j (and of documents), on the tensors' own device, with
+    memory bounded by _PLAIN_PAIR_ELEMS whatever N is."""
+    d, n, a = clock_op.shape
+    out = torch.zeros((d, n), dtype=torch.bool, device=clock_op.device)
+    if not (d and n):
+        return out
+    # the clock of op j at op i's actor: clock_op[d, j, actor_i], 0 for an
+    # actor outside [0, A)
+    act_ok = (actor >= 0) & (actor < a)
+    act = actor.clamp(0, max(a - 1, 0)).to(torch.int64)
+    dc = max(1, _PLAIN_PAIR_ELEMS // (n * n))
+    jc = max(1, min(n, _PLAIN_PAIR_ELEMS // n))
+    for d0 in range(0, d, dc):
+        ds = slice(d0, d0 + dc)
+        for j0 in range(0, n, jc):
+            js = slice(j0, j0 + jc)
+            # [docs, j, i]
+            cji = torch.gather(
+                clock_op[ds, js], 2,
+                act[ds, None, :].expand(-1, clock_op[ds, js].shape[1], -1))
+            hit = (amask[ds, js, None] & amask[ds, None, :]
+                   & (fid[ds, js, None] == fid[ds, None, :])
+                   & (change_idx[ds, js, None] != change_idx[ds, None, :])
+                   & (torch.where(act_ok[ds, None, :], cji, 0)
+                      >= seq[ds, None, :]))
+            out[ds] |= hit.any(1)
+    return out

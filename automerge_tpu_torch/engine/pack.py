@@ -1,11 +1,18 @@
-"""The docs-minor row wire format (rows half of `automerge_tpu/engine/
-pack.py`).
+"""The batch wire formats of `automerge_tpu/engine/pack.py`.
 
-One int32 [ROWS, D_pad] buffer holds a whole batch: documents on the minor
-(lane) axis, every logical column a static row range. It is the native
-layout of the fused reconcile kernel (`cuda_kernels.reconcile_rows_hash`)
-and of the resident rows engine, and it is byte-for-byte the reference's
-format, so a buffer packed by either package feeds the other.
+The packed docs-major format (`pack_batch`): a whole stacked batch
+(encode.stack_docs) flattened into ONE int32 buffer plus a static meta
+header, so a batch crosses to the device in one copy and `apply_packed`
+unpacks it there as views.
+
+The docs-minor row format (`pack_rows`): one int32 [ROWS, D_pad] buffer
+holds a whole batch, documents on the minor (lane) axis, every logical
+column a static row range. It is the native layout of the fused reconcile
+kernel (`cuda_kernels.reconcile_rows_hash`) and of the resident rows
+engine.
+
+Both are byte-for-byte the reference's formats, so a buffer packed by
+either package feeds the other.
 """
 
 from __future__ import annotations
@@ -15,6 +22,55 @@ import torch
 
 from ..device import resolve_device
 from .encode import A_DEL, A_SET
+
+# Field order of the packed docs-major buffer: the wire contract.
+FIELDS = ("op_mask", "action", "fid", "actor", "seq", "change_idx", "value",
+          "fid_hash", "value_hash", "clock", "ins_mask", "ins_elem",
+          "ins_actor", "ins_parent", "ins_fid", "ins_pos", "list_obj",
+          "list_obj_hash", "actor_hash")
+
+
+def pack_batch(batch: dict) -> tuple[np.ndarray, tuple]:
+    """Flatten a stacked batch into (flat int32 buffer, static meta). meta
+    is a hashable tuple of (name, offset, shape, is_bool) entries."""
+    parts = []
+    meta = []
+    offset = 0
+    for name in FIELDS:
+        arr = np.asarray(batch[name])
+        flat = arr.astype(np.int32).ravel()
+        meta.append((name, offset, arr.shape, arr.dtype == np.bool_))
+        parts.append(flat)
+        offset += flat.size
+    return np.concatenate(parts), tuple(meta)
+
+
+def unpack_batch(flat: torch.Tensor, meta: tuple) -> dict:
+    """The batch dict of a packed buffer (a 1-D int32 tensor): each field a
+    view of `flat` in its shape, bool fields converted."""
+    out = {}
+    for name, offset, shape, is_bool in meta:
+        size = int(np.prod(shape))
+        arr = flat[offset:offset + size].view(shape)
+        out[name] = arr.bool() if is_bool else arr
+    return out
+
+
+def apply_packed(flat: torch.Tensor, meta: tuple, max_fids: int,
+                 host_order: bool = True) -> dict:
+    """Full reconcile over a packed batch (every output of
+    kernels.apply_doc), on the device of `flat`, the packed buffer as a
+    1-D int32 tensor."""
+    from .kernels import apply_doc
+    return apply_doc(unpack_batch(flat, meta), max_fids, host_order)
+
+
+def apply_packed_hash(flat: torch.Tensor, meta: tuple, max_fids: int,
+                      host_order: bool = True) -> torch.Tensor:
+    """One reconcile pass over a packed batch, returning only the per-doc
+    state hashes ([D] int32 holding the uint32 bits)."""
+    return apply_packed(flat, meta, max_fids, host_order)["hash"]
+
 
 # The docs axis of every docs-minor layout pads to a multiple of this (the
 # reference's TPU lane width; kept so both packages agree on buffer shapes).

@@ -1,34 +1,55 @@
-"""Host half of the resident DocSet (counterpart of `automerge_tpu/engine/
-resident.py`): per-document interning, causal admission, transitive clock
-rows, the pure-Python delta encoder, actor ranking, capacities, and the
-incremental hash mirror.
+"""The resident DocSet (counterpart of `automerge_tpu/engine/resident.py`):
+per-document interning, causal admission, transitive clock rows, the
+pure-Python delta encoder, actor ranking, capacities, the incremental hash
+mirror, and the docs-major device state with its reconcile.
 
-The docs-major device tables and their reconcile (the reference's
-`apply_doc`/`_scatter_*` path) are not part of this port yet; the rows
-engine (`resident_rows.ResidentRowsDocSet`) is the one device engine built
-on this class.
+State lives on `self.device` as a dict of docs-major tensors (`state`,
+encode.stack_docs's columns at the instance's capacities), and only deltas
+cross from the host: each round's rows are stacked into ONE flat int32
+buffer (one copy), scattered at per-document offsets, and the whole state
+is reconciled by `kernels.apply_doc`, whose domination step is the B5
+kernel (`cuda_kernels.dominated`). The rows engine
+(`resident_rows.ResidentRowsDocSet`) shares the host half and keeps its
+own device layout instead.
 
 Key mechanics, as in the reference:
 - Interning tables grow in arrival order; state hashes stay canonical
   because they mix content hashes, not table ids (encode.content_hash).
 - Actor ranks stay sorted by actor string (the LWW tie-break). A new actor
-  re-ranks; the subclass remaps its resident rank columns (`_remap_actors`).
-- Capacities (ops, lists, elements per list, actors) are powers of two,
-  doubled on overflow.
+  re-ranks; the resident rank columns and clock columns are remapped
+  (`_remap_actors`).
+- Capacities (ops, changes, lists, elements per list, actors, fields) are
+  powers of two, doubled on overflow; padding keeps every hash.
 - Causality: each document keeps a host queue of changes whose dependencies
   are not yet applied; duplicates drop idempotently.
+
+Not here yet (later slices): the diff plane (`apply_and_reconcile(...,
+diffs=True)`, engine/diffs.py), the native column ingress (`apply_columns`,
+`apply_and_reconcile_columns`) and the snapshot floor.
 """
 
 from __future__ import annotations
 
+from typing import Any
+
 import numpy as np
+import torch
 
 from ..core.change import Change
 from ..core.ids import ROOT_ID, HEAD, make_elem_id
+from ..device import resolve_device
 from .encode import (A_INS, A_LINK, A_MAKE_LIST, A_MAKE_MAP,
                      A_MAKE_TEXT, A_MOVE, A_SET, _ACTION_CODE, ValueTable,
                      content_hash, move_loc_key, move_value_key,
                      value_hash_of, _pad_to)
+from .cuda_kernels import hashes_to_numpy
+from .kernels import apply_doc
+
+OP_COLS = ("op_mask", "action", "fid", "actor", "seq", "change_idx", "value",
+           "fid_hash", "value_hash")
+# fill of each docs-major state column where it holds no row
+_FILL = {"action": -1, "fid": -1, "value": -1, "ins_parent": -1,
+         "ins_fid": -1, "list_obj": -1, "list_obj_hash": -1}
 
 
 class DocTables:
@@ -74,7 +95,7 @@ class Delta:
     """Delta rows for one document, from the Python encoder."""
 
     def __init__(self):
-        self.ops = []        # (code, fid, arank, seq, change_idx, value, fh, vh)
+        self.ops = []        # rows matching OP_COLS[1:]
         self.clocks: list[np.ndarray] = []  # rows [cap_actors]
         self.ins = []        # (list_row, slot, elem, actor, parent_slot, fid)
         self.new_lists = []  # (list_row, obj_idx, obj_hash)
@@ -93,26 +114,34 @@ class _Pending:
 
 
 class ResidentDocSet:
-    """Host state shared by the port's resident engines."""
+    """A DocSet whose columnar state lives on the device.
 
-    def __init__(self, doc_ids: list[str]):
+    `device` is where the state lives and the reconcile runs: "cuda" (the
+    default) needs a GPU and raises without one; "cpu" runs the kernels'
+    plain PyTorch versions. Ingress is the pure-Python delta encoder."""
+
+    def __init__(self, doc_ids: list[str],
+                 device: str | torch.device = "cuda"):
+        self.device = resolve_device(device)
         self.doc_ids = list(doc_ids)
         self.doc_index = {d: i for i, d in enumerate(self.doc_ids)}
         n = len(self.doc_ids)
         self.tables = [DocTables() for _ in range(n)]
         self.actors: list[str] = []
         self.actor_rank: dict[str, int] = {}
-        # running fleet-wide maxima of per-doc list/elem stats (values only
-        # grow, so the cached max is exact)
+        # running fleet-wide maxima of per-doc stats (values only grow, so
+        # the cached max is exact)
         self._lists_hi = 0
         self._elems_hi = 0
+        self._fids_hi = 0
 
-        # capacities (powers of two); change ids and field ids live in the
-        # rows themselves and are joined by equality, so neither needs one
+        # capacities (powers of two)
         self.cap_ops = 8
+        self.cap_changes = 8
         self.cap_lists = 1
         self.cap_elems = 8
         self.cap_actors = 2
+        self.cap_fids = 8
         # doc-axis capacity: exact at construction, grown by add_docs
         self.cap_docs = max(n, 1)
 
@@ -129,18 +158,56 @@ class ResidentDocSet:
         self._doc_dirty: set[int] = set(range(n))
         self.hash_epoch = 0
 
+        self.state: dict[str, torch.Tensor] = {}
+        self._actor_hash_key = None
+        self._alloc()
+        # outputs of the last full reconcile (apply_doc's dict), or None
+        # once the state changed since
+        self._out: dict[str, torch.Tensor] | None = None
+
     # ------------------------------------------------------------------
+    def _alloc(self):
+        n, dev = self.cap_docs, self.device
+        ops = (n, self.cap_ops)
+        ins = (n, self.cap_lists, self.cap_elems)
+        shapes = {name: ops for name in OP_COLS}
+        shapes.update(clock=(n, self.cap_changes, self.cap_actors),
+                      ins_mask=ins, ins_elem=ins, ins_actor=ins,
+                      ins_parent=ins, ins_fid=ins,
+                      list_obj=(n, self.cap_lists),
+                      list_obj_hash=(n, self.cap_lists))
+        self.state = {
+            name: torch.full(shape, _FILL.get(name, 0),
+                             dtype=_dtype_of(name), device=dev)
+            for name, shape in shapes.items()}
+
     def _grow(self, **caps):
-        """Set new capacities. Subclasses re-lay their resident state; the
-        mirror goes conservative across any re-layout."""
+        """Set new capacities and pad the resident tensors to them. Padding
+        preserves per-doc hashes, but the mirror goes conservative across
+        any re-layout (growth events are rare and amortized)."""
+        self._mark_all_hash_dirty()
         for k, v in caps.items():
             setattr(self, k, v)
-        self._mark_all_hash_dirty()
+        s = self.state
+        if not s:
+            return
+        ops = (self.cap_docs, self.cap_ops)
+        ins = (self.cap_docs, self.cap_lists, self.cap_elems)
+        for col in OP_COLS:
+            s[col] = _pad(s[col], ops, _FILL.get(col, 0))
+        s["clock"] = _pad(s["clock"], (self.cap_docs, self.cap_changes,
+                                       self.cap_actors), 0)
+        for col in ("ins_mask", "ins_elem", "ins_actor", "ins_parent",
+                    "ins_fid"):
+            s[col] = _pad(s[col], ins, _FILL.get(col, 0))
+        for col in ("list_obj", "list_obj_hash"):
+            s[col] = _pad(s[col], (self.cap_docs, self.cap_lists), -1)
 
     def add_docs(self, new_ids: list[str]) -> list[str]:
         """Grow the document axis (a sync service auto-creates docs the way
         DocSet.apply_changes does). Capacity pads to a power of two past the
-        current cap. Returns the ids that were new."""
+        current cap; rows between len(doc_ids) and cap_docs are valid empty
+        documents. Returns the ids that were new."""
         fresh = [d for d in dict.fromkeys(new_ids) if d not in self.doc_index]
         if not fresh:
             return fresh
@@ -151,6 +218,7 @@ class ResidentDocSet:
             self.tables.append(DocTables())
         # fresh docs have no mirror entry yet; existing docs stay clean
         self._mark_hash_dirty(range(first_new, len(self.doc_ids)))
+        self._out = None
         n = len(self.doc_ids)
         if n > self.cap_docs:
             k = _pad_to(n, 8) - self.cap_docs
@@ -159,7 +227,34 @@ class ResidentDocSet:
                                             np.zeros(k, np.int64)])
             self.change_count = np.concatenate([self.change_count,
                                                 np.zeros(k, np.int64)])
+            self.state = {
+                name: _pad(t, (self.cap_docs,) + tuple(t.shape[1:]),
+                           _FILL.get(name, 0))
+                for name, t in self.state.items()}
         return fresh
+
+    def reserve(self, *, ops_per_doc: int | None = None,
+                changes_per_doc: int | None = None,
+                lists_per_doc: int | None = None,
+                elems_per_list: int | None = None,
+                actors: int | None = None,
+                fids_per_doc: int | None = None) -> None:
+        """Pre-size resident capacity so steady-state rounds never regrow
+        (a regrow re-lays every resident tensor)."""
+        grow = {}
+        for want, cap_name in ((ops_per_doc, "cap_ops"),
+                               (changes_per_doc, "cap_changes"),
+                               (elems_per_list, "cap_elems")):
+            if want and _pad_to(want) > getattr(self, cap_name):
+                grow[cap_name] = _pad_to(want)
+        if lists_per_doc and _pad_to(lists_per_doc, 1) > self.cap_lists:
+            grow["cap_lists"] = _pad_to(lists_per_doc, 1)
+        if actors and _pad_to(actors, 2) > self.cap_actors:
+            grow["cap_actors"] = _pad_to(actors, 2)
+        if grow:
+            self._grow(**grow)
+        if fids_per_doc and _pad_to(fids_per_doc) > self.cap_fids:
+            self.cap_fids = _pad_to(fids_per_doc)
 
     # ------------------------------------------------------------------
     def _register_actors(self, changes_by_doc) -> None:
@@ -186,11 +281,27 @@ class ResidentDocSet:
         self._remap_actors(perm)
 
     def _remap_actors(self, perm: np.ndarray) -> None:
-        """Rewrite resident rank columns: old rank r becomes perm[r]
-        (called after every registration, perm empty on the first)."""
-        raise NotImplementedError
+        """Rewrite resident rank columns: old rank r becomes perm[r] (called
+        after every registration, perm empty on the first). Op and element
+        actor columns map through perm; clock columns gather through its
+        inverse (new -> old, a column no old actor had stays 0)."""
+        if not len(perm) or not self.state:
+            return
+        s, dev = self.state, self.device
+        perm_t = torch.from_numpy(perm).to(dev)
+        inv = np.full(self.cap_actors, -1, dtype=np.int64)
+        inv[perm] = np.arange(len(perm))
+        inv_t = torch.from_numpy(inv).to(dev)
+        hi = len(perm) - 1
+        for col, mask in (("actor", "op_mask"), ("ins_actor", "ins_mask")):
+            s[col] = torch.where(s[mask], perm_t[s[col].clamp(0, hi).long()],
+                                 s[col])
+        clock = s["clock"]
+        gathered = clock[..., inv_t.clamp(0, clock.shape[-1] - 1)]
+        s["clock"] = torch.where(inv_t >= 0, gathered, 0).to(torch.int32)
+        self._out = None
 
-    def _ensure_actor_hash_state(self) -> np.ndarray:
+    def _actor_hash_values(self) -> np.ndarray:
         """[cap_actors] int32 actor CONTENT hashes in the current rank basis
         (the state hash mixes these, never ranks, so hashes do not depend on
         the instance's global actor set; content_hash is memoized)."""
@@ -198,6 +309,18 @@ class ResidentDocSet:
         for r, a in enumerate(self.actors):
             vals[r] = content_hash(a)
         return vals
+
+    def _ensure_actor_hash_state(self) -> None:
+        """Keep state["actor_hash"] current: [cap_docs, cap_actors] actor
+        content hashes, rebuilt only when the actor table or the capacities
+        that shape it change."""
+        key = (len(self.actors), self.cap_actors, self.cap_docs)
+        if "actor_hash" in self.state and self._actor_hash_key == key:
+            return
+        vals = torch.from_numpy(self._actor_hash_values()).to(self.device)
+        self.state["actor_hash"] = vals[None].expand(
+            self.cap_docs, -1).contiguous()
+        self._actor_hash_key = key
 
     # ------------------------------------------------------------------
     def _admit(self, t: DocTables, incoming: list[_Pending]) -> list[_Pending]:
@@ -343,6 +466,106 @@ class ResidentDocSet:
             self._elems_hi = t.max_elems
         return delta
 
+    # -- docs-major ingress ----------------------------------------------
+
+    def apply_changes(self, changes_by_doc: dict[str, list[Change]]) -> None:
+        """Encode + scatter a delta batch into resident state (no
+        reconcile: the next read reconciles the docs it needs)."""
+        self._register_actors(changes_by_doc)
+        flat, meta = self._build_delta_arrays(changes_by_doc)
+        _scatter_delta(self.state, flat, meta)
+        self._out = None
+
+    def apply_and_reconcile(self, changes_by_doc: dict[str, list[Change]]
+                            ) -> np.ndarray:
+        """Delta apply + full reconcile in one pass: one copy of the delta
+        rows to the device, the scatter, `apply_doc` over the whole state
+        and one readback of the hashes. Returns np.uint32 hashes aligned
+        with doc_ids."""
+        self._register_actors(changes_by_doc)
+        flat, meta = self._build_delta_arrays(changes_by_doc)
+        return self._apply_flat(flat, meta)
+
+    def _build_delta_arrays(self, changes_by_doc: dict[str, list[Change]]):
+        deltas = [Delta() for _ in range(self.cap_docs)]
+        self._mark_hash_dirty(self.doc_index[d] for d in changes_by_doc)
+        for doc_id, changes in changes_by_doc.items():
+            i = self.doc_index[doc_id]
+            deltas[i] = self._encode_delta(i, changes)
+        return self._stack_deltas(deltas)
+
+    def _stack_deltas(self, deltas: list[Delta]):
+        """Grow capacities for the deltas, then stack them into one flat
+        int32 buffer on the device (one copy) and its static meta."""
+        n = self.cap_docs
+        touched = [i for i, d in enumerate(deltas) if len(d.ops)
+                   or len(d.clocks) or len(d.ins) or len(d.new_lists)]
+        need_ops = int(max((self.op_count[i] + len(deltas[i].ops)
+                            for i in touched), default=0))
+        need_ch = int(max((self.change_count[i] + len(deltas[i].clocks)
+                           for i in touched), default=0))
+        self._fids_hi = max([self._fids_hi]
+                            + [len(self.tables[i].fields) for i in touched])
+        grow = {}
+        if need_ops > self.cap_ops:
+            grow["cap_ops"] = _pad_to(need_ops)
+        if need_ch > self.cap_changes:
+            grow["cap_changes"] = _pad_to(need_ch)
+        if self._lists_hi > self.cap_lists:
+            grow["cap_lists"] = _pad_to(self._lists_hi, 1)
+        if self._elems_hi > self.cap_elems:
+            grow["cap_elems"] = _pad_to(self._elems_hi)
+        if grow:
+            self._grow(**grow)
+        if self._fids_hi > self.cap_fids:
+            self.cap_fids = _pad_to(self._fids_hi)
+
+        def most(attr):
+            return _pad_to(max((len(getattr(deltas[i], attr))
+                                for i in touched), default=1), 1)
+
+        d_ops = np.zeros((n, most("ops"), 8), dtype=np.int32)
+        d_ops_n = np.zeros(n, dtype=np.int32)
+        d_clock = np.zeros((n, most("clocks"), self.cap_actors),
+                           dtype=np.int32)
+        d_ch_n = np.zeros(n, dtype=np.int32)
+        d_ins = np.zeros((n, most("ins"), 6), dtype=np.int32)
+        d_ins_n = np.zeros(n, dtype=np.int32)
+        d_nl = np.zeros((n, most("new_lists"), 3), dtype=np.int32)
+        d_nl_n = np.zeros(n, dtype=np.int32)
+        offsets_ops = self.op_count.astype(np.int32)
+        offsets_ch = self.change_count.astype(np.int32)
+        for i in touched:
+            d = deltas[i]
+            if len(d.ops):
+                d_ops[i, :len(d.ops)] = np.asarray(d.ops, dtype=np.int32)
+                d_ops_n[i] = len(d.ops)
+            if len(d.clocks):
+                d_clock[i, :len(d.clocks)] = np.stack(d.clocks)
+                d_ch_n[i] = len(d.clocks)
+            if len(d.ins):
+                d_ins[i, :len(d.ins)] = np.asarray(d.ins, dtype=np.int32)
+                d_ins_n[i] = len(d.ins)
+            if len(d.new_lists):
+                d_nl[i, :len(d.new_lists)] = np.asarray(d.new_lists,
+                                                        dtype=np.int32)
+                d_nl_n[i] = len(d.new_lists)
+            self.op_count[i] += len(d.ops)
+            self.change_count[i] += len(d.clocks)
+
+        parts = [d_ops, d_ops_n, offsets_ops, d_clock, d_ch_n, offsets_ch,
+                 d_ins, d_ins_n, d_nl, d_nl_n]
+        meta = tuple((p.shape, int(np.prod(p.shape))) for p in parts)
+        flat = np.concatenate([p.ravel() for p in parts])
+        return torch.from_numpy(flat).to(self.device), meta
+
+    def _apply_flat(self, flat: torch.Tensor, meta: tuple) -> np.ndarray:
+        self._ensure_actor_hash_state()
+        self._out = _scatter_and_apply(self.state, flat, meta, self.cap_fids)
+        vals = hashes_to_numpy(self._out["hash"])[:len(self.doc_ids)]
+        self._adopt_full_hashes(vals)   # flush-time capture
+        return vals
+
     # -- incremental hash plane ----------------------------------------
 
     def _mark_hash_dirty(self, idxs) -> None:
@@ -372,3 +595,181 @@ class ResidentDocSet:
         n = len(self.doc_ids)
         self._ensure_hash_mirror()[:n] = np.asarray(row)[:n]
         self._doc_dirty.clear()
+
+    def _reconcile_partial(self, idxs: list[int]) -> None:
+        """Reconcile ONLY the given docs: gather their rows out of the
+        resident state, run the same reconcile on the narrow sub-batch, and
+        put the hashes into the mirror. Device work is O(len(idxs)),
+        independent of the fleet size."""
+        self._ensure_actor_hash_state()
+        k = len(idxs)
+        # padded rows repeat the last dirty doc (any valid doc works; the
+        # extra hashes are discarded below)
+        sel = torch.tensor(idxs + [idxs[-1]] * (_pad_to(k, 8) - k),
+                           dtype=torch.int64, device=self.device)
+        sub = {name: t.index_select(0, sel) for name, t in self.state.items()}
+        vals = hashes_to_numpy(apply_doc(sub, self.cap_fids)["hash"])
+        self._ensure_hash_mirror()[np.asarray(idxs, np.int64)] = vals[:k]
+        self._doc_dirty.difference_update(idxs)
+
+    def reconcile(self) -> np.ndarray:
+        """Run the reconcile over the whole resident state; returns per-doc
+        np.uint32 hashes aligned with doc_ids."""
+        self._ensure_actor_hash_state()
+        self._out = apply_doc(self.state, self.cap_fids)
+        vals = hashes_to_numpy(self._out["hash"])[:len(self.doc_ids)]
+        self._adopt_full_hashes(vals)
+        return vals
+
+    def resident_bytes(self) -> int:
+        """Footprint of the docs-major resident state tensors (bytes)."""
+        return sum(t.numel() * t.element_size() for t in self.state.values())
+
+    def hashes(self) -> np.ndarray:
+        """Per-doc state hashes, O(dirty) not O(fleet): served from the
+        host hash mirror; only docs whose state changed since the last
+        read are reconciled (a narrow sub-batch). A clean read launches
+        nothing; a read after a fused apply reuses its hashes."""
+        n = len(self.doc_ids)
+        mirror = self._hash_mirror
+        if mirror is not None and len(mirror) >= n \
+                and not any(i < n for i in self._doc_dirty):
+            return mirror[:n].copy()
+        if self._out is not None:
+            vals = hashes_to_numpy(self._out["hash"])[:n]
+            self._adopt_full_hashes(vals)
+            return vals.copy()
+        dirty = sorted(i for i in self._doc_dirty if i < n)
+        if self._hash_mirror is None or 2 * len(dirty) >= n:
+            return self.reconcile().copy()
+        self._reconcile_partial(dirty)
+        return self._hash_mirror[:n].copy()
+
+    def hashes_for(self, idxs) -> np.ndarray:
+        """Hashes for a subset of docs (indices into doc_ids) WITHOUT
+        reconciling untouched docs: device work is O(requested & dirty).
+        Returns np.uint32 hashes aligned with idxs."""
+        idxs = [int(i) for i in idxs]
+        if not idxs:
+            return np.zeros(0, np.uint32)
+        n = len(self.doc_ids)
+        if self._out is not None and self._hash_mirror is None:
+            return self.hashes()[np.asarray(idxs, np.int64)].copy()
+        mirror = self._ensure_hash_mirror()
+        want = set(idxs)
+        dirty = sorted(i for i in self._doc_dirty if i < n and i in want)
+        if dirty:
+            if self._out is not None:
+                self._adopt_full_hashes(hashes_to_numpy(self._out["hash"]))
+            else:
+                self._reconcile_partial(dirty)
+        return mirror[np.asarray(idxs, np.int64)].copy()
+
+    def materialize(self, doc_id: str) -> Any:
+        """Decode one document from resident state + reconcile outputs
+        ({"data", "conflicts"}, as batchdoc.decode_doc)."""
+        from .batchdoc import decode_doc
+
+        if self._out is None:
+            self.reconcile()
+        i = self.doc_index[doc_id]
+        t = self.tables[i]
+        out = {k: v[i].cpu().numpy() for k, v in self._out.items()}
+        host = {k: self.state[k][i].cpu().numpy()
+                for k in ("fid", "actor", "value", "ins_fid", "list_obj")}
+        return decode_doc(_ResidentEncoding(host, self.actors, t), out)
+
+
+class _ResidentEncoding:
+    """The DocEncoding fields decode_doc reads, from one document's
+    resident columns and its arrival-ordered host tables."""
+
+    def __init__(self, host: dict, actors: list[str], t: DocTables):
+        self.fid = host["fid"]
+        self.actor = host["actor"]
+        self.value = host["value"]
+        self.ins_fid = host["ins_fid"]
+        self.list_obj = host["list_obj"]
+        self.actors = actors
+        self.objects = t.objects
+        self.fields = t.fields
+        self.value_table = ValueTable(values=t.value_list)
+
+
+# ---------------------------------------------------------------------------
+# device-side state updates
+
+def _dtype_of(name: str) -> torch.dtype:
+    return torch.bool if name in ("op_mask", "ins_mask") else torch.int32
+
+
+def _pad(t: torch.Tensor, shape: tuple, fill) -> torch.Tensor:
+    """t grown to `shape` (every axis at least as long), new cells `fill`."""
+    if tuple(t.shape) == tuple(shape):
+        return t
+    out = torch.full(shape, fill, dtype=t.dtype, device=t.device)
+    out[tuple(slice(0, k) for k in t.shape)] = t
+    return out
+
+
+def _unpack_delta(flat: torch.Tensor, meta: tuple) -> list[torch.Tensor]:
+    parts = []
+    offset = 0
+    for shape, size in meta:
+        parts.append(flat[offset:offset + size].view(shape))
+        offset += size
+    return parts
+
+
+def _scatter_delta(state: dict, flat: torch.Tensor, meta: tuple) -> None:
+    """Scatter a stacked delta into `state` in place. Rows past each doc's
+    delta count are masked out before the index_put_: none of them ever
+    indexes (the reference parks them one past the end and drops them)."""
+    (d_ops, d_ops_n, off_ops, d_clock, d_ch_n, off_ch,
+     d_ins, d_ins_n, d_nl, d_nl_n) = _unpack_delta(flat, meta)
+    dev = flat.device
+
+    def rows(n_valid, width):
+        """(doc index, row index) of the valid rows of a [n, width]
+        delta block, and their mask."""
+        j = torch.arange(width, device=dev)[None, :]
+        valid = j < n_valid[:, None]
+        docs = torch.arange(valid.shape[0], device=dev)[:, None].expand_as(
+            valid)
+        return docs[valid], j.expand_as(valid)[valid], valid
+
+    # op rows at per-doc offsets
+    dv, jv, valid = rows(d_ops_n, d_ops.shape[1])
+    pos = off_ops.long()[dv] + jv
+    for ci, name in enumerate(OP_COLS[1:]):
+        state[name].index_put_((dv, pos), d_ops[:, :, ci][valid])
+    state["op_mask"].index_put_((dv, pos), torch.ones_like(dv, dtype=torch.bool))
+
+    # clock rows at per-doc offsets
+    dv, jv, valid = rows(d_ch_n, d_clock.shape[1])
+    state["clock"].index_put_((dv, off_ch.long()[dv] + jv), d_clock[valid])
+
+    # ins rows at explicit (list_row, slot)
+    dv, _, valid = rows(d_ins_n, d_ins.shape[1])
+    ins = d_ins[valid]
+    li, si = ins[:, 0].long(), ins[:, 1].long()
+    for ci, name in ((2, "ins_elem"), (3, "ins_actor"), (4, "ins_parent"),
+                     (5, "ins_fid")):
+        state[name].index_put_((dv, li, si), ins[:, ci])
+    state["ins_mask"].index_put_((dv, li, si),
+                                 torch.ones_like(dv, dtype=torch.bool))
+
+    # new list rows
+    dv, _, valid = rows(d_nl_n, d_nl.shape[1])
+    nl = d_nl[valid]
+    state["list_obj"].index_put_((dv, nl[:, 0].long()), nl[:, 1])
+    state["list_obj_hash"].index_put_((dv, nl[:, 0].long()), nl[:, 2])
+
+
+def _scatter_and_apply(state: dict, flat: torch.Tensor, meta: tuple,
+                       max_fids: int) -> dict:
+    """Delta scatter (in place; the reference donated its buffers to the
+    jitted function instead) + full reconcile. Returns apply_doc's
+    outputs."""
+    _scatter_delta(state, flat, meta)
+    return apply_doc(state, max_fids)

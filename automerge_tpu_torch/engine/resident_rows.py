@@ -25,7 +25,6 @@ import contextlib
 import numpy as np
 import torch
 
-from ..device import resolve_device
 from ..native.linearize import linearize_host
 from .cuda_kernels import hashes_to_numpy, reconcile_rows_hash
 from .encode import A_DEL, A_SET, _pad_to
@@ -72,8 +71,7 @@ class ResidentRowsDocSet(ResidentDocSet):
 
     def __init__(self, doc_ids, actors: list[str] = (),  # noqa: B006
                  device: str | torch.device = "cuda"):
-        self.device = resolve_device(device)
-        super().__init__(doc_ids)
+        super().__init__(doc_ids, device=device)
         self.n_pad = pad_to_lanes(max(len(self.doc_ids), 1))
         # per-doc: list_row -> [(slot, elem, arank, parent_slot), ...]
         self.ins_log: list[dict[int, list[tuple]]] = [
@@ -127,7 +125,11 @@ class ResidentRowsDocSet(ResidentDocSet):
         every doc column) from the current actor table."""
         b = self._bases()
         self.rows_host[b["ah"]:b["ah"] + self.cap_actors] = \
-            self._ensure_actor_hash_state()[:, None]
+            self._actor_hash_values()[:, None]
+
+    # the docs-major device state of the base class is never built
+    def _alloc(self):
+        self.state = {}
 
     def add_docs(self, new_ids: list[str]) -> list[str]:
         """Grow the document (lane) axis of the rows mirror. Padded lanes

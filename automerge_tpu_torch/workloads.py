@@ -1,8 +1,9 @@
-"""Seeded change streams that drive the rows engine at the sizes its users
-run: `chip_smoke.py` drives them on the card at full size, and
+"""Seeded change streams that drive the port's engines at the sizes their
+users run: `chip_smoke.py` drives them on the card at full size, and
 `scripts/torch_reference_hashes.py` runs them small through the JAX
-reference to fix the hashes the port must reproduce. Also `random_rows`,
-the random kernel inputs of the tests and of `chip_smoke.py`.
+reference to fix the hashes the port must reproduce. Also `random_rows`
+and `random_dominated`, the random kernel inputs of the tests and of
+`chip_smoke.py`.
 
 - `map_storm`: the reference's bench config 20 (`bench.py::
   run_megabatch_config`): a 10,000-doc fleet, 8 heavy docs of 400 `set` ops
@@ -13,6 +14,18 @@ the random kernel inputs of the tests and of `chip_smoke.py`.
   runs: every actor types `chars` characters after its own cursor, deletes
   about one in four of them, and the changes arrive interleaved over a few
   rounds.
+
+The docs-major engine's workload:
+
+- `docset_fleet`: the reference's bench config 5 (`bench.py::gen_docset`
+  with the rounds of `run_resident_rounds`): 10,000 documents, each a
+  2-actor concurrent map merge (A sets `n`, `tag` and a nested `flags`
+  map, then `n` again; B, concurrently, `n` and `owner`: 3 changes, 8
+  ops), then 12 rounds in which the same 20% of the documents (2,000,
+  the bench's own draw) each receive one `set` of `n` by a third actor,
+  "bench". The one difference from the bench: the nested map's object id
+  is derived from the document's index, where the bench's frontend draws
+  a random UUID.
 
 The batched planes' workloads (span tables and move realms):
 
@@ -138,6 +151,44 @@ def text_fleet(n_docs: int = 2048,
     return doc_ids, out
 
 
+def docset_fleet(n_docs: int = 10_000, rounds: int = 12,
+                 fraction: float = 0.2, seed: int = 3):
+    """Returns (doc_ids, initial, rounds): `initial` is {doc_id: [Change]}
+    with each document's three changes, `rounds` a list of {doc_id:
+    [Change]}. The changes are built from their wire dicts (the reference
+    frontend's own shape for this history). "bench" sorts after "A" and
+    "B", so its first round re-registers the actors (the remap keeps
+    their ranks) and grows the actor capacity mid-stream."""
+    doc_ids = [f"d{i}" for i in range(n_docs)]
+    initial = {}
+    for i, doc in enumerate(doc_ids):
+        flags = f"{i:08x}-0005-4000-8000-000000000000"
+
+        def setop(obj, key, value):
+            return {"action": "set", "obj": obj, "key": key, "value": value}
+        initial[doc] = [Change.from_dict(c) for c in (
+            {"actor": "A", "seq": 1, "deps": {}, "ops": [
+                setop(ROOT_ID, "n", i), setop(ROOT_ID, "tag", f"t{i % 7}"),
+                {"action": "makeMap", "obj": flags},
+                setop(flags, "hot", i % 2 == 0),
+                {"action": "link", "obj": ROOT_ID, "key": "flags",
+                 "value": flags}]},
+            {"actor": "A", "seq": 2, "deps": {}, "ops": [
+                setop(ROOT_ID, "n", i + 1)]},
+            {"actor": "B", "seq": 1, "deps": {"A": 1}, "ops": [
+                setop(ROOT_ID, "n", -i), setop(ROOT_ID, "owner", "B")]})]
+    changed = random.Random(seed).sample(range(n_docs),
+                                         max(1, int(n_docs * fraction)))
+    out = []
+    for r in range(rounds):
+        deps = {"A": 2, "B": 1} if r == 0 else {}
+        out.append({doc_ids[i]: [Change.from_dict({
+            "actor": "bench", "seq": r + 1, "deps": deps, "ops": [{
+                "action": "set", "obj": ROOT_ID, "key": "n",
+                "value": r * 1000 + i}]})] for i in changed})
+    return doc_ids, initial, out
+
+
 def random_rows(rng: np.random.Generator, i: int, a: int, le: int,
                 d_pad: int, n_fids: int = 6, n_lists: int = 2):
     """A random docs-minor row buffer (numpy [ROWS, d_pad] int32) and its
@@ -157,6 +208,37 @@ def random_rows(rng: np.random.Generator, i: int, a: int, le: int,
     return x, (i, a, le, int(A_SET), int(A_DEL))
 
 
+def random_dominated(rng: np.random.Generator, d: int, n: int, a: int,
+                     full_range: bool = False):
+    """Random inputs of the domination kernel (numpy clock_op [d, n, a],
+    actor, fid, seq, change_idx [d, n] int32, amask [d, n] bool). Few
+    fields and changes per document so that pairs meet; some actors fall
+    outside [0, a). With full_range, clock and seq values span the whole
+    int32 range and a third of the seqs sit within one of a clock value
+    the op's pairs read."""
+    fids = max(2, n // 8)
+    if full_range:
+        lo, hi = -2**31, 2**31
+        clock = rng.integers(lo, hi, size=(d, n, a), dtype=np.int64)
+        seq = rng.integers(lo, hi, size=(d, n), dtype=np.int64)
+    else:
+        clock = rng.integers(0, 6, size=(d, n, a))
+        seq = rng.integers(1, 6, size=(d, n))
+    actor = rng.integers(-1, a + 1, size=(d, n))
+    if full_range:
+        j = rng.integers(0, n, size=(d, n))
+        ok = np.clip(actor, 0, a - 1)
+        near = clock[np.arange(d)[:, None], j, ok] \
+            + rng.integers(-1, 2, size=(d, n))
+        seq = np.where(rng.random((d, n)) < 1 / 3,
+                       np.clip(near, -2**31, 2**31 - 1), seq)
+    return (clock.astype(np.int32), actor.astype(np.int32),
+            rng.integers(0, fids, size=(d, n)).astype(np.int32),
+            seq.astype(np.int32),
+            rng.integers(0, max(2, n // 4), size=(d, n)).astype(np.int32),
+            rng.random((d, n)) < 0.8)
+
+
 # Small cuts of both streams whose reference hashes are committed in
 # testdata/reference_hashes.npz (scripts/torch_reference_hashes.py).
 SMALL_MAP = dict(n_docs=40, n_heavy=2, heavy_ops=20, rounds=3,
@@ -170,6 +252,22 @@ def reference_streams():
     ids, heavy, storm = map_storm(**SMALL_MAP)
     tids, trounds = text_fleet(**SMALL_TEXT)
     return [("map", ids, [[heavy], storm]), ("text", tids, [trounds])]
+
+
+# Small cuts of the docs-major engine's workloads whose reference hashes
+# are committed in testdata/reference_hashes.npz: the docset fleet at 512
+# docs with all 12 rounds, and the text fleet at 64 docs.
+SMALL_DOCSET = dict(n_docs=512)
+SMALL_DOCS_TEXT = dict(n_docs=64)
+
+
+def reference_docs_streams():
+    """[(name, doc_ids, rounds)]: each round is one ResidentDocSet.
+    apply_and_reconcile call; the committed hashes are hashes() after the
+    last, under "docs_<name>"."""
+    ids, initial, rounds = docset_fleet(**SMALL_DOCSET)
+    tids, trounds = text_fleet(**SMALL_DOCS_TEXT)
+    return [("docset", ids, [initial] + rounds), ("text", tids, trounds)]
 
 
 # ---------------------------------------------------------------------------

@@ -3,8 +3,10 @@
 GPU: builds the hand-written kernels from the checkout, holds each against
 its plain PyTorch version, and drives the port's main paths at full size:
 the rows engine (`ResidentRowsDocSet.apply_rounds`, `hashes`,
-`hashes_for`), the text-merge plane (`dispatch.merge_spans_adaptive`) and
-the move plane (`dispatch.resolve_moves_adaptive`).
+`hashes_for`), the text-merge plane (`dispatch.merge_spans_adaptive`), the
+move plane (`dispatch.resolve_moves_adaptive`) and the docs-major engine
+(`ResidentDocSet.apply_and_reconcile`, `apply_changes`, `hashes_for`,
+`batchdoc.apply_batch`).
 
     python3 chip_smoke.py
 
@@ -15,7 +17,9 @@ Phases:
      (pre-sorted and through an order); the move source's round kernel
      (move_round) and fixpoint kernel (resolve_moves, the one the move
      plane launches) at N_pad 512 (K_pad 512), 4,096 and 8,192 (global
-     scratch);
+     scratch); the domination kernel at (D, N, A) (512, 128, 4), (64,
+     1,024, 8) and (1, 4,096, 16), each with values below 2**24 and over
+     the whole int32 range;
   2. the map storm of the reference's bench config 20: 10,000 docs, 8 heavy
      docs of 400 ops, 8 zipf(1.1) rounds of ~1K dirty docs, then a
      minority-dirty hashes_for read;
@@ -25,7 +29,8 @@ Phases:
      version, and the launch counts of both paths;
   5. small fixed-seed workloads against outputs the JAX reference computed
      (automerge_tpu_torch/testdata/reference_hashes.npz): the rows streams'
-     hashes, span-table merges and move resolutions;
+     hashes, span-table merges, move resolutions and the docs-major
+     engine's hashes (512 docs of the docset fleet, 64 of the text fleet);
   6. the text-merge plane: bench config 10's 1,000,000-char bulk merge and
      a 10,000-doc fleet of its small-doc shape, each one routed dispatch
      (the plan must pick the device, the kernel must launch once), held
@@ -35,7 +40,15 @@ Phases:
      against the plain version, the numpy oracle and (one realm) the host
      walk;
   8. the router's cost constants measured on this machine (the "link"
-     line: launch + readback, host<->device copies, the numpy oracles).
+     line: launch + readback, host<->device copies, the numpy oracles);
+  9. the docs-major engine: (a) bench config 5's docset fleet (10,000
+     docs, 12 rounds of 2,000 one-op changes) through ResidentDocSet, then
+     apply_changes and a minority hashes_for read, held to apply_batch
+     from scratch; (b) phase 3's text fleet through ResidentDocSet, its
+     hashes equal to the rows engine's; (c) apply_batch of the text
+     fleet's change sets equal to (b). For (a) and (b) the domination
+     kernel on the final state equals its plain version, and (b)'s last
+     apply_doc kept exactly the ops the plain flags leave undominated.
 Then the kernel timings, a `kernels` JSON line, the card's name and power
 limit, and the last line {"ok": true, "device": {...}}. Any failure exits
 non-zero; without a CUDA device, or outside a checkout, it prints no result.
@@ -43,6 +56,7 @@ non-zero; without a CUDA device, or outside a checkout, it prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -71,19 +85,26 @@ def check(cond, msg: str) -> None:
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int, enqueue: list | None = None) -> float:
     """Mean device milliseconds of fn() over `reps` launches, after one
-    warm-up, from CUDA events."""
+    warm-up, from CUDA events. With a list `enqueue`, appends the host
+    milliseconds per call that the loop took to enqueue them: where that
+    comes near the device time, the launches waited on the host and the
+    window measured the host's launch rate, not the kernel."""
     import torch
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
+    t0 = time.perf_counter()
     for _ in range(reps):
         fn()
+    host = time.perf_counter() - t0
     stop.record()
     torch.cuda.synchronize()
+    if enqueue is not None:
+        enqueue.append(host * 1e3 / reps)
     return start.elapsed_time(stop) / reps
 
 
@@ -289,6 +310,29 @@ def phase_plane_kernel_parity(torch, dev, report):
               f"plain version (cycle drops {int(want['dropped'].sum())})")
 
 
+def phase_dominated_parity(torch, dev, report):
+    """Phase 1, the domination kernel on random inputs: one launch a call,
+    bit-equal to the plain version."""
+    import numpy as np
+    from automerge_tpu_torch.engine import cuda_kernels as ck
+    from automerge_tpu_torch.workloads import random_dominated
+
+    rng = np.random.default_rng(5)
+    for d, n, a in [(512, 128, 4), (64, 1024, 8), (1, 4096, 16)]:
+        for full in (False, True):
+            args = [torch.from_numpy(x).to(dev)
+                    for x in random_dominated(rng, d, n, a, full)]
+            got, k = counted("dominated", lambda: ck.dominated(*args))
+            check(k == 1, f"dominated launched {k} times")
+            hold_equal({"flags": got.cpu().numpy()},
+                       {"flags": ck.dominated_plain(*args).cpu().numpy()},
+                       f"dominated D={d} N={n} A={a}", report["dominated"])
+            print(f"phase 1: dominated D={d} N={n} A={a} "
+                  f"{'full int32 range' if full else 'values < 2**24'}: one "
+                  f"launch, equal to the plain version (dominated share "
+                  f"{float(got.float().mean()):.3f})")
+
+
 def drive_map_storm(torch, dev):
     """Phase 2: the main path at bench config 20's scale. Returns the
     engine, its final hashes and the launch count of this path."""
@@ -387,6 +431,26 @@ def phase_reference(dev):
         got = ds.hashes()
         check((got == committed[name]).all(), f"{name}: != reference")
         print(f"phase 5: {name}: {len(got)} hashes equal to the reference's")
+
+
+def phase_docs_reference(dev):
+    """Phase 5 for the docs-major engine: the committed reference hashes."""
+    import numpy as np
+    from automerge_tpu_torch.engine.resident import ResidentDocSet
+    from automerge_tpu_torch.workloads import reference_docs_streams
+
+    committed = np.load(Path(__file__).resolve().parent
+                        / "automerge_tpu_torch" / "testdata"
+                        / "reference_hashes.npz")
+    for name, ids, rounds in reference_docs_streams():
+        ds = ResidentDocSet(ids, device=dev)
+        for rnd in rounds:
+            ds.apply_and_reconcile(rnd)
+        got = ds.hashes()
+        check((got == committed[f"docs_{name}"]).all(),
+              f"docs-major {name}: != reference")
+        print(f"phase 5: docs-major {name}: {len(got)} hashes equal to the "
+              f"reference's")
 
 
 def drive_text_plane(torch, dev, report):
@@ -544,6 +608,224 @@ def phase_plane_reference(torch, dev, report):
           f"{packed['nodes'].shape[0]} move realms equal to the reference's")
 
 
+def hold_dominated_to_plain(ds, what, report, check_survivor):
+    """The domination kernel on the engine's final state (the launch
+    apply_doc makes there) equals the plain version bit for bit; with
+    `check_survivor`, the engine's last apply_doc output kept exactly the
+    live assign ops the plain flags leave undominated."""
+    from automerge_tpu_torch.engine import cuda_kernels as ck
+    from automerge_tpu_torch.engine.kernels import domination_inputs
+    s = ds.state
+    args = domination_inputs(s["op_mask"], s["action"], s["fid"], s["actor"],
+                             s["seq"], s["change_idx"], s["clock"])
+    plain = ck.dominated_plain(*args)
+    hold_equal({"flags": ck.dominated(*args).cpu().numpy()},
+               {"flags": plain.cpu().numpy()},
+               f"{what}: dominated vs plain", report["dominated"])
+    if check_survivor:
+        hold_equal({"survivor": ds._out["survivor"].cpu().numpy()},
+                   {"survivor": (args[-1] & ~plain).cpu().numpy()},
+                   f"{what}: apply_doc survivors vs plain flags",
+                   report["dominated"])
+
+
+@contextlib.contextmanager
+def gen2_timer():
+    """Yields a list that collects the seconds of each generation-2
+    garbage collection while the block runs."""
+    import gc
+    spans, start = [], []
+
+    def cb(phase, info):
+        if info["generation"] != 2:
+            return
+        if phase == "start":
+            start.append(time.perf_counter())
+        elif start:
+            spans.append(time.perf_counter() - start.pop())
+    gc.callbacks.append(cb)
+    try:
+        yield spans
+    finally:
+        gc.callbacks.remove(cb)
+
+
+def drive_docs_major(torch, dev, report, text_final):
+    """Phase 9: the docs-major engine. Returns the text fleet's engine (its
+    state feeds the kernel timing) and the launches of the domination
+    kernel on this path."""
+    import numpy as np
+    from automerge_tpu_torch.engine import cuda_kernels as ck
+    from automerge_tpu_torch.engine.batchdoc import apply_batch
+    from automerge_tpu_torch.engine.resident import ResidentDocSet
+    from automerge_tpu_torch.workloads import docset_fleet, text_fleet
+
+    t0 = time.perf_counter()
+    ids, initial, rounds = docset_fleet(rounds=13)
+    tids, trounds = text_fleet()
+    print(f"phase 9: generated the docset fleet ({len(ids)} docs, "
+          f"{len(rounds) - 1} rounds + 1 of {len(rounds[0])} docs) and the "
+          f"text fleet ({len(tids)} docs) in {time.perf_counter() - t0:.2f} s")
+    ck.LAUNCHES["dominated"] = 0
+
+    # (a) the docset fleet
+    ds = ResidentDocSet(ids, device=dev)
+    t0 = time.perf_counter()
+    ds.apply_and_reconcile(initial)
+    initial_s = time.perf_counter() - t0
+    walls, gc_s = [], []
+    with gen2_timer() as gen2:
+        for rnd in rounds[:12]:
+            t = time.perf_counter()
+            before = sum(gen2)
+            ds.apply_and_reconcile(rnd)
+            walls.append(time.perf_counter() - t)
+            gc_s.append(sum(gen2) - before)
+    t = time.perf_counter()
+    ds.apply_changes(rounds[12])
+    apply_s = time.perf_counter() - t
+    minority = [ds.doc_index[d] for d in list(rounds[12])[:100]] + [
+        i for i in range(len(ids)) if ids[i] not in rounds[12]][:10]
+    t = time.perf_counter()
+    got = ds.hashes_for(minority)
+    read_s = time.perf_counter() - t
+    docset_final = ds.hashes()
+    check((got == docset_final[minority]).all(),
+          "docset fleet: hashes_for != hashes()")
+    docset_bytes = ds.resident_bytes()
+
+    # (b) the text fleet, same streams as phase 3
+    tds = ResidentDocSet(tids, device=dev)
+    t0 = time.perf_counter()
+    for rnd in trounds:
+        tds.apply_and_reconcile(rnd)
+    text_s = time.perf_counter() - t0
+    text_hashes = tds.hashes()
+
+    # (c) apply_batch of the text fleet's whole change sets
+    per_doc = {d: [] for d in tids}
+    for rnd in trounds:
+        for d, chs in rnd.items():
+            per_doc[d].extend(chs)
+    t0 = time.perf_counter()
+    _, _, out = apply_batch([per_doc[d] for d in tids], device=dev)
+    batch_hashes = ck.hashes_to_numpy(out["hash"])
+    batch_s = time.perf_counter() - t0
+    launches = ck.LAUNCHES["dominated"]
+
+    check(launches > 0, "the docs-major path skipped the domination kernel")
+    check((text_hashes == text_final).all(),
+          "text fleet: docs-major hashes != the rows engine's")
+    check((batch_hashes == text_hashes).all(),
+          "text fleet: apply_batch != ResidentDocSet")
+    # checks after the count: their launches are not the path's
+    # the docset fleet from scratch
+    per_doc = {d: list(initial[d]) for d in ids}
+    for rnd in rounds:
+        for d, chs in rnd.items():
+            per_doc[d].extend(chs)
+    _, _, out = apply_batch([per_doc[d] for d in ids], device=dev)
+    check((ck.hashes_to_numpy(out["hash"]) == docset_final).all(),
+          "docset fleet: ResidentDocSet != apply_batch from scratch")
+    hold_dominated_to_plain(ds, "docset fleet", report, False)
+    hold_dominated_to_plain(tds, "text fleet", report, True)
+
+    print(f"phase 9: (a) docset fleet: {len(ids)} docs caps ops="
+          f"{ds.cap_ops} changes={ds.cap_changes} actors={ds.cap_actors} "
+          f"fids={ds.cap_fids}; initial apply_and_reconcile {initial_s:.4f} "
+          f"s; round walls s {[round(w, 4) for w in walls]} (p50 "
+          f"{sorted(walls)[len(walls) // 2]:.4f}); gen-2 garbage collection "
+          f"inside each round s {[round(g, 4) for g in gc_s]}; apply_changes of "
+          f"{len(rounds[12])} docs {apply_s:.4f} s; hashes_for of "
+          f"{len(minority)} docs {read_s:.4f} s; resident_bytes "
+          f"{docset_bytes}; equal to apply_batch from scratch")
+    print(f"phase 9: (b) text fleet: {len(tids)} docs caps ops="
+          f"{tds.cap_ops} changes={tds.cap_changes} lists={tds.cap_lists} "
+          f"elems={tds.cap_elems} actors={tds.cap_actors} fids="
+          f"{tds.cap_fids}; {len(trounds)} apply_and_reconcile rounds "
+          f"{text_s:.4f} s; resident_bytes {tds.resident_bytes()}; hashes "
+          f"equal to the rows engine's (phase 3)")
+    print(f"phase 9: (c) apply_batch of the text fleet {batch_s:.4f} s, "
+          f"equal to (b); launches of dominated on this path {launches}")
+    return tds, launches
+
+
+def time_docs_round(torch, ds):
+    """Device milliseconds of one full apply_doc over the text fleet's
+    state and of its linearize step (the plain PyTorch E-step loop)."""
+    from automerge_tpu_torch.engine.kernels import apply_doc, linearize
+    s = ds.state
+    d, n_lists, n_elems = s["ins_mask"].shape
+    cols = [s[k].reshape(d * n_lists, n_elems)
+            for k in ("ins_mask", "ins_elem", "ins_actor", "ins_parent")]
+    whole = cuda_ms(lambda: apply_doc(s, ds.cap_fids), 3)
+    lin = cuda_ms(lambda: linearize(*cols), 3)
+    print(f"timing text fleet: apply_doc {whole:.3f} ms, of which linearize "
+          f"{lin:.3f} ms ({100 * lin / whole:.1f}%) at [{d * n_lists}, "
+          f"{n_elems}] element rows")
+
+
+def dominated_bound(args):
+    """(bound_ms, bound_by, bytes, ops) of one domination launch, for this
+    data: amask read and the flags written on every lane (a byte each);
+    fid, change_idx, actor and seq read on live lanes only (the function
+    needs nothing else of a masked lane); and the 4-byte clock cells
+    clock_op[j, actor_i] that the answer needs, each once: for an
+    undominated live op i, those of every live j on its field from another
+    change; for a dominated one, that of its first dominator. An actor
+    outside [0, A) reads no cell. Operations: one compare for each ordered
+    pair of live ops on one field."""
+    import torch
+    clock_op, actor, fid, seq, change_idx, amask = args
+    d, n, a = clock_op.shape
+    cells = 0
+    step = max(1, (1 << 24) // (n * n))
+    for lo in range(0, d, step):
+        sl = slice(lo, lo + step)
+        m, f, c, sq = amask[sl], fid[sl], change_idx[sl], seq[sl]
+        act = actor[sl]
+        ok = (act >= 0) & (act < a)
+        col = act.clamp(0, a - 1).to(torch.int64)
+        cand = (m[:, :, None] & m[:, None, :]
+                & (f[:, :, None] == f[:, None, :])
+                & (c[:, :, None] != c[:, None, :]))            # [d, i, j]
+        clk = torch.gather(clock_op[sl].transpose(1, 2), 1,
+                           col[:, :, None].expand(-1, -1, n))  # [d, i, j]
+        hit = cand & (torch.where(ok[:, :, None], clk, 0) >= sq[:, :, None])
+        first = torch.zeros_like(hit).scatter_(
+            2, hit.to(torch.int32).argmax(2, keepdim=True), True) & hit
+        need = torch.where(hit.any(2, keepdim=True), first, cand)
+        need &= ok[:, :, None]
+        onehot = torch.nn.functional.one_hot(col, a).to(torch.float32)
+        cells += int((torch.einsum("dij,dia->dja", need.to(torch.float32),
+                                   onehot) > 0).sum())
+    nbytes = 2 * amask.numel() + 16 * int(amask.sum()) + 4 * cells
+    f = int(fid.max()) + 2 if fid.numel() else 1
+    seg = torch.where(amask, fid.clamp(-1, f - 2) + 1, 0).to(torch.int64)
+    per_field = torch.zeros((d, f), dtype=torch.int64, device=fid.device)
+    per_field.scatter_add_(1, seg, amask.to(torch.int64))
+    ops = int((per_field[:, 1:] ** 2).sum())
+    return (*bound_of(nbytes, ops), nbytes, ops)
+
+
+def time_dominated(torch, ds, label):
+    """The domination launch apply_doc makes on this engine's state."""
+    from automerge_tpu_torch.engine import cuda_kernels as ck
+    from automerge_tpu_torch.engine.kernels import domination_inputs
+    s = ds.state
+    args = domination_inputs(s["op_mask"], s["action"], s["fid"], s["actor"],
+                             s["seq"], s["change_idx"], s["clock"])
+    enq = []
+    k_ms = cuda_ms(lambda: ck.dominated(*args), 20, enq)
+    p_ms = cuda_ms(lambda: ck.dominated_plain(*args), 2)
+    b_ms, b_by, nbytes, ops = dominated_bound(args)
+    print(f"timing {label}: dominated clock_op={tuple(args[0].shape)} "
+          f"live ops={int(args[-1].sum())} kernel_ms={k_ms:.4f} "
+          f"enqueue_ms={enq[0]:.4f} plain_ms={p_ms:.3f} bound_ms={b_ms:.5f} "
+          f"({b_by}; bytes={nbytes} compares={ops})")
+    return k_ms, p_ms, b_ms, b_by
+
+
 def host_s(fn, reps: int) -> float:
     """Median host seconds of fn() over `reps` calls, after one warm-up."""
     import statistics
@@ -619,11 +901,12 @@ def measure_link(torch, dev) -> dict:
 def time_kernel(torch, ds, label):
     from automerge_tpu_torch.engine import cuda_kernels as ck
     rows, dims = ds.rows_dev, ds.dims()
-    k_ms = cuda_ms(lambda: ck.reconcile_rows_hash(rows, dims), 20)
+    enq = []
+    k_ms = cuda_ms(lambda: ck.reconcile_rows_hash(rows, dims), 20, enq)
     p_ms = cuda_ms(lambda: ck.reconcile_rows_hash_plain(rows, dims), 1)
     b_ms, b_by, nbytes, ops = bound(rows, dims)
     print(f"timing {label}: dims={dims} lanes={rows.shape[1]} "
-          f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.3f} bound_ms={b_ms:.5f} "
+          f"kernel_ms={k_ms:.4f} enqueue_ms={enq[0]:.4f} plain_ms={p_ms:.3f} bound_ms={b_ms:.5f} "
           f"({b_by}; bytes={nbytes} compares={ops})")
     return k_ms, p_ms, b_ms, b_by
 
@@ -632,11 +915,12 @@ def time_span_kernel(torch, spans, order, label):
     """The rank+hash launch that merge_spans makes on this workload."""
     from automerge_tpu_torch.engine.span_kernels import (
         span_rank_hash, span_rank_hash_plain)
-    k_ms = cuda_ms(lambda: span_rank_hash(spans, order), 20)
+    enq = []
+    k_ms = cuda_ms(lambda: span_rank_hash(spans, order), 20, enq)
     p_ms = cuda_ms(lambda: span_rank_hash_plain(spans, order), 3)
     b_ms, b_by, nbytes, ops = span_bound(spans)
     print(f"timing {label}: span_rank_hash lanes={tuple(spans.shape)} "
-          f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.3f} bound_ms={b_ms:.5f} "
+          f"kernel_ms={k_ms:.4f} enqueue_ms={enq[0]:.4f} plain_ms={p_ms:.3f} bound_ms={b_ms:.5f} "
           f"({b_by}; bytes={nbytes} ops={ops})")
     return k_ms, p_ms, b_ms, b_by
 
@@ -645,12 +929,13 @@ def time_move_kernel(torch, nodes, cands, label):
     """The fixpoint launch that resolve_moves makes on this workload."""
     from automerge_tpu_torch.engine.move_kernels import (resolve_moves,
                                                          resolve_moves_plain)
-    k_ms = cuda_ms(lambda: resolve_moves(nodes, cands), 20)
+    enq = []
+    k_ms = cuda_ms(lambda: resolve_moves(nodes, cands), 20, enq)
     p_ms = cuda_ms(lambda: resolve_moves_plain(nodes, cands), 2)
     b_ms, b_by, nbytes, ops = move_bound(nodes, cands)
     print(f"timing {label}: resolve_moves (fixpoint) nodes="
           f"{tuple(nodes.shape)} cands={tuple(cands.shape)} "
-          f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.3f} bound_ms={b_ms:.5f} "
+          f"kernel_ms={k_ms:.4f} enqueue_ms={enq[0]:.4f} plain_ms={p_ms:.3f} bound_ms={b_ms:.5f} "
           f"({b_by}; bytes={nbytes} ops={ops})")
     return k_ms, p_ms, b_ms, b_by
 
@@ -678,10 +963,11 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     t_all = time.perf_counter()
     report = {"reconcile_rows_hash": [], "span_rank_hash": [],
-              "move_round": [], "resolve_moves": []}
+              "move_round": [], "resolve_moves": [], "dominated": []}
 
     phase_kernel_parity(torch, dev, report)
     phase_plane_kernel_parity(torch, dev, report)
+    phase_dominated_parity(torch, dev, report)
     map_ds, map_final, map_launches = drive_map_storm(torch, dev)
     text_ds, text_final, text_launches = drive_text_fleet(torch, dev)
     check(map_launches > 0 and text_launches > 0, "a path skipped the kernel")
@@ -689,9 +975,11 @@ def main() -> int:
     hold_to_plain(text_ds, text_final, "text fleet", report)
     phase_reference(dev)
     phase_plane_reference(torch, dev, report)
+    phase_docs_reference(dev)
     span_inputs, span_launches = drive_text_plane(torch, dev, report)
     move_inputs, move_launches = drive_move_plane(torch, dev, report)
     measure_link(torch, dev)
+    docs_ds, docs_launches = drive_docs_major(torch, dev, report, text_final)
 
     rows_times = time_kernel(torch, map_ds, "map storm")
     time_kernel(torch, text_ds, "text fleet")
@@ -699,9 +987,11 @@ def main() -> int:
                   for k, v in span_inputs.items()}
     move_times = {k: time_move_kernel(torch, *v, k)
                   for k, v in move_inputs.items()}
+    dom_times = time_dominated(torch, docs_ds, "text fleet (docs-major)")
+    time_docs_round(torch, docs_ds)
     print(f"launches: rows engine {map_launches} (map storm) + "
           f"{text_launches} (text fleet); text-merge plane {span_launches}; "
-          f"move plane {move_launches}")
+          f"move plane {move_launches}; docs-major engine {docs_launches}")
     print(json.dumps({"kernels": [
         kernel_entry("reconcile_rows_hash",
                      "automerge_tpu_torch/csrc/reconcile_rows.cu",
@@ -717,7 +1007,11 @@ def main() -> int:
                      "automerge_tpu_torch/csrc/move_round.cu",
                      "automerge_tpu/engine/move_kernels.py:319",
                      move_launches, report["resolve_moves"],
-                     move_times["realm fleet"])]}))
+                     move_times["realm fleet"]),
+        kernel_entry("dominated",
+                     "automerge_tpu_torch/csrc/dominated.cu",
+                     "automerge_tpu/engine/pallas_kernels.py:578",
+                     docs_launches, report["dominated"], dom_times)]}))
     print(f"total {time.perf_counter() - t_all:.1f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -9,11 +9,16 @@ write them to automerge_tpu_torch/testdata/reference_hashes.npz:
   `spans_order`, `spans_start`, `spans_total`, `spans_hash`;
 - small move realms through the reference's XLA `resolve_moves`:
   `moves_ptr`, `moves_parent`, `moves_resolved`, `moves_dropped`,
-  `moves_hash`.
+  `moves_hash`;
+- the docs-major streams (a 512-doc cut of the docset fleet with its 12
+  rounds, a 64-doc cut of the text fleet) through the reference's
+  docs-major ResidentDocSet (pure-Python ingress), one
+  apply_and_reconcile a round: the final per-doc hashes, under
+  `docs_<name>`.
 
 `chip_smoke.py` holds the port to that file on a machine that has no JAX;
-`tests/test_torch_rows.py`, `test_torch_spans.py` and `test_torch_moves.py`
-check that both packages still reproduce it.
+`tests/test_torch_rows.py`, `test_torch_spans.py`, `test_torch_moves.py`
+and `test_torch_resident.py` check that both packages still reproduce it.
 
     JAX_PLATFORMS=cpu python scripts/torch_reference_hashes.py
 """
@@ -44,6 +49,22 @@ def reference_hashes() -> dict[str, np.ndarray]:
     return out
 
 
+def reference_docs_hashes() -> dict[str, np.ndarray]:
+    from automerge_tpu.core.change import Change
+    from automerge_tpu.engine.resident import ResidentDocSet
+    from automerge_tpu_torch.workloads import reference_docs_streams
+
+    out = {}
+    for name, ids, rounds in reference_docs_streams():
+        ds = ResidentDocSet(ids, native=False)
+        for rnd in rounds:
+            ds.apply_and_reconcile({
+                d: [Change.from_dict(c.to_dict()) for c in chs]
+                for d, chs in rnd.items()})
+        out[f"docs_{name}"] = ds.hashes()
+    return out
+
+
 def reference_span_outputs() -> dict[str, np.ndarray]:
     from automerge_tpu.engine.pack import pack_spans
     from automerge_tpu.engine.span_kernels import merge_spans
@@ -66,7 +87,7 @@ def reference_move_outputs() -> dict[str, np.ndarray]:
 def main() -> int:
     sys.path.insert(0, str(REPO))
     outputs = {**reference_hashes(), **reference_span_outputs(),
-               **reference_move_outputs()}
+               **reference_move_outputs(), **reference_docs_hashes()}
     OUT.parent.mkdir(parents=True, exist_ok=True)
     np.savez(OUT, **outputs)
     print(f"wrote {OUT.relative_to(REPO)}: "

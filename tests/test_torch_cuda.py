@@ -1,5 +1,5 @@
-"""The port's CUDA kernels, the rows engine and the batched planes on the
-card. Every test here is marked `cuda` and skips without a GPU. The file imports neither jax nor the
+"""The port's CUDA kernels, the rows engine, the batched planes and the
+docs-major engine on the card. Every test here is marked `cuda` and skips without a GPU. The file imports neither jax nor the
 JAX package, so it runs on a GPU machine that has neither:
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
@@ -7,7 +7,8 @@ JAX package, so it runs on a GPU machine that has neither:
 Tolerance: exact (integer outputs and hashes). The other side of each
 comparison is the plain PyTorch version, which tests/test_torch_kernels.py,
 test_torch_rows.py, test_torch_spans.py and test_torch_moves.py hold
-bit-equal to the reference."""
+bit-equal to the reference (test_torch_dominated.py, test_torch_apply_doc.py
+and test_torch_resident.py for the docs-major engine)."""
 
 from pathlib import Path
 
@@ -27,10 +28,12 @@ from automerge_tpu_torch.engine.dispatch import (merge_spans_adaptive,
 from automerge_tpu_torch.engine.pack import (pack_moves, pack_spans,
                                              rows_from_numpy)
 from automerge_tpu_torch.engine.resident_rows import ResidentRowsDocSet
+from automerge_tpu_torch.engine.kernels import apply_doc
+from automerge_tpu_torch.engine.resident import ResidentDocSet
 from automerge_tpu_torch.workloads import (
-    move_fleet, random_move_lanes, random_span_tables,
-    reference_move_problems, reference_span_tables, reference_streams,
-    span_fleet, text_fleet)
+    move_fleet, random_dominated, random_move_lanes, random_span_tables,
+    reference_docs_streams, reference_move_problems, reference_span_tables,
+    reference_streams, span_fleet, text_fleet)
 
 from torch_port_helpers import cuda_device  # noqa: F401 (fixture)
 
@@ -142,3 +145,37 @@ def test_planes_route_to_the_card_and_reproduce_the_reference(cuda_device):
         torch.from_numpy(packed["cands"]).to(cuda_device)))
     for k in got:
         np.testing.assert_array_equal(got[k], committed[f"moves_{k}"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("full_range", [False, True])
+@pytest.mark.parametrize("d,n,a", [(512, 128, 4), (64, 1024, 8),
+                                   (1, 4096, 16), (5, 1, 1)])
+def test_dominated_kernel_matches_plain(cuda_device, d, n, a, full_range):
+    """B5 against its plain version, bit-equal, at chip_smoke's shapes,
+    with values below 2**24 and over the whole int32 range."""
+    args = [torch.from_numpy(x).to(cuda_device) for x in random_dominated(
+        np.random.default_rng(d * n + full_range), d, n, a, full_range)]
+    got = _launched("dominated", lambda: cuda_kernels.dominated(*args))
+    assert torch.equal(got, cuda_kernels.dominated_plain(*args))
+    assert torch.equal(got.cpu(), cuda_kernels.dominated(
+        *(x.cpu() for x in args)))
+
+
+@pytest.mark.cuda
+def test_docs_major_engine_on_the_card_reproduces_the_reference(cuda_device):
+    committed = np.load(REFERENCE)
+    for name, ids, rounds in reference_docs_streams():
+        ds = ResidentDocSet(ids, device=cuda_device)
+        before = cuda_kernels.LAUNCHES["dominated"]
+        for rnd in rounds:
+            ds.apply_and_reconcile(rnd)
+        assert cuda_kernels.LAUNCHES["dominated"] == before + len(rounds)
+        np.testing.assert_array_equal(ds.hashes(), committed[f"docs_{name}"])
+        # the whole apply_doc output on the card equals the CPU's
+        ds._ensure_actor_hash_state()
+        on_card = apply_doc(ds.state, ds.cap_fids)
+        on_cpu = apply_doc({k: v.cpu() for k, v in ds.state.items()},
+                           ds.cap_fids)
+        for k in on_cpu:
+            assert torch.equal(on_card[k].cpu(), on_cpu[k]), (name, k)

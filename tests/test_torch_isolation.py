@@ -25,7 +25,8 @@ def test_every_module_imports_with_jax_and_reference_blocked():
     for m in ("engine.resident_rows", "engine.cuda_kernels",
               "engine.span_kernels", "engine.move_kernels",
               "engine.dispatch", "core.moves", "core.textspans",
-              "workloads"):
+              "workloads", "engine.resident", "engine.batchdoc",
+              "engine.kernels", "engine.pack"):
         assert f"automerge_tpu_torch.{m}" in mods, m
     code = "\n".join([
         "import importlib, sys",
@@ -39,6 +40,15 @@ def test_every_module_imports_with_jax_and_reference_blocked():
         "from automerge_tpu_torch.engine.resident_rows import "
         "ResidentRowsDocSet",
         "ResidentRowsDocSet(['a', 'b'], device='cpu').hashes()",
+        "from automerge_tpu_torch.engine.resident import ResidentDocSet",
+        "from automerge_tpu_torch.engine.batchdoc import apply_batch",
+        "from automerge_tpu_torch.workloads import docset_fleet",
+        "ids, initial, rounds = docset_fleet(n_docs=3, rounds=1)",
+        "ds = ResidentDocSet(ids, device='cpu')",
+        "ds.apply_and_reconcile(initial)",
+        "ds.apply_changes(rounds[0])",
+        "ds.hashes_for([0]); ds.materialize(ids[0])",
+        "apply_batch([initial[i] for i in ids], device='cpu')",
         "from automerge_tpu_torch.engine.dispatch import (",
         "    merge_spans_adaptive, resolve_moves_adaptive)",
         "from automerge_tpu_torch.engine.pack import pack_moves",
@@ -76,3 +86,20 @@ def test_default_device_without_a_card_raises():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
     assert ResidentRowsDocSet(["a"], device="cpu").device.type == "cpu"
+
+
+def test_docs_major_entry_points_default_to_the_card():
+    """ResidentDocSet, apply_batch and BatchedDocSet run on the card
+    unless the caller asks for the CPU; without a card the default raises."""
+    from automerge_tpu_torch.engine.batchdoc import BatchedDocSet, apply_batch
+    from automerge_tpu_torch.engine.resident import ResidentDocSet
+    if torch.cuda.is_available():
+        assert ResidentDocSet(["a"]).device.type == "cuda"
+        return
+    for make in (lambda: ResidentDocSet(["a"]), lambda: apply_batch([[]]),
+                 BatchedDocSet):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    ds = ResidentDocSet(["a"], device="cpu")
+    assert ds.device.type == "cpu"
+    assert {t.device.type for t in ds.state.values()} == {"cpu"}
