@@ -16,77 +16,104 @@
 // live op, and reads a clock cell only for a live peer on the op's field
 // from another change, at 3.35 TB/s. The pairwise work is one compare for
 // each pair of live ops on one field, and in the engine's batches a field
-// holds few ops, so bytes bound it at the main path's shapes. This kernel
-// stages fid and change of every op, masked ones too.
+// holds few ops, so bytes bound it at the main path's shapes.
 //
-// Design, right and simple first: one thread block per document, one
-// thread per op i (the block strides over i when N exceeds it). The j axis
-// is walked in tiles of (fid, change, amask) staged in shared memory, so a
-// warp reads each j once from shared memory; clock_op[j, actor_i] is read
-// from device memory only for a j that passes the field, change and mask
-// tests. A thread stops testing at its first hit; the tile loop has no cap
-// on N. Later work: several small documents a block, and the clock rows
-// of a tile in shared memory.
+// Design: a team of threads per document (lane_team.cuh). A document's
+// live ops are compacted, by a warp ballot and a prefix count, into a tile
+// in shared memory of (fid, change, 0, clock row) entries, indexed by fid:
+// the clock rows of live ops are read once, contiguously, and a masked op
+// is never staged. Each live op, held in registers, walks only its own
+// field's entries and stops at its first dominator. At N <= 128 a team is
+// one warp and eight documents share a block (the docset fleet's N is 32);
+// above, a team is 128 threads, two documents a block. Measured on an H100
+// against teams of 32, 64, 128 and 256, these were the fastest on the
+// docset fleet (N = 32) and the text fleet (N = 512) (PERF.md). The tile
+// holds a whole document when the card's shared memory allows (N * (A + 3)
+// ints and its index), and is walked in turn when it does not; the mask is
+// read from device memory wherever a pass asks, so no per-op state lives in
+// shared memory and nothing caps N.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "lane_team.cuh"
+
 namespace {
 
-constexpr int kTile = 1024;
+using amt::PassMem;
+using amt::Team;
 
-// blockDim.x is a multiple of 32, at most 1024. Every thread runs the same
-// number of iterations of both loops, so the barriers are uniform.
-__global__ void dominated_kernel(const int32_t* __restrict__ clock_op,
-                                 const int32_t* __restrict__ actor,
-                                 const int32_t* __restrict__ fid,
-                                 const int32_t* __restrict__ seq,
-                                 const int32_t* __restrict__ change,
-                                 const bool* __restrict__ amask,
-                                 bool* __restrict__ out, int N, int A) {
-  __shared__ int32_t s_fid[kTile];
-  __shared__ int32_t s_chg[kTile];
-  __shared__ uint8_t s_msk[kTile];
-  const size_t row = static_cast<size_t>(blockIdx.x) * static_cast<size_t>(N);
-  const int32_t* clk = clock_op + row * static_cast<size_t>(A);
-
-  for (int base = 0; base < N; base += blockDim.x) {
-    const int i = base + threadIdx.x;
-    const bool in = i < N;
-    const bool live = in && amask[row + i];
-    int32_t f_i = 0, c_i = 0, s_i = 0, a_i = -1;
-    if (live) {
-      f_i = fid[row + i];
-      c_i = change[row + i];
-      s_i = seq[row + i];
-      a_i = actor[row + i];
-      if (a_i < 0 || a_i >= A) a_i = -1;  // no clock column: reads 0
-    }
-    bool hit = false;
-    for (int j0 = 0; j0 < N; j0 += kTile) {
-      const int nj = min(kTile, N - j0);
-      __syncthreads();  // the previous tile is no longer read
-      for (int k = threadIdx.x; k < nj; k += blockDim.x) {
-        const size_t j = row + j0 + k;
-        s_fid[k] = fid[j];
-        s_chg[k] = change[j];
-        s_msk[k] = amask[j] ? 1 : 0;
-      }
-      __syncthreads();
-      if (live && !hit) {
-        for (int k = 0; k < nj; ++k) {
-          if (!s_msk[k] || s_fid[k] != f_i || s_chg[k] == c_i) continue;
-          const int32_t v =
-              a_i < 0 ? 0 : clk[static_cast<size_t>(j0 + k) * A + a_i];
-          if (v >= s_i) {
-            hit = true;
-            break;
-          }
-        }
-      }
-    }
-    if (in) out[row + i] = hit;
+// One document's rows (docs-major); the mask is read where a pass asks.
+struct DocSrc {
+  static constexpr bool kOutOfRangeReadsZero = true;
+  const int32_t* clk;  // [N, A] of this document
+  const int32_t* act;
+  const int32_t* fid_;
+  const int32_t* seq_;
+  const int32_t* chg_;
+  const bool* live;
+  bool* out;
+  int n, A;
+  __device__ bool take_i(int s) const { return live[s]; }
+  __device__ bool take_j(int s) const { return live[s]; }
+  __device__ int32_t fid(int s) const { return fid_[s]; }
+  __device__ int32_t chg(int s) const { return chg_[s]; }
+  __device__ int32_t seq(int s) const { return seq_[s]; }
+  __device__ int32_t actor(int s) const { return act[s]; }
+  __device__ int32_t clock(int s, int a) const {
+    return clk[static_cast<size_t>(s) * A + a];
   }
+  __device__ void finish(int s, bool dominated) const { out[s] = dominated; }
+};
+
+// `lanes` documents a block, a team of TEAM threads each.
+template <int TEAM, int MAX_LANES>
+__global__ void __launch_bounds__(TEAM * MAX_LANES)
+dominated_kernel(const int32_t* __restrict__ clock_op,
+                 const int32_t* __restrict__ actor,
+                 const int32_t* __restrict__ fid,
+                 const int32_t* __restrict__ seq,
+                 const int32_t* __restrict__ change,
+                 const bool* __restrict__ amask, bool* __restrict__ out,
+                 int n_docs, int N, int A, int lanes, int tile_ints,
+                 int key_cap, int slot_shift, int team_bytes) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int team = static_cast<int>(threadIdx.x) / TEAM;
+  const int d = blockIdx.x * lanes + team;
+  if (d >= n_docs) return;  // a whole team leaves, never part of one
+  int* misc;
+  PassMem m;
+  amt::lay_out<TEAM>(smem + static_cast<size_t>(team) * team_bytes,
+                     tile_ints, key_cap, slot_shift, &misc, &m);
+  Team<TEAM> t{static_cast<int>(threadIdx.x) % TEAM, team, misc};
+
+  const size_t row = static_cast<size_t>(d) * N;
+  for (int s = t.rank; s < N; s += TEAM) {
+    if (!amask[row + s]) out[row + s] = false;
+  }
+
+  amt::DomPass<DocSrc> dom;
+  dom.src = DocSrc{clock_op + row * A, actor + row, fid + row, seq + row,
+                   change + row, amask + row, out + row, N, A};
+  amt::pair_pass(t, dom, m);
+}
+
+template <int TEAM, int LANES>
+int launch(const int32_t* clock_op, const int32_t* actor, const int32_t* fid,
+           const int32_t* seq, const int32_t* change, const bool* amask,
+           bool* out, int n_docs, int N, int A, cudaStream_t stream) {
+  static int opted[amt::kMaxDevices] = {};
+  amt::Launch l;
+  const cudaError_t e = amt::plan_launch<TEAM>(
+      reinterpret_cast<const void*>(dominated_kernel<TEAM, LANES>), opted,
+      static_cast<long long>(N) * (3 + A), N, 0, 3 + A, LANES, &l);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dominated_kernel<TEAM, LANES>
+      <<<(n_docs + l.lanes - 1) / l.lanes, TEAM * l.lanes, l.block_bytes,
+         stream>>>(clock_op, actor, fid, seq, change, amask, out, n_docs, N,
+                   A, l.lanes, l.plan.tile, l.plan.key_cap,
+                   l.plan.slot_shift, static_cast<int>(l.plan.bytes));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -94,18 +121,20 @@ __global__ void dominated_kernel(const int32_t* __restrict__ clock_op,
 extern "C" {
 
 // Launch on `stream` (a cudaStream_t as a pointer); returns
-// cudaGetLastError() after the launch, 0 when it was accepted. All arrays
-// are contiguous, docs-major; n_docs >= 1, N >= 1, A >= 1.
+// cudaGetLastError() after the launch, 0 when it was accepted,
+// cudaErrorInvalidValue when not even one clock row of A ints fits a whole
+// block of the card's shared memory. All arrays are contiguous, docs-major; n_docs >= 1,
+// N >= 1, A >= 1.
 int amt_dominated(const int32_t* clock_op, const int32_t* actor,
                   const int32_t* fid, const int32_t* seq,
                   const int32_t* change, const bool* amask, bool* out,
                   int n_docs, int N, int A, void* stream) {
-  int threads = ((N + 31) / 32) * 32;
-  if (threads > 256) threads = 256;
-  dominated_kernel<<<n_docs, threads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      clock_op, actor, fid, seq, change, amask, out, N, A);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (N <= 128)
+    return launch<32, 8>(clock_op, actor, fid, seq, change, amask, out,
+                         n_docs, N, A, st);
+  return launch<128, 2>(clock_op, actor, fid, seq, change, amask, out,
+                        n_docs, N, A, st);
 }
 
 const char* amt_cuda_error_string(int code) {

@@ -13,8 +13,9 @@ and move kernels' wrappers (`span_kernels.span_rank_hash`,
 
 Each source of `csrc/` is compiled at first use with `nvcc` for `sm_90a`
 into its own library under `automerge_tpu_torch/build/` (named by the
-source's content hash, so an edited source never loads a stale library),
-and bound with ctypes: a plain C interface keeps the build to seconds.
+content hash of the source and of every `csrc/` header it includes, so an
+edited source or header never loads a stale library), and bound with
+ctypes: a plain C interface keeps the build to seconds.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -53,7 +55,7 @@ LAUNCHES = {"reconcile_rows_hash": 0, "span_rank_hash": 0, "move_round": 0,
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "reconcile_rows": {
-        "amt_reconcile_rows_hash": [_P] * 5 + [_I] * 6 + [_P]},
+        "amt_reconcile_rows_hash": [_P] * 2 + [_I] * 6 + [_P]},
     "span_rank_hash": {
         "amt_span_rank_hash": [_P] * 5 + [_I] * 2 + [_P]},
     "move_round": {
@@ -100,10 +102,30 @@ def _nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _build_inputs(src: Path) -> list[Path]:
+    """`src` and every file it includes with #include "...", transitively,
+    each once, in the order first met."""
+    seen, todo = [], [src]
+    while todo:
+        f = todo.pop(0)
+        if f in seen:
+            continue
+        seen.append(f)
+        todo += [f.parent / m.decode()
+                 for m in _INCLUDE.findall(f.read_bytes())]
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = SOURCES[name]
-    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library of source `name`, named by the hash of the source and of
+    every header it includes."""
+    h = hashlib.sha1()
+    for f in _build_inputs(SOURCES[name]):
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _compile(name: str) -> tuple[str, subprocess.Popen]:
@@ -218,14 +240,10 @@ def reconcile_rows_hash(rows: torch.Tensor, dims: tuple,
     d_pad = rows.shape[1]
     with torch.cuda.device(rows.device):
         out = torch.empty(d_pad, dtype=torch.int32, device=rows.device)
-        st = torch.empty((i, d_pad), dtype=torch.int32, device=rows.device)
-        vis = torch.empty((le, d_pad), dtype=torch.int32, device=rows.device)
-        rank = torch.empty((le, d_pad), dtype=torch.int32, device=rows.device)
-        launch("reconcile_rows", "amt_reconcile_rows_hash",
-               "reconcile_rows_hash", rows.data_ptr(), out.data_ptr(),
-               st.data_ptr(), vis.data_ptr() if le else None,
-               rank.data_ptr() if le else None, d_pad, i, a, le, a_set,
-               a_del, stream_of(rows))
+        if d_pad:
+            launch("reconcile_rows", "amt_reconcile_rows_hash",
+                   "reconcile_rows_hash", rows.data_ptr(), out.data_ptr(),
+                   d_pad, i, a, le, a_set, a_del, stream_of(rows))
     return out
 
 

@@ -1,9 +1,9 @@
 """Seeded change streams that drive the port's engines at the sizes their
 users run: `chip_smoke.py` drives them on the card at full size, and
 `scripts/torch_reference_hashes.py` runs them small through the JAX
-reference to fix the hashes the port must reproduce. Also `random_rows`
-and `random_dominated`, the random kernel inputs of the tests and of
-`chip_smoke.py`.
+reference to fix the hashes the port must reproduce. Also `random_rows`,
+`reconcile_cases` and `random_dominated`, the random kernel inputs of the
+tests and of `chip_smoke.py`.
 
 - `map_storm`: the reference's bench config 20 (`bench.py::
   run_megabatch_config`): a 10,000-doc fleet, 8 heavy docs of 400 `set` ops
@@ -206,6 +206,53 @@ def random_rows(rng: np.random.Generator, i: int, a: int, le: int,
     for g, (n, lo, hi) in ranges.items():
         x[b[g]:b[g] + n] = rng.integers(lo, hi, size=(n, d_pad))
     return x, (i, a, le, int(A_SET), int(A_DEL))
+
+
+# The reconcile kernel's named cases: (I, A, LE, lanes) and what each one
+# holds the kernel to.
+RECONCILE_CASES = {
+    "base": (64, 4, 64, 1024),            # random lanes, base envelope
+    "xl_only": (512, 8, 512, 1024),       # past the base envelope, XL only
+    "heavy_lane": (512, 2, 8, 1024),      # the map storm's shape
+    "all_live": (256, 4, 64, 256),        # every op slot live
+    "zero_ops": (64, 4, 32, 256),         # most lanes hold no op at all
+    "no_elements": (64, 4, 0, 256),       # LE = 0
+    "one_actor": (64, 1, 32, 256),        # A = 1
+    "max_dims": (1024, 9, 1024, 256),     # I = LE = 1,024
+    "tiled": (1024, 64, 1024, 128),       # a lane past the shared memory
+    "long_list": (64, 4, 16384, 8),       # a lane that needs a whole block
+}
+
+
+def reconcile_case(name: str, seed: int = 0):
+    """The row buffer (numpy [ROWS, lanes] int32) and dims of one of
+    RECONCILE_CASES: random lanes (random_rows), reshaped where the name
+    says. "heavy_lane": near-empty lanes (0-3 live ops) with every 128th
+    lane holding 400 live `set`s on distinct fields, so no op is dominated
+    and no walk ends early. "all_live": every op slot live. "zero_ops":
+    three lanes in four hold no op. "tiled": enough actors that a lane's
+    live ops and their clock rows do not fit one block's shared memory.
+    "long_list": enough elements that a lane's per-slot state does not fit
+    a quarter of a block's shared memory, so a block holds one lane."""
+    i, a, le, d = RECONCILE_CASES[name]
+    rng = np.random.default_rng(seed)
+    x, dims = random_rows(rng, i, a, le, d, n_fids=16, n_lists=4)
+    b = row_bases(i, a, le)
+    om = x[b["om"]:b["om"] + i]
+    if name == "heavy_lane":
+        n_live = rng.integers(0, 4, size=d)
+        n_live[::128] = 400
+        om[:] = np.arange(i)[:, None] < n_live[None]
+        x[b["ac"]:b["ac"] + i] = A_SET
+        x[b["fid"]:b["fid"] + i] = np.arange(i)[:, None]
+        x[b["act"]:b["act"] + i] = 0
+        x[b["chg"]:b["chg"] + i] = 0
+    elif name == "all_live":
+        om[:] = 1
+        x[b["ac"]:b["ac"] + i] = rng.integers(A_SET, A_MOVE + 1, size=(i, d))
+    elif name == "zero_ops":
+        om[:, rng.random(d) < 0.75] = 0
+    return x, dims
 
 
 def random_dominated(rng: np.random.Generator, d: int, n: int, a: int,

@@ -12,14 +12,19 @@ move plane (`dispatch.resolve_moves_adaptive`) and the docs-major engine
 
 Phases:
   1. build (one nvcc per kernel source, all started together) and kernel
-     parity on random inputs: the reconcile kernel at the base shape and
-     the XL-only shape; the span rank+hash kernel at S_pad 128 and 4,096
-     (pre-sorted and through an order); the move source's round kernel
+     parity on random inputs: the reconcile kernel on every case of
+     workloads.RECONCILE_CASES (the base and XL-only shapes, a heavy lane
+     among near-empty ones, every slot live, lanes with no op, LE = 0,
+     A = 1, I = LE = 1,024, a lane past the shared memory and a lane
+     whose state needs a whole block), with and without force_xl; the
+     span rank+hash kernel at S_pad 128 and 4,096 (pre-sorted and
+     through an order); the move source's round kernel
      (move_round) and fixpoint kernel (resolve_moves, the one the move
      plane launches) at N_pad 512 (K_pad 512), 4,096 and 8,192 (global
      scratch); the domination kernel at (D, N, A) (512, 128, 4), (64,
-     1,024, 8) and (1, 4,096, 16), each with values below 2**24 and over
-     the whole int32 range;
+     1,024, 8), (1, 4,096, 16), (10,000, 32, 4) (the docset fleet's
+     shape) and (300, 45, 3), each with values below 2**24 and over the
+     whole int32 range;
   2. the map storm of the reference's bench config 20: 10,000 docs, 8 heavy
      docs of 400 ops, 8 zipf(1.1) rounds of ~1K dirty docs, then a
      minority-dirty hashes_for read;
@@ -49,7 +54,13 @@ Phases:
      fleet's change sets equal to (b). For (a) and (b) the domination
      kernel on the final state equals its plain version, and (b)'s last
      apply_doc kept exactly the ops the plain flags leave undominated.
-Then the kernel timings, a `kernels` JSON line, the card's name and power
+Then the kernel timings (each kernel's launches timed three ways:
+`kernel_ms` from CUDA events around a host loop of launches, the host's
+`enqueue_ms` per launch in that loop, and `graph_ms` from a replay of the
+same launches captured in one CUDA graph, the device alone; the reconcile
+kernel also `graph_cold_ms`, the graph with the L2 flushed before each
+launch, as the main path finds it), a `kernels` JSON line (its `ms` the
+graph figure, cold for the reconcile kernel), the card's name and power
 limit, and the last line {"ok": true, "device": {...}}. Any failure exits
 non-zero; without a CUDA device, or outside a checkout, it prints no result.
 """
@@ -68,6 +79,8 @@ from pathlib import Path
 # int32 lanes are no faster than its float32 lanes).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
+# Bytes read between two timed launches to leave the H100's 50 MB L2 cold.
+L2_FLUSH_BYTES = 256 << 20
 
 # Integer operations a lane of each plane's kernel needs at least: an
 # unmasked span lane of the rank+hash takes four murmur finalizers (8 ops
@@ -108,6 +121,67 @@ def cuda_ms(fn, reps: int, enqueue: list | None = None) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def graph_ms(fn, reps: int, replays: int = 5) -> float:
+    """Mean device milliseconds of one call of fn() with the host out of
+    the window: `reps` calls captured into one CUDA graph (the wrappers
+    launch on the current stream, which torch.cuda.graph makes the capture
+    stream), one replay to warm up, then `replays` replays between CUDA
+    events, over reps * replays."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        g.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (reps * replays)
+
+
+def graph_cold_ms(fn, reps: int) -> float:
+    """graph_ms of fn() where each launch finds the L2 cold, as a caller
+    whose buffer is far larger than the L2 leaves it: each launch in the
+    graph follows a read of L2_FLUSH_BYTES (a read, so the lines it leaves
+    are clean and evicting them costs the launch nothing), and the graph
+    of those reads alone is subtracted."""
+    import torch
+    flush = torch.ones(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                       device=torch.cuda.current_device())
+    both = graph_ms(lambda: (flush.sum(), fn()), reps)
+    alone = graph_ms(lambda: flush.sum(), reps)
+    return both - alone
+
+
+def launch_times(fn, reps: int, cold: bool = False) -> dict:
+    """The windows of one kernel's launches: `kernel_ms` (CUDA events
+    around `reps` launches from the host loop), `enqueue_ms` (the host's ms
+    per launch in that loop), `graph_ms` (graph_ms: the device alone, on
+    inputs the previous launch left in L2) and, with `cold`,
+    `graph_cold_ms` (graph_cold_ms: the device alone, L2 cold)."""
+    enq = []
+    k_ms = cuda_ms(fn, reps, enq)
+    t = {"kernel_ms": k_ms, "enqueue_ms": enq[0],
+         "graph_ms": graph_ms(fn, reps)}
+    if cold:
+        t["graph_cold_ms"] = graph_cold_ms(fn, reps)
+    return t
+
+
+def times_text(t: dict) -> str:
+    return (f"kernel_ms={t['kernel_ms']:.4f} enqueue_ms={t['enqueue_ms']:.4f} "
+            f"graph_ms={t['graph_ms']:.4f}"
+            + (f" graph_cold_ms={t['graph_cold_ms']:.4f}"
+               if "graph_cold_ms" in t else ""))
+
+
 def max_abs_err(got, want) -> int:
     import numpy as np
     return int(np.abs(got.astype(np.int64) - want.astype(np.int64)).max(
@@ -122,20 +196,131 @@ def bound_of(nbytes: int, ops: int):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def _key_hists(keys, mask, other, other_mask):
+    """Per-lane histograms ([D, R] int64) of the masked keys of `keys` and
+    of `other` ([D, n] int32 each) over one shared key range."""
+    import torch
+    masked = [k[m] for k, m in ((keys, mask), (other, other_mask))]
+    masked = [k for k in masked if k.numel()]
+    lo = min((int(k.min()) for k in masked), default=0)
+    hi = max((int(k.max()) for k in masked), default=0)
+
+    def hist(k, m):
+        out = torch.zeros((k.shape[0], hi - lo + 1), dtype=torch.int64,
+                          device=k.device)
+        at = torch.where(m, k - lo, 0).to(torch.int64)
+        return out.scatter_add_(1, at, m.to(torch.int64))
+    return hist(keys, mask), hist(other, other_mask), lo
+
+
+def _pair_count(keys, mask, other=None, other_mask=None):
+    """Per lane, the ordered pairs of masked slots with equal keys ([D, N]
+    int32 keys), or with `other`/`other_mask` the pairs (slot of keys,
+    slot of other) with equal keys. Summed over lanes."""
+    if other is None:
+        other, other_mask = keys, mask
+    h, g, _ = _key_hists(keys, mask, other, other_mask)
+    return int((h * g).sum())
+
+
+def _has_key(keys, mask, other, other_mask):
+    """[D, n] bool: the slot of `keys` is masked and a masked slot of
+    `other` in its lane holds the same key."""
+    import torch
+    _, g, lo = _key_hists(keys, mask, other, other_mask)
+    at = torch.where(mask, keys - lo, 0).to(torch.int64)
+    return mask & (torch.gather(g, 1, at) > 0)
+
+
+def _clock_cells(clock_op, actor, fid, seq, change, mask_i, mask_j,
+                 oob_reads_zero):
+    """(cells, dominated) of a domination over docs-major [D, N(, A)]
+    inputs: the 4-byte cells clock_op[d, j, actor_i] the answer needs, each
+    once (for an undominated op i of mask_i, those of every j of mask_j on
+    its field from another change; for a dominated one, that of its first
+    dominator; an actor outside [0, A) reads none), and the [D, N]
+    dominated flags. Such an actor reads a clock of 0 where
+    `oob_reads_zero`, and is never dominated otherwise."""
+    import torch
+    d, n, a = clock_op.shape
+    cells = 0
+    dominated = torch.zeros((d, n), dtype=torch.bool, device=fid.device)
+    step = max(1, (1 << 24) // max(n * n, 1))
+    for lo in range(0, d, step):
+        sl = slice(lo, lo + step)
+        f, c, sq, act = fid[sl], change[sl], seq[sl], actor[sl]
+        ok = (act >= 0) & (act < a)
+        col = act.clamp(0, a - 1).to(torch.int64)
+        cand = (mask_i[sl][:, :, None] & mask_j[sl][:, None, :]
+                & (f[:, :, None] == f[:, None, :])
+                & (c[:, :, None] != c[:, None, :]))            # [d, i, j]
+        clk = torch.gather(clock_op[sl].transpose(1, 2), 1,
+                           col[:, :, None].expand(-1, -1, n))  # [d, i, j]
+        ge = clk >= sq[:, :, None]
+        oob = (sq <= 0) if oob_reads_zero else torch.zeros_like(ok)
+        hit = cand & torch.where(ok[:, :, None], ge, oob[:, :, None])
+        dominated[sl] = hit.any(2)
+        first = torch.zeros_like(hit).scatter_(
+            2, hit.to(torch.int32).argmax(2, keepdim=True), True) & hit
+        need = torch.where(hit.any(2, keepdim=True), first, cand)
+        need &= ok[:, :, None]
+        onehot = torch.nn.functional.one_hot(col, a).to(torch.float32)
+        cells += int((torch.einsum("dij,dia->dja", need.to(torch.float32),
+                                   onehot) > 0).sum())
+    return cells, dominated
+
+
 def bound(rows, dims):
-    """(bound_ms, bound_by) of one reconcile of `rows`: its bytes (read
-    once, hashes written once) over the HBM rate, against the pairwise
-    compares its lanes' real ops and elements need (ops^2 + elems^2 +
-    ops*elems per lane) over the compute rate."""
+    """(bound_ms, bound_by, bytes, ops) of one reconcile of `rows`, for
+    this data. Bytes, each cell once: op_mask of every op slot; action
+    where op_mask > 0; fid and change of live ops; actor and seq of live
+    non-deletes, and the clock cells their domination reads
+    (_clock_cells); the value hash of candidates, and the field hash of a
+    candidate whose field holds no valid element (a list's key is its
+    element's objhash and rank); ins_mask of every element slot; ins_fid
+    where ins_mask > 0; ins_pos, objhash and list of visible elements (the
+    only ones a rank or a candidate's join reads: a valid element on a
+    candidate's field is visible); the actor-hash rows the candidates use;
+    the hashes written. Operations: a compare for each pair a join matches
+    on its key: (live non-delete, live) ops on one field, (valid element,
+    candidate) and (candidate, visible element) on one field, and visible
+    elements in one list."""
     import torch
     from automerge_tpu_torch.engine.pack import row_bases
-    i, a, le = dims[:3]
+    i, a, le, a_set, a_del = dims
     b = row_bases(i, a, le)
-    n_ops = (rows[b["om"]:b["om"] + i] > 0).sum(0, dtype=torch.int64)
-    n_el = ((rows[b["im"]:b["im"] + le] > 0)
-            & (rows[b["if"]:b["if"] + le] >= 0)).sum(0, dtype=torch.int64)
-    ops = int((n_ops * n_ops + n_el * n_el + n_ops * n_el).sum())
-    nbytes = rows.numel() * 4 + rows.shape[1] * 4
+    d = rows.shape[1]
+
+    def band(g, n):                      # [D, n], docs-major view
+        return rows[b[g]:b[g] + n].t()
+    om, ac, fid, act, seq, chg = (band(g, i) for g in
+                                  ("om", "ac", "fid", "act", "seq", "chg"))
+    live = (om > 0) & (ac >= a_set)
+    need = live & (ac != a_del)
+    clock_op = rows[b["co"]:b["co"] + a * i].reshape(a, i, d).permute(2, 1, 0)
+    cells, dominated = _clock_cells(clock_op, act, fid, seq, chg, need, live,
+                                    oob_reads_zero=False)
+    cand = need & ~dominated
+    ok = (act >= 0) & (act < a)
+    ah_used = torch.zeros((d, max(a, 1)), dtype=torch.int64,
+                          device=rows.device)
+    ah_used.scatter_add_(1, act.clamp(0, max(a - 1, 0)).to(torch.int64),
+                         (cand & ok).to(torch.int64))
+    ops = _pair_count(fid, need, fid, live)
+    is_list = torch.zeros_like(cand)
+    n_set = n_visible = 0
+    if le:
+        im, ifd, il = (band(g, le) for g in ("im", "if", "il"))
+        valid = (im > 0) & (ifd >= 0)
+        visible = _has_key(ifd, valid, fid, cand)
+        is_list = _has_key(fid, cand, ifd, valid)
+        n_set, n_visible = int((im > 0).sum()), int(visible.sum())
+        ops += (_pair_count(ifd, valid, fid, cand) + _pair_count(il, visible)
+                + _pair_count(fid, cand, ifd, visible))
+    nbytes = (4 * i * d + 4 * int((om > 0).sum()) + 8 * int(live.sum())
+              + 8 * int(need.sum()) + 4 * cells + 4 * int(cand.sum())
+              + 4 * int((cand & ~is_list).sum()) + 4 * le * d + 4 * n_set
+              + 12 * n_visible + 4 * int((ah_used > 0).sum()) + 4 * d)
     return (*bound_of(nbytes, ops), nbytes, ops)
 
 
@@ -193,10 +378,9 @@ def move_bound(nodes, cands):
 
 
 def phase_kernel_parity(torch, dev, report):
-    import numpy as np
     from automerge_tpu_torch.engine import cuda_kernels as ck
     from automerge_tpu_torch.engine.pack import rows_dims_eligible
-    from automerge_tpu_torch.workloads import random_rows
+    from automerge_tpu_torch.workloads import RECONCILE_CASES, reconcile_case
 
     t = ck.build()
     print(f"phase 1: built {sorted(ck.SOURCES)} in {t:.2f} s")
@@ -204,26 +388,34 @@ def phase_kernel_parity(torch, dev, report):
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
-    rng = np.random.default_rng(1)
-    for i, a, le, d in [(64, 4, 64, 1024), (512, 8, 512, 1024)]:
-        rows_np, dims = random_rows(rng, i, a, le, d, n_fids=16, n_lists=4)
+    for name in RECONCILE_CASES:
+        rows_np, dims = reconcile_case(name, seed=1)
+        i, a, le = dims[:3]
         rows = torch.from_numpy(rows_np).to(dev)
-        before = ck.LAUNCHES["reconcile_rows_hash"]
-        got = ck.hashes_to_numpy(ck.reconcile_rows_hash(rows, dims))
-        launches = ck.LAUNCHES["reconcile_rows_hash"] - before
         want = ck.hashes_to_numpy(ck.reconcile_rows_hash_plain(rows, dims))
-        err = max_abs_err(got, want)
-        k_ms = cuda_ms(lambda: ck.reconcile_rows_hash(rows, dims), 10)
-        p_ms = cuda_ms(lambda: ck.reconcile_rows_hash_plain(rows, dims), 2)
-        b_ms, b_by = bound(rows, dims)[:2]
-        print(f"phase 1: dims I={i} A={a} LE={le} D={d} "
-              f"base_envelope={rows_dims_eligible(i, a, le)} "
-              f"xl_envelope={ck.rows_dims_eligible_xl(i, a, le)} "
-              f"launches={launches} kernel_ms={k_ms:.4f} plain_ms={p_ms:.3f} "
-              f"bound_ms={b_ms:.5f} ({b_by}) max_abs_err={err}")
-        check(launches == 1, "the wrapper did not launch its kernel")
-        check(err == 0 and (got == want).all(), "kernel != plain version")
-        report["reconcile_rows_hash"].append(err)
+        for force_xl in (False, True):
+            got, launches = counted("reconcile_rows_hash",
+                                    lambda: ck.reconcile_rows_hash(
+                                        rows, dims, force_xl))
+            got = ck.hashes_to_numpy(got)
+            err = max_abs_err(got, want)
+            check(launches == 1, "the wrapper did not launch its kernel")
+            check(err == 0 and (got == want).all(),
+                  f"{name} force_xl={force_xl}: kernel != plain version")
+            report["reconcile_rows_hash"].append(err)
+        line = (f"phase 1: reconcile {name} I={i} A={a} LE={le} "
+                f"D={rows.shape[1]} base_envelope="
+                f"{rows_dims_eligible(i, a, le)} xl_envelope="
+                f"{ck.rows_dims_eligible_xl(i, a, le)}: one launch a call, "
+                f"equal to the plain version, with and without force_xl")
+        if name in ("base", "xl_only"):
+            t = launch_times(lambda: ck.reconcile_rows_hash(rows, dims), 10,
+                             cold=True)
+            p_ms = cuda_ms(lambda: ck.reconcile_rows_hash_plain(rows, dims), 2)
+            b_ms, b_by = bound(rows, dims)[:2]
+            line += (f"; {times_text(t)} plain_ms={p_ms:.3f} "
+                     f"bound_ms={b_ms:.5f} ({b_by})")
+        print(line)
     check(not rows_dims_eligible(512, 8, 512)
           and ck.rows_dims_eligible_xl(512, 8, 512),
           "the XL-only shape is not XL-only")
@@ -318,7 +510,8 @@ def phase_dominated_parity(torch, dev, report):
     from automerge_tpu_torch.workloads import random_dominated
 
     rng = np.random.default_rng(5)
-    for d, n, a in [(512, 128, 4), (64, 1024, 8), (1, 4096, 16)]:
+    for d, n, a in [(512, 128, 4), (64, 1024, 8), (1, 4096, 16),
+                    (10_000, 32, 4), (300, 45, 3)]:
         for full in (False, True):
             args = [torch.from_numpy(x).to(dev)
                     for x in random_dominated(rng, d, n, a, full)]
@@ -651,9 +844,9 @@ def gen2_timer():
 
 
 def drive_docs_major(torch, dev, report, text_final):
-    """Phase 9: the docs-major engine. Returns the text fleet's engine (its
-    state feeds the kernel timing) and the launches of the domination
-    kernel on this path."""
+    """Phase 9: the docs-major engine. Returns the docset fleet's and the
+    text fleet's engines (their states feed the kernel timings) and the
+    launches of the domination kernel on this path."""
     import numpy as np
     from automerge_tpu_torch.engine import cuda_kernels as ck
     from automerge_tpu_torch.engine.batchdoc import apply_batch
@@ -747,7 +940,7 @@ def drive_docs_major(torch, dev, report, text_final):
           f"equal to the rows engine's (phase 3)")
     print(f"phase 9: (c) apply_batch of the text fleet {batch_s:.4f} s, "
           f"equal to (b); launches of dominated on this path {launches}")
-    return tds, launches
+    return ds, tds, launches
 
 
 def time_docs_round(torch, ds):
@@ -775,55 +968,31 @@ def dominated_bound(args):
     change; for a dominated one, that of its first dominator. An actor
     outside [0, A) reads no cell. Operations: one compare for each ordered
     pair of live ops on one field."""
-    import torch
     clock_op, actor, fid, seq, change_idx, amask = args
-    d, n, a = clock_op.shape
-    cells = 0
-    step = max(1, (1 << 24) // (n * n))
-    for lo in range(0, d, step):
-        sl = slice(lo, lo + step)
-        m, f, c, sq = amask[sl], fid[sl], change_idx[sl], seq[sl]
-        act = actor[sl]
-        ok = (act >= 0) & (act < a)
-        col = act.clamp(0, a - 1).to(torch.int64)
-        cand = (m[:, :, None] & m[:, None, :]
-                & (f[:, :, None] == f[:, None, :])
-                & (c[:, :, None] != c[:, None, :]))            # [d, i, j]
-        clk = torch.gather(clock_op[sl].transpose(1, 2), 1,
-                           col[:, :, None].expand(-1, -1, n))  # [d, i, j]
-        hit = cand & (torch.where(ok[:, :, None], clk, 0) >= sq[:, :, None])
-        first = torch.zeros_like(hit).scatter_(
-            2, hit.to(torch.int32).argmax(2, keepdim=True), True) & hit
-        need = torch.where(hit.any(2, keepdim=True), first, cand)
-        need &= ok[:, :, None]
-        onehot = torch.nn.functional.one_hot(col, a).to(torch.float32)
-        cells += int((torch.einsum("dij,dia->dja", need.to(torch.float32),
-                                   onehot) > 0).sum())
+    cells, _ = _clock_cells(clock_op, actor, fid, seq, change_idx, amask,
+                            amask, oob_reads_zero=True)
     nbytes = 2 * amask.numel() + 16 * int(amask.sum()) + 4 * cells
-    f = int(fid.max()) + 2 if fid.numel() else 1
-    seg = torch.where(amask, fid.clamp(-1, f - 2) + 1, 0).to(torch.int64)
-    per_field = torch.zeros((d, f), dtype=torch.int64, device=fid.device)
-    per_field.scatter_add_(1, seg, amask.to(torch.int64))
-    ops = int((per_field[:, 1:] ** 2).sum())
+    ops = _pair_count(fid, amask)
     return (*bound_of(nbytes, ops), nbytes, ops)
 
 
 def time_dominated(torch, ds, label):
-    """The domination launch apply_doc makes on this engine's state."""
+    """The domination launch apply_doc makes on this engine's state, timed
+    warm: on the main path apply_doc gathers these inputs just before the
+    launch, so they reach the kernel from L2."""
     from automerge_tpu_torch.engine import cuda_kernels as ck
     from automerge_tpu_torch.engine.kernels import domination_inputs
     s = ds.state
     args = domination_inputs(s["op_mask"], s["action"], s["fid"], s["actor"],
                              s["seq"], s["change_idx"], s["clock"])
-    enq = []
-    k_ms = cuda_ms(lambda: ck.dominated(*args), 20, enq)
+    t = launch_times(lambda: ck.dominated(*args), 20)
     p_ms = cuda_ms(lambda: ck.dominated_plain(*args), 2)
     b_ms, b_by, nbytes, ops = dominated_bound(args)
     print(f"timing {label}: dominated clock_op={tuple(args[0].shape)} "
-          f"live ops={int(args[-1].sum())} kernel_ms={k_ms:.4f} "
-          f"enqueue_ms={enq[0]:.4f} plain_ms={p_ms:.3f} bound_ms={b_ms:.5f} "
+          f"live ops={int(args[-1].sum())} {times_text(t)} "
+          f"plain_ms={p_ms:.3f} bound_ms={b_ms:.5f} "
           f"({b_by}; bytes={nbytes} compares={ops})")
-    return k_ms, p_ms, b_ms, b_by
+    return t["graph_ms"], p_ms, b_ms, b_by
 
 
 def host_s(fn, reps: int) -> float:
@@ -901,43 +1070,41 @@ def measure_link(torch, dev) -> dict:
 def time_kernel(torch, ds, label):
     from automerge_tpu_torch.engine import cuda_kernels as ck
     rows, dims = ds.rows_dev, ds.dims()
-    enq = []
-    k_ms = cuda_ms(lambda: ck.reconcile_rows_hash(rows, dims), 20, enq)
+    t = launch_times(lambda: ck.reconcile_rows_hash(rows, dims), 20,
+                     cold=True)
     p_ms = cuda_ms(lambda: ck.reconcile_rows_hash_plain(rows, dims), 1)
     b_ms, b_by, nbytes, ops = bound(rows, dims)
     print(f"timing {label}: dims={dims} lanes={rows.shape[1]} "
-          f"kernel_ms={k_ms:.4f} enqueue_ms={enq[0]:.4f} plain_ms={p_ms:.3f} bound_ms={b_ms:.5f} "
+          f"{times_text(t)} plain_ms={p_ms:.3f} bound_ms={b_ms:.5f} "
           f"({b_by}; bytes={nbytes} compares={ops})")
-    return k_ms, p_ms, b_ms, b_by
+    return t["graph_cold_ms"], p_ms, b_ms, b_by
 
 
 def time_span_kernel(torch, spans, order, label):
     """The rank+hash launch that merge_spans makes on this workload."""
     from automerge_tpu_torch.engine.span_kernels import (
         span_rank_hash, span_rank_hash_plain)
-    enq = []
-    k_ms = cuda_ms(lambda: span_rank_hash(spans, order), 20, enq)
+    t = launch_times(lambda: span_rank_hash(spans, order), 20)
     p_ms = cuda_ms(lambda: span_rank_hash_plain(spans, order), 3)
     b_ms, b_by, nbytes, ops = span_bound(spans)
     print(f"timing {label}: span_rank_hash lanes={tuple(spans.shape)} "
-          f"kernel_ms={k_ms:.4f} enqueue_ms={enq[0]:.4f} plain_ms={p_ms:.3f} bound_ms={b_ms:.5f} "
+          f"{times_text(t)} plain_ms={p_ms:.3f} bound_ms={b_ms:.5f} "
           f"({b_by}; bytes={nbytes} ops={ops})")
-    return k_ms, p_ms, b_ms, b_by
+    return t["graph_ms"], p_ms, b_ms, b_by
 
 
 def time_move_kernel(torch, nodes, cands, label):
     """The fixpoint launch that resolve_moves makes on this workload."""
     from automerge_tpu_torch.engine.move_kernels import (resolve_moves,
                                                          resolve_moves_plain)
-    enq = []
-    k_ms = cuda_ms(lambda: resolve_moves(nodes, cands), 20, enq)
+    t = launch_times(lambda: resolve_moves(nodes, cands), 20)
     p_ms = cuda_ms(lambda: resolve_moves_plain(nodes, cands), 2)
     b_ms, b_by, nbytes, ops = move_bound(nodes, cands)
     print(f"timing {label}: resolve_moves (fixpoint) nodes="
           f"{tuple(nodes.shape)} cands={tuple(cands.shape)} "
-          f"kernel_ms={k_ms:.4f} enqueue_ms={enq[0]:.4f} plain_ms={p_ms:.3f} bound_ms={b_ms:.5f} "
+          f"{times_text(t)} plain_ms={p_ms:.3f} bound_ms={b_ms:.5f} "
           f"({b_by}; bytes={nbytes} ops={ops})")
-    return k_ms, p_ms, b_ms, b_by
+    return t["graph_ms"], p_ms, b_ms, b_by
 
 
 def kernel_entry(name, source, replaces, launches, errs, times):
@@ -979,7 +1146,8 @@ def main() -> int:
     span_inputs, span_launches = drive_text_plane(torch, dev, report)
     move_inputs, move_launches = drive_move_plane(torch, dev, report)
     measure_link(torch, dev)
-    docs_ds, docs_launches = drive_docs_major(torch, dev, report, text_final)
+    docset_ds, docs_ds, docs_launches = drive_docs_major(torch, dev, report,
+                                                         text_final)
 
     rows_times = time_kernel(torch, map_ds, "map storm")
     time_kernel(torch, text_ds, "text fleet")
@@ -988,6 +1156,7 @@ def main() -> int:
     move_times = {k: time_move_kernel(torch, *v, k)
                   for k, v in move_inputs.items()}
     dom_times = time_dominated(torch, docs_ds, "text fleet (docs-major)")
+    time_dominated(torch, docset_ds, "docset fleet (docs-major)")
     time_docs_round(torch, docs_ds)
     print(f"launches: rows engine {map_launches} (map storm) + "
           f"{text_launches} (text fleet); text-merge plane {span_launches}; "

@@ -31,9 +31,10 @@ from automerge_tpu_torch.engine.resident_rows import ResidentRowsDocSet
 from automerge_tpu_torch.engine.kernels import apply_doc
 from automerge_tpu_torch.engine.resident import ResidentDocSet
 from automerge_tpu_torch.workloads import (
-    move_fleet, random_dominated, random_move_lanes, random_span_tables,
-    reference_docs_streams, reference_move_problems, reference_span_tables,
-    reference_streams, span_fleet, text_fleet)
+    RECONCILE_CASES, move_fleet, random_dominated, random_move_lanes,
+    random_span_tables, reconcile_case, reference_docs_streams,
+    reference_move_problems, reference_span_tables, reference_streams,
+    span_fleet, text_fleet)
 
 from torch_port_helpers import cuda_device  # noqa: F401 (fixture)
 
@@ -56,6 +57,22 @@ def test_kernel_matches_plain_on_a_text_fleet_buffer(cuda_device, force_xl):
                                                      "cpu"), dims)
     np.testing.assert_array_equal(hashes_to_numpy(got),
                                   hashes_to_numpy(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("force_xl", [False, True])
+@pytest.mark.parametrize("name", list(RECONCILE_CASES))
+def test_kernel_matches_plain_on_the_named_cases(cuda_device, name,
+                                                 force_xl):
+    """The reconcile kernel at the shapes its design could get wrong (a
+    heavy lane among near-empty ones, every slot live, lanes with no op,
+    LE = 0, A = 1, I = LE = 1,024, the XL-only shape, a lane past the
+    shared memory), bit-equal to the plain version, one launch a call."""
+    rows_np, dims = reconcile_case(name, seed=7)
+    rows = torch.from_numpy(rows_np).to(cuda_device)
+    got = _launched("reconcile_rows_hash",
+                    lambda: reconcile_rows_hash(rows, dims, force_xl))
+    assert torch.equal(got, reconcile_rows_hash_plain(rows, dims))
 
 
 @pytest.mark.cuda
@@ -150,7 +167,8 @@ def test_planes_route_to_the_card_and_reproduce_the_reference(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("full_range", [False, True])
 @pytest.mark.parametrize("d,n,a", [(512, 128, 4), (64, 1024, 8),
-                                   (1, 4096, 16), (5, 1, 1)])
+                                   (1, 4096, 16), (5, 1, 1), (10_000, 32, 4),
+                                   (300, 45, 3), (7, 1100, 2)])
 def test_dominated_kernel_matches_plain(cuda_device, d, n, a, full_range):
     """B5 against its plain version, bit-equal, at chip_smoke's shapes,
     with values below 2**24 and over the whole int32 range."""

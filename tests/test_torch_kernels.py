@@ -23,10 +23,10 @@ from automerge_tpu_torch.engine import cuda_kernels
 from automerge_tpu_torch.engine.cuda_kernels import (
     hashes_to_numpy, reconcile_rows_hash, reconcile_rows_hash_plain,
     rows_dims_eligible_xl)
-from automerge_tpu_torch.engine.pack import (apply_rows_hash, rows_count,
-                                             rows_dims_eligible,
+from automerge_tpu_torch.engine.pack import (apply_rows_hash, row_bases,
+                                             rows_count, rows_dims_eligible,
                                              rows_from_numpy)
-from automerge_tpu_torch.workloads import random_rows
+from automerge_tpu_torch.workloads import random_rows, reconcile_case
 
 
 def _pack(doc_changes):
@@ -182,3 +182,144 @@ def test_envelopes_match_the_reference():
     # the chip-smoke XL-only shape
     assert not rows_dims_eligible(512, 8, 512)
     assert rows_dims_eligible_xl(512, 8, 512)
+
+
+@pytest.mark.parametrize("name", ["base", "all_live", "zero_ops",
+                                  "no_elements", "one_actor"])
+def test_plain_matches_reference_on_the_kernel_cases(name):
+    """The named cases chip_smoke.py and tests/test_torch_cuda.py hold the
+    CUDA kernel to, cut to their first 128 lanes: the plain version they
+    compare with equals the reference here."""
+    rows, dims = reconcile_case(name)
+    rows = np.ascontiguousarray(rows[:, :128])
+    ref, got = _both(rows, dims)
+    np.testing.assert_array_equal(got, ref)
+
+
+def _mix32(h):
+    h ^= h >> 16
+    h = h * 0x85EBCA6B & 0xFFFFFFFF
+    h ^= h >> 13
+    h = h * 0xC2B2AE35 & 0xFFFFFFFF
+    return h ^ h >> 16
+
+
+def _mix4(a, b, c, d):
+    h = _mix32((a + 0x9E3779B9) & 0xFFFFFFFF)
+    for v in (b, c, d):
+        h = _mix32(h ^ v)
+    return h
+
+
+def _reconcile_lane_by_reads(x, dims):
+    """One lane's reconcile, evaluated from the function's definition by a
+    walk that reads a cell of the lane's column `x` only when the answer
+    depends on it: action where op_mask is set; fid and change of live ops;
+    actor and seq of a live op that may be dominated; the clock cells that
+    decide it (one dominator's, or those of every peer on its field from
+    another change when none dominates); an element's columns once it
+    is known valid or visible; a field hash only for a candidate on no
+    list; an actor hash only for a candidate's actor. Returns (uint32 hash,
+    the rows read, the key-matched pairs of the four joins)."""
+    i, a, le, a_set, a_del = dims
+    b = row_bases(i, a, le)
+    rows_read = set()
+
+    def at(group, k):
+        rows_read.add(b[group] + k)
+        return int(x[b[group] + k])
+
+    live = [k for k in range(i) if at("om", k) > 0 and at("ac", k) >= a_set]
+    need = [k for k in live if at("ac", k) != a_del]
+    fid = {k: at("fid", k) for k in live}
+    chg = {k: at("chg", k) for k in live}
+    pairs = 0
+    cand = []
+    for k in need:
+        act, seq = at("act", k), at("seq", k)
+        peers = [j for j in live if fid[j] == fid[k]]
+        pairs += len(peers)
+        others = [j for j in peers if chg[j] != chg[k]] if 0 <= act < a else []
+        hits = [j for j in others if x[b["co"] + act * i + j] >= seq]
+        # the cells that decide it: one dominator's, or every peer's
+        for j in hits[:1] if hits else others:
+            at("co", act * i + j)
+        if not hits:
+            cand.append(k)
+    valid = [e for e in range(le) if at("im", e) > 0 and at("if", e) >= 0]
+    ifd = {e: int(x[b["if"] + e]) for e in valid}
+    cand_fids = [fid[k] for k in cand]
+    visible = []
+    for e in valid:
+        pairs += cand_fids.count(ifd[e])
+        if ifd[e] in cand_fids:
+            visible.append(e)
+    pos = {e: at("ip", e) for e in visible}
+    lst = {e: at("il", e) for e in visible}
+    rank = {}
+    for e in visible:
+        same = [f for f in visible if lst[f] == lst[e]]
+        pairs += len(same)
+        rank[e] = sum(pos[f] < pos[e] for f in same)
+    h = 0
+    for k in cand:
+        on_field = [e for e in valid if ifd[e] == fid[k]]   # all visible
+        pairs += len(on_field)
+        if on_field:   # maxima from -1, as the definition's
+            key1 = max([-1] + [at("io", e) for e in on_field])
+            key2 = max([-1] + [rank[e] for e in on_field])
+        else:
+            key1, key2 = -7, at("fh", k)
+        act = int(x[b["act"] + k])
+        ah = at("ah", act) if 0 <= act < a else 0
+        h += _mix4(key1 & 0xFFFFFFFF, key2 & 0xFFFFFFFF, ah & 0xFFFFFFFF,
+                   at("vh", k) & 0xFFFFFFFF)
+    return h & 0xFFFFFFFF, rows_read, pairs
+
+
+@pytest.mark.parametrize("seed,i,a,le,n_fids", [(0, 16, 3, 16, 4),
+                                                (1, 24, 1, 0, 3),
+                                                (2, 32, 4, 24, 6),
+                                                (3, 24, 2, 32, 12)])
+def test_chip_smoke_bound_counts_the_bytes_this_data_needs(seed, i, a, le,
+                                                            n_fids):
+    """chip_smoke.py's bound of one reconcile counts the cells a walk of
+    the function's definition must read for this data (each once, four
+    bytes, plus the hash written per lane) and the pairs its joins match
+    on their keys, not the whole buffer. The walk is the function: its
+    hashes equal the plain version's."""
+    from chip_smoke import bound
+    rows, dims = random_rows(np.random.default_rng(300 + seed), i, a, le, 12,
+                             n_fids=n_fids)
+    want = hashes_to_numpy(reconcile_rows_hash_plain(torch.from_numpy(rows),
+                                                     dims))
+    nbytes = pairs = 0
+    for lane, x in enumerate(rows.T):
+        h, read, p = _reconcile_lane_by_reads(x, dims)
+        assert h == want[lane]
+        nbytes += 4 * len(read) + 4
+        pairs += p
+    got = bound(torch.from_numpy(rows), dims)
+    assert (got[2], got[3]) == (nbytes, pairs)
+    assert got[2] < rows.nbytes
+
+
+def test_library_name_covers_every_included_header(tmp_path, monkeypatch):
+    """A kernel's library is named by its source and every header the
+    source includes, directly or through another header, so an edited
+    header never loads a stale build."""
+    (tmp_path / "k.cu").write_text('#include <cstdint>\n#include "a.cuh"\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// v1\n")
+    monkeypatch.setitem(cuda_kernels.SOURCES, "k", tmp_path / "k.cu")
+    first = cuda_kernels.library_path("k")
+    assert cuda_kernels.library_path("k") == first
+    (tmp_path / "b.cuh").write_text("// v2\n")
+    second = cuda_kernels.library_path("k")
+    assert second != first
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n// x\n')
+    assert cuda_kernels.library_path("k") not in (first, second)
+    assert [p.name for p in cuda_kernels._build_inputs(tmp_path / "k.cu")] \
+        == ["k.cu", "a.cuh", "b.cuh"]
+    real = cuda_kernels._build_inputs(cuda_kernels.SOURCES["reconcile_rows"])
+    assert [p.name for p in real] == ["reconcile_rows.cu", "lane_team.cuh"]
