@@ -23,15 +23,27 @@
 // ~40 integer operations per unmasked lane (four murmur finalizers and
 // the scan), far below the card's rate. So bytes bound it.
 //
-// Design, right and simple first: one thread block per document; the
-// block walks the span axis in chunks of blockDim lanes. Each chunk is one
-// block-wide exclusive scan written by hand: an inclusive scan inside each
-// warp with shuffles, the warp totals through shared memory, one warp
-// scanning them, and a carry from chunk to chunk. Each thread keeps its
-// own uint32 hash sum, reduced over the block at the end with shuffles
-// and shared memory. Reads through `order` are gathers within one
-// document's rows (S * 4 bytes per field), which L2 serves; later work
-// can coalesce them by sorting in shared memory.
+// Design: two paths, picked by S (span_kernels.span_launch).
+// - Small S (a fleet of small tables, S <= 1,024): one warp per document,
+//   eight documents a 256-thread block, no __syncthreads at all. The warp
+//   walks the span axis in chunks of 128 merged positions; each lane takes
+//   four consecutive ones, so it loads `order` and stores `starts` 16
+//   bytes at a time (where S % 4 == 0 and both rows are 16-byte aligned;
+//   scalar loads and stores otherwise). A lane scans its four values, a
+//   warp shuffle scan gives its offset, the chunk total (lane 31's
+//   inclusive sum) carries to the next chunk, and a warp sum gives the
+//   hash. Every sum is the same uint32 sum in another order, so the bits
+//   equal the block path's.
+// - Large S (one big table, the bulk merge): one thread block per
+//   document, each thread taking up to eight consecutive merged positions
+//   of a chunk (so up to 8,192 lanes are one chunk). Each chunk is one
+//   block-wide exclusive scan: a thread's own running sum, an inclusive
+//   scan inside each warp with shuffles, the warp totals through shared
+//   memory, one warp scanning them, and a carry from chunk to chunk. Each
+//   thread keeps its own uint32 hash sum, reduced over the block at the
+//   end.
+// Reads through `order` are gathers within one document's rows (S * 4
+// bytes per field), which L2 serves.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -72,13 +84,18 @@ __device__ __forceinline__ uint32_t warp_sum(uint32_t v) {
   return v;
 }
 
-// blockDim.x is a multiple of 32, at most 1024.
+constexpr int kMaxPer = 8;  // merged positions a thread of the block path
+
+// The block path: block d merges document d. blockDim.x is a multiple of
+// 32, at most 1,024; each thread takes `per` (<= kMaxPer) consecutive
+// merged positions of a chunk of blockDim.x * per, so a document of up to
+// 8,192 lanes is one chunk: one block-wide scan, three barriers.
 __global__ void span_rank_hash_kernel(const int32_t* __restrict__ spans,
                                       const int32_t* __restrict__ order,
                                       int32_t* __restrict__ starts,
                                       int32_t* __restrict__ hash_out,
                                       int32_t* __restrict__ total_out,
-                                      int S) {
+                                      int S, int per) {
   __shared__ uint32_t warp_tot[32];
   const int d = blockIdx.x;
   const int lane = threadIdx.x & 31;
@@ -91,17 +108,23 @@ __global__ void span_rank_hash_kernel(const int32_t* __restrict__ spans,
 
   uint32_t carry = 0;  // the same in every thread: sum of earlier chunks
   uint32_t h = 0;
-  for (int base = 0; base < S; base += blockDim.x) {
-    const int j = base + threadIdx.x;
-    const bool in = j < S;
-    int col = 0;
-    if (in) {
-      col = ord ? ord[j] : j;
-      col = min(max(col, 0), S - 1);  // a bad order never reads out of row
+  for (int base = 0; base < S; base += blockDim.x * per) {
+    const int j0 = base + threadIdx.x * per;
+    int col[kMaxPer];
+    uint32_t vis[kMaxPer], excl[kMaxPer];
+    bool m[kMaxPer];
+    uint32_t tot = 0;
+#pragma unroll
+    for (int c = 0; c < kMaxPer; ++c) {
+      const bool in = c < per && j0 + c < S;
+      col[c] = in ? (ord ? ord[j0 + c] : j0 + c) : 0;
+      col[c] = min(max(col[c], 0), S - 1);  // a bad order never reads out of row
+      m[c] = in && x[kMask * s + col[c]] > 0;
+      vis[c] = m[c] ? static_cast<uint32_t>(x[kVis * s + col[c]]) : 0u;
+      excl[c] = tot;
+      tot += vis[c];
     }
-    const bool m = in && x[kMask * s + col] > 0;
-    const uint32_t vis = m ? static_cast<uint32_t>(x[kVis * s + col]) : 0u;
-    const uint32_t incl = warp_inclusive_scan(vis, lane);
+    const uint32_t incl = warp_inclusive_scan(tot, lane);
     if (lane == 31) warp_tot[warp] = incl;
     __syncthreads();
     if (warp == 0) {
@@ -109,13 +132,18 @@ __global__ void span_rank_hash_kernel(const int32_t* __restrict__ spans,
       warp_tot[lane] = warp_inclusive_scan(t, lane);
     }
     __syncthreads();
-    const uint32_t excl =
-        carry + (warp ? warp_tot[warp - 1] : 0u) + incl - vis;
-    if (in) {
-      st[j] = static_cast<int32_t>(m ? excl : 0u);
-      if (m) {
-        h += mix4(static_cast<uint32_t>(x[kOrigin * s + col]),
-                  static_cast<uint32_t>(x[kStart * s + col]), vis, excl);
+    const uint32_t off =
+        carry + (warp ? warp_tot[warp - 1] : 0u) + incl - tot;
+#pragma unroll
+    for (int c = 0; c < kMaxPer; ++c) {
+      if (c < per && j0 + c < S) {
+        const uint32_t e = off + excl[c];
+        st[j0 + c] = static_cast<int32_t>(m[c] ? e : 0u);
+        if (m[c]) {
+          h += mix4(static_cast<uint32_t>(x[kOrigin * s + col[c]]),
+                    static_cast<uint32_t>(x[kStart * s + col[c]]), vis[c],
+                    e);
+        }
       }
     }
     carry += warp_tot[n_warps - 1];
@@ -133,21 +161,118 @@ __global__ void span_rank_hash_kernel(const int32_t* __restrict__ spans,
   }
 }
 
+constexpr int kWarpDocs = 8;  // documents (warps) a block of the warp path
+
+// The warp path: warp w of block b merges document b * kWarpDocs + w.
+// VEC: S % 4 == 0 and `order` and `starts` 16-byte aligned, so a lane's
+// four positions are one int4 of each row.
+template <bool VEC>
+__global__ void span_rank_hash_warp_kernel(const int32_t* __restrict__ spans,
+                                           const int32_t* __restrict__ order,
+                                           int32_t* __restrict__ starts,
+                                           int32_t* __restrict__ hash_out,
+                                           int32_t* __restrict__ total_out,
+                                           int n_docs, int S) {
+  const int lane = threadIdx.x & 31;
+  const int d = blockIdx.x * kWarpDocs + (threadIdx.x >> 5);
+  if (d >= n_docs) return;  // the whole warp: no barrier follows
+  const size_t s = static_cast<size_t>(S);
+  const int32_t* x = spans + static_cast<size_t>(d) * kFields * s;
+  const int32_t* ord = order ? order + static_cast<size_t>(d) * s : nullptr;
+  int32_t* st = starts + static_cast<size_t>(d) * s;
+
+  uint32_t carry = 0;  // the same in every lane: sum of earlier chunks
+  uint32_t h = 0;
+  for (int base = 0; base < S; base += 128) {
+    const int j0 = base + 4 * lane;
+    int col[4];
+    if (VEC && ord && j0 < S) {
+      const int4 o = *reinterpret_cast<const int4*>(ord + j0);
+      col[0] = o.x;
+      col[1] = o.y;
+      col[2] = o.z;
+      col[3] = o.w;
+    } else {
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        col[c] = j0 + c < S ? (ord ? ord[j0 + c] : j0 + c) : 0;
+    }
+    uint32_t vis[4], excl[4];
+    bool m[4];
+    uint32_t tot = 0;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      col[c] = min(max(col[c], 0), S - 1);  // a bad order never reads out of row
+      m[c] = j0 + c < S && x[kMask * s + col[c]] > 0;
+      vis[c] = m[c] ? static_cast<uint32_t>(x[kVis * s + col[c]]) : 0u;
+      excl[c] = tot;
+      tot += vis[c];
+    }
+    const uint32_t incl = warp_inclusive_scan(tot, lane);
+    const uint32_t off = carry + incl - tot;
+    int32_t out[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const uint32_t e = off + excl[c];
+      out[c] = static_cast<int32_t>(m[c] ? e : 0u);
+      if (m[c]) {
+        h += mix4(static_cast<uint32_t>(x[kOrigin * s + col[c]]),
+                  static_cast<uint32_t>(x[kStart * s + col[c]]), vis[c], e);
+      }
+    }
+    if (VEC) {
+      if (j0 < S)
+        *reinterpret_cast<int4*>(st + j0) =
+            make_int4(out[0], out[1], out[2], out[3]);
+    } else {
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (j0 + c < S) st[j0 + c] = out[c];
+    }
+    carry += __shfl_sync(0xffffffffu, incl, 31);
+  }
+  h = warp_sum(h);
+  if (lane == 0) {
+    hash_out[d] = static_cast<int32_t>(h);
+    total_out[d] = static_cast<int32_t>(carry);
+  }
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
 }  // namespace
 
 extern "C" {
 
 // Launch on `stream` (a cudaStream_t as a pointer); returns
 // cudaGetLastError() after the launch, 0 when it was accepted. `order` may
-// be null (pre-sorted lanes). n_docs >= 1, S >= 1.
+// be null (pre-sorted lanes). `warp` (the caller's launch plan,
+// span_kernels.span_launch) picks the warp path, else the block path.
+// n_docs >= 1, S >= 1.
 int amt_span_rank_hash(const int32_t* spans, const int32_t* order,
                        int32_t* starts, int32_t* hash, int32_t* total,
-                       int n_docs, int S, void* stream) {
-  int threads = ((S + 31) / 32) * 32;
-  if (threads > 1024) threads = 1024;
-  span_rank_hash_kernel<<<n_docs, threads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      spans, order, starts, hash, total, S);
+                       int n_docs, int S, int warp, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (warp) {
+    const int blocks = (n_docs + kWarpDocs - 1) / kWarpDocs;
+    const bool vec = S % 4 == 0 && aligned16(starts) &&
+                     (order == nullptr || aligned16(order));
+    if (vec)
+      span_rank_hash_warp_kernel<true><<<blocks, 32 * kWarpDocs, 0, st>>>(
+          spans, order, starts, hash, total, n_docs, S);
+    else
+      span_rank_hash_warp_kernel<false><<<blocks, 32 * kWarpDocs, 0, st>>>(
+          spans, order, starts, hash, total, n_docs, S);
+  } else {
+    int threads = ((S + 31) / 32) * 32;
+    if (threads > 1024) threads = 1024;
+    int per = (S + threads - 1) / threads;
+    if (per > kMaxPer) per = kMaxPer;
+    span_rank_hash_kernel<<<n_docs, threads, 0, st>>>(spans, order, starts,
+                                                      hash, total, S, per);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -57,10 +57,10 @@ _SIGNATURES = {
     "reconcile_rows": {
         "amt_reconcile_rows_hash": [_P] * 2 + [_I] * 6 + [_P]},
     "span_rank_hash": {
-        "amt_span_rank_hash": [_P] * 5 + [_I] * 2 + [_P]},
+        "amt_span_rank_hash": [_P] * 5 + [_I] * 3 + [_P]},
     "move_round": {
-        "amt_move_round": [_P] * 5 + [_I] * 4 + [_P],
-        "amt_resolve_moves": [_P] * 8 + [_I] * 5 + [_P]},
+        "amt_move_round": [_P] * 5 + [_I] * 6 + [_P],
+        "amt_resolve_moves": [_P] * 8 + [_I] * 7 + [_P]},
     "dominated": {
         "amt_dominated": [_P] * 7 + [_I] * 3 + [_P]},
 }

@@ -25,6 +25,9 @@ exactly the victims of `core.moves._resolve_walk`.
 - `resolve_moves_host` numpy, the host route of the adaptive router
                        (dispatch.plan_moves) and the parity oracle.
 
+The kernel's own schedule is modelled in numpy by `automerge_tpu_torch/
+move_schedule.py`.
+
 Every resolution returns the same schema: `ptr` (winner index per node;
 == cand_cnt when the base edge wins), `parent` (the resolved forest),
 `resolved` (False only for undroppable cycles), `dropped` (per-realm
@@ -45,10 +48,22 @@ from .pack import MOVE_CAND_FIELDS, MOVE_NODE_FIELDS, MOVE_PRIO_PAD
 F_MASK, F_BASE, F_OFF, F_CNT = range(4)
 F_PARENT, F_HI, F_LO = range(3)
 
-# Most node lanes whose nine working arrays (36 bytes a node) the kernel
-# keeps in shared memory (220 KB of the block's 227 KB); larger realms
-# work in a global scratch.
-SMEM_MAX_NODES = (220 * 1024) // 36
+# The kernel's launch plan (move_launch): one block per realm; a thread
+# keeps the walk state of NPT of its nodes in registers (NPT in
+# MOVE_NPTS; more would spill), and the two (p, key) buffers and each
+# node's slots take MOVE_SMEM_NODE_BYTES a node of shared memory. Realms
+# past MOVE_MAX_THREADS * max(MOVE_NPTS) nodes, or past MOVE_SMEM_BYTES,
+# run the same schedule in a global scratch (NPT = 0) of
+# MOVE_SCRATCH_NODE_BYTES a node. MOVE_THREADS was chosen by measurement
+# (PERF.md).
+MOVE_THREADS = 512
+MOVE_MAX_THREADS = 1024
+MOVE_NPTS = (1, 4)
+MOVE_SMEM_NODE_BYTES = 41
+MOVE_SCRATCH_NODE_BYTES = 64
+MOVE_SMEM_BYTES = 220 * 1024
+SMEM_MAX_NODES = min(MOVE_MAX_THREADS * MOVE_NPTS[-1],
+                     MOVE_SMEM_BYTES // MOVE_SMEM_NODE_BYTES)
 
 
 def _ceil_log2(n: int) -> int:
@@ -231,13 +246,28 @@ def _check_moves(nodes: torch.Tensor, cands: torch.Tensor, ptr=None):
         raise ValueError(f"unsupported device {nodes.device}")
 
 
-def _scratch(nodes: torch.Tensor):
-    """None (the kernel works in shared memory) or the [D, 9, N] global
-    scratch of realms too large for it."""
-    d, _f, n = nodes.shape
-    if n <= SMEM_MAX_NODES:
+def move_launch(n: int) -> tuple[int, int]:
+    """(threads, npt) of a realm of n node lanes, npt its nodes a thread
+    in registers: up to MOVE_THREADS nodes, a thread each; up to 4 *
+    MOVE_THREADS, MOVE_THREADS threads and 4 each (a thread skips its
+    slots past n); above, MOVE_MAX_THREADS threads and 4; npt = 0 (the
+    global scratch, MOVE_MAX_THREADS threads) past SMEM_MAX_NODES."""
+    if n > SMEM_MAX_NODES:
+        return MOVE_MAX_THREADS, 0
+    if n <= MOVE_THREADS:
+        return -(-n // 32) * 32, 1
+    return (MOVE_THREADS if n <= 4 * MOVE_THREADS else MOVE_MAX_THREADS), 4
+
+
+def _scratch(nodes: torch.Tensor, npt: int):
+    """None (the kernel works in registers and shared memory) or the
+    global scratch of the npt = 0 path: per realm MOVE_SCRATCH_NODE_BYTES
+    * N bytes."""
+    if npt:
         return None
-    return torch.empty((d, 9, n), dtype=torch.int32, device=nodes.device)
+    d, _f, n = nodes.shape
+    return torch.empty((d, MOVE_SCRATCH_NODE_BYTES * n), dtype=torch.uint8,
+                       device=nodes.device)
 
 
 def move_round(nodes: torch.Tensor, cands: torch.Tensor,
@@ -252,15 +282,17 @@ def move_round(nodes: torch.Tensor, cands: torch.Tensor,
     nodes, cands, ptr = nodes.contiguous(), cands.contiguous(), \
         ptr.contiguous()
     d, _f, n = nodes.shape
+    threads, npt = move_launch(n)
     with torch.cuda.device(nodes.device):
         out = torch.empty((d, 3, n), dtype=torch.int32, device=nodes.device)
         if d:
-            scratch = _scratch(nodes)
+            scratch = _scratch(nodes, npt)
             launch("move_round", "amt_move_round", "move_round",
                    nodes.data_ptr(), cands.data_ptr(), ptr.data_ptr(),
                    out.data_ptr(),
                    None if scratch is None else scratch.data_ptr(), d, n,
-                   cands.shape[2], _ceil_log2(n) + 1, stream_of(nodes))
+                   cands.shape[2], _ceil_log2(n) + 1, threads, npt,
+                   stream_of(nodes))
     return out
 
 
@@ -277,6 +309,7 @@ def resolve_moves(nodes: torch.Tensor, cands: torch.Tensor) -> dict:
     d, _f, n = nodes.shape
     k = cands.shape[2]
     dev = nodes.device
+    threads, npt = move_launch(n)
     with torch.cuda.device(dev):
         ptr = torch.empty((d, n), dtype=torch.int32, device=dev)
         parent = torch.empty((d, n), dtype=torch.int32, device=dev)
@@ -284,12 +317,12 @@ def resolve_moves(nodes: torch.Tensor, cands: torch.Tensor) -> dict:
         dropped = torch.empty(d, dtype=torch.int32, device=dev)
         h = torch.empty(d, dtype=torch.int32, device=dev)
         if d:
-            scratch = _scratch(nodes)
+            scratch = _scratch(nodes, npt)
             launch("move_round", "amt_resolve_moves", "resolve_moves",
                    nodes.data_ptr(), cands.data_ptr(), ptr.data_ptr(),
                    parent.data_ptr(), resolved.data_ptr(),
                    dropped.data_ptr(), h.data_ptr(),
                    None if scratch is None else scratch.data_ptr(), d, n, k,
-                   _ceil_log2(n) + 1, k + 1, stream_of(nodes))
+                   _ceil_log2(n) + 1, k + 1, threads, npt, stream_of(nodes))
     return {"ptr": ptr, "parent": parent, "resolved": resolved,
             "dropped": dropped, "hash": h}

@@ -15,11 +15,11 @@ and (prio_elem, prio_actor) DESCENDING is the RGA sibling rule, so the
 sorted order is the merged document order at span granularity.
 
 - `merge_spans`      the product contract on the tensor's device: the
-                     4-key sort as chained stable `torch.sort` calls, then
-                     one launch of the rank+hash kernel reading the spans
-                     through `order`, then the masked lanes' running
-                     totals and a scatter of the starts back to slot
-                     order;
+                     4-key sort as chained stable `torch.sort` calls
+                     (`merge_order`), then one launch of the rank+hash
+                     kernel reading the spans through `order`, then the
+                     masked lanes' running totals and a scatter of the
+                     starts back to slot order (`slot_starts`);
 - `span_rank_hash`   rank + hash over merged span lanes: on a CUDA tensor
                      the kernel of `csrc/span_rank_hash.cu` (replaces the
                      TPU kernel `span_rank_hash_pallas`), on a CPU tensor
@@ -38,6 +38,10 @@ from .kernels import _int32_bits, _mix4, _mix4_np
 from .pack import SPAN_FIELDS
 
 INT32_MAX = np.iinfo(np.int32).max
+
+# The kernel's launch plan (span_launch): a warp per document up to this
+# many span lanes, a block per document above.
+SPAN_WARP_MAX_S = 1024
 
 F_MASK, F_ORIGIN, F_START, F_VIS, F_SLOT, F_PELEM, F_PACTOR, F_SEQ = \
     range(len(SPAN_FIELDS))
@@ -95,6 +99,12 @@ def _check_spans(spans: torch.Tensor, order) -> None:
                          f"{order.device}")
 
 
+def span_launch(s: int) -> bool:
+    """True where the kernel takes a warp per document (eight a block, no
+    barrier: S <= SPAN_WARP_MAX_S), False for a block per document."""
+    return s <= SPAN_WARP_MAX_S
+
+
 def span_rank_hash(spans: torch.Tensor, order: torch.Tensor | None = None):
     """Rank + hash over merged span lanes, one pass per document.
 
@@ -107,8 +117,8 @@ def span_rank_hash(spans: torch.Tensor, order: torch.Tensor | None = None):
     lanes, and Σ vis, all wrapping as uint32. Masked lanes start at 0
     (the TPU kernel's contract).
 
-    A CUDA tensor launches the kernel of csrc/span_rank_hash.cu; a CPU
-    tensor runs span_rank_hash_plain."""
+    A CUDA tensor launches the kernel of csrc/span_rank_hash.cu (the path
+    span_launch picks); a CPU tensor runs span_rank_hash_plain."""
     _check_spans(spans, order)
     if spans.device.type == "cpu":
         return span_rank_hash_plain(spans, order)
@@ -127,7 +137,7 @@ def span_rank_hash(spans: torch.Tensor, order: torch.Tensor | None = None):
                    spans.data_ptr(),
                    None if order is None else order.data_ptr(),
                    starts.data_ptr(), h.data_ptr(), total.data_ptr(), d, s,
-                   stream_of(spans))
+                   int(span_launch(s)), stream_of(spans))
     return starts, h, total
 
 
@@ -147,6 +157,35 @@ def span_rank_hash_plain(spans: torch.Tensor,
             _int32_bits(vis.sum(1)))
 
 
+def merge_order(spans: torch.Tensor):
+    """(order [D, S] int64, mask [D, S] bool): the merge's 4-key lexsort,
+    primary key last, as stable sorts from the least significant key;
+    negation wraps in int32, as in the reference."""
+    mask = spans[:, F_MASK] > 0
+    slot = torch.where(mask, spans[:, F_SLOT], INT32_MAX)
+    order = None
+    for key in (spans[:, F_SEQ], -spans[:, F_PACTOR], -spans[:, F_PELEM],
+                slot):
+        k = key if order is None else key.gather(1, order)
+        perm = torch.sort(k, dim=1, stable=True).indices
+        order = perm if order is None else order.gather(1, perm)
+    return order, mask
+
+
+def slot_starts(spans, mask, order, starts_o):
+    """The kernel's merged-order starts as the merge's slot-indexed start:
+    the kernel starts a masked lane at 0; the reference keeps its running
+    total (cumsum - vis), the end of the last unmasked lane before it in
+    merged order, or 0 (an unmasked lane may sort after the padding)."""
+    mask_o = mask.gather(1, order)
+    ends = _int32_bits(starts_o.long() + torch.where(
+        mask_o, spans[:, F_VIS].gather(1, order), 0))
+    pos = torch.arange(order.shape[1], device=order.device)
+    last = torch.where(mask_o, pos, -1).cummax(1).values.clamp(min=0)
+    starts_o = torch.where(mask_o, starts_o, ends.gather(1, last))
+    return torch.empty_like(starts_o).scatter_(1, order, starts_o)
+
+
 def merge_spans(spans: torch.Tensor) -> dict:
     """Merge a batch of span tables on the tensor's device. spans:
     [D, 8, S] int32 (pack.pack_spans). Returns a dict of tensors: order
@@ -154,26 +193,9 @@ def merge_spans(spans: torch.Tensor) -> dict:
     span visible start position, slot-indexed), total [D] int32 visible
     lengths, hash [D] int32 holding the uint32 span-table hashes."""
     _check_spans(spans, None)
-    mask = spans[:, F_MASK] > 0
-    slot = torch.where(mask, spans[:, F_SLOT], INT32_MAX)
-    # lexsort, primary key last: stable sorts from the least significant
-    # key; negation wraps in int32, as in the reference
-    order = None
-    for key in (spans[:, F_SEQ], -spans[:, F_PACTOR], -spans[:, F_PELEM],
-                slot):
-        k = key if order is None else key.gather(1, order)
-        perm = torch.sort(k, dim=1, stable=True).indices
-        order = perm if order is None else order.gather(1, perm)
+    order, mask = merge_order(spans)
     order32 = order.to(torch.int32)
     starts_o, h, total = span_rank_hash(spans, order32)
-    # the kernel starts a masked lane at 0; the reference keeps its running
-    # total (cumsum - vis), the end of the last unmasked lane before it in
-    # merged order, or 0 (an unmasked lane may sort after the padding)
-    mask_o = mask.gather(1, order)
-    ends = _int32_bits(starts_o.long() + torch.where(
-        mask_o, spans[:, F_VIS].gather(1, order), 0))
-    pos = torch.arange(order.shape[1], device=order.device)
-    last = torch.where(mask_o, pos, -1).cummax(1).values.clamp(min=0)
-    starts_o = torch.where(mask_o, starts_o, ends.gather(1, last))
-    start = torch.empty_like(starts_o).scatter_(1, order, starts_o)
-    return {"order": order32, "start": start, "total": total, "hash": h}
+    return {"order": order32, "start": slot_starts(spans, mask, order,
+                                                   starts_o),
+            "total": total, "hash": h}

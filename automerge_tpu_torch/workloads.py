@@ -521,12 +521,16 @@ def random_move_problem(rng: random.Random, n_nodes: int,
 
 
 def random_move_lanes(rng: np.random.Generator, d: int, n_pad: int,
-                      k_pad: int):
+                      k_pad: int, labels: str = "ranks"):
     """Random packed move lanes (nodes [d, 4, n_pad], cands [d, 3, k_pad],
     ptr [d, n_pad], int32) in the ranges pack_moves produces: each realm
     a random node count, candidate runs tiling a prefix of the candidate
     axis, parents in [-1, n), priorities in [0, k_pad) or the pad, and
-    winner pointers past a run's end too."""
+    winner pointers past a run's end too. `labels` "wide": priorities
+    over the whole int32 range instead, a few with the pad as hi, so that
+    no realm's labels fit the move kernel's narrow code; "pad_hi": ranks,
+    but about a fifth of the candidates with the pad as hi (and their own
+    lo), the labels that code collapses into one."""
     from .engine.pack import MOVE_PRIO_PAD
     nodes = np.zeros((d, 4, n_pad), np.int32)
     nodes[:, 1] = -1
@@ -545,6 +549,14 @@ def random_move_lanes(rng: np.random.Generator, d: int, n_pad: int,
         cands[r, 0, :k] = rng.integers(-1, n, k)
         cands[r, 1, :k] = rng.integers(0, k_pad, k)
         cands[r, 2, :k] = rng.permutation(k_pad)[:k]
+        if labels == "wide":
+            # few distinct hi values, so that cycles still tie on hi
+            his = rng.integers(-2**31, 2**31 - 1, 3)
+            cands[r, 1, :k] = np.append(his, MOVE_PRIO_PAD)[
+                rng.integers(0, 4, k)]
+            cands[r, 2, :k] = rng.integers(-2**31, 2**31 - 1, k)
+        elif labels == "pad_hi":
+            cands[r, 1, :k][rng.random(k) < 0.2] = MOVE_PRIO_PAD
         ptr[r, :n] = rng.integers(0, cnt + 2)
     return nodes, cands, ptr
 

@@ -17,14 +17,18 @@ Phases:
      among near-empty ones, every slot live, lanes with no op, LE = 0,
      A = 1, I = LE = 1,024, a lane past the shared memory and a lane
      whose state needs a whole block), with and without force_xl; the
-     span rank+hash kernel at S_pad 128 and 4,096 (pre-sorted and
-     through an order); the move source's round kernel
-     (move_round) and fixpoint kernel (resolve_moves, the one the move
-     plane launches) at N_pad 512 (K_pad 512), 4,096 and 8,192 (global
-     scratch); the domination kernel at (D, N, A) (512, 128, 4), (64,
-     1,024, 8), (1, 4,096, 16), (10,000, 32, 4) (the docset fleet's
-     shape) and (300, 45, 3), each with values below 2**24 and over the
-     whole int32 range;
+     span rank+hash kernel (pre-sorted and through an order) on both of
+     its paths: a warp per document at S_pad 128 and 131 (scalar loads),
+     a block per document at 2,176, 4,096 and 9,000 (two chunks), D = 1
+     on each; the move
+     source's round kernel (move_round) and fixpoint kernel
+     (resolve_moves, the one the move plane launches) at N_pad 512
+     (K_pad 512) and 4,096 (registers and shared memory, up to the cap),
+     4,224, 8,192 and 16,384 (global scratch), and 1,664 with wide labels
+     and with labels whose hi is the pad; the domination kernel
+     at (D, N, A) (512, 128, 4), (64, 1,024, 8), (1, 4,096, 16), (10,000,
+     32, 4) (the docset fleet's shape) and (300, 45, 3), each with values
+     below 2**24 and over the whole int32 range;
   2. the map storm of the reference's bench config 20: 10,000 docs, 8 heavy
      docs of 400 ops, 8 zipf(1.1) rounds of ~1K dirty docs, then a
      minority-dirty hashes_for read;
@@ -39,11 +43,14 @@ Phases:
   6. the text-merge plane: bench config 10's 1,000,000-char bulk merge and
      a 10,000-doc fleet of its small-doc shape, each one routed dispatch
      (the plan must pick the device, the kernel must launch once), held
-     against the plain version and the numpy oracle;
+     against the plain version and the numpy oracle; then merge_spans
+     split by CUDA events into its four sorts, the kernel and the glue;
   7. the move plane: bench config 16's storm realm (1,536 concurrent
      reparents of 1,600 objects) and a fleet of 1,024 such realms, held
-     against the plain version, the numpy oracle and (one realm) the host
-     walk;
+     against the plain version, the numpy oracle, the kernel's schedule
+     model (move_schedule.schedule_model, whose rounds, doubling steps and
+     gathers the timing line prints beside the plain schedule's) and (one
+     realm) the host walk;
   8. the router's cost constants measured on this machine (the "link"
      line: launch + readback, host<->device copies, the numpy oracles);
   9. the docs-major engine: (a) bench config 5's docset fleet (10,000
@@ -384,10 +391,7 @@ def phase_kernel_parity(torch, dev, report):
 
     t = ck.build()
     print(f"phase 1: built {sorted(ck.SOURCES)} in {t:.2f} s")
-    for name, log in ck.BUILD_LOG.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+    print_ptxas()
     for name in RECONCILE_CASES:
         rows_np, dims = reconcile_case(name, seed=1)
         i, a, le = dims[:3]
@@ -419,6 +423,18 @@ def phase_kernel_parity(torch, dev, report):
     check(not rows_dims_eligible(512, 8, 512)
           and ck.rows_dims_eligible_xl(512, 8, 512),
           "the XL-only shape is not XL-only")
+
+
+def print_ptxas() -> None:
+    """The compiler's register and spill report of every source built in
+    this process (cuda_kernels.BUILD_LOG), each kernel's line after its
+    name."""
+    from automerge_tpu_torch.engine import cuda_kernels as ck
+    for name, log in ck.BUILD_LOG.items():
+        for line in log.splitlines():
+            if "Compiling entry" in line or "registers" in line \
+                    or "spill" in line:
+                print(f"  ptxas {name}: {line.strip()}")
 
 
 def hold_equal(got: dict, want: dict, what: str, report: list) -> None:
@@ -454,11 +470,17 @@ def phase_plane_kernel_parity(torch, dev, report):
                                                random_span_tables)
 
     rng = np.random.default_rng(2)
-    for d, s_pad in [(512, 128), (64, 4096)]:
+    # both paths of the kernel: a warp per document (S <= 1,024; S = 131
+    # takes scalar loads) and a block per document (S = 9,000: two
+    # chunks), and D = 1 on each
+    for d, s_pad in [(512, 128), (64, 4096), (64, 131), (1, 131),
+                     (1, 2176), (4, 9000)]:
         tables = (random_span_tables(rng, d // 2, s_pad - 5)
                   + random_span_tables(rng, d - d // 2, s_pad - 5,
                                        full_range=True))
-        spans = torch.from_numpy(pack_spans(tables)).to(dev)
+        packed = pack_spans(tables)[:, :, :s_pad]
+        spans = torch.from_numpy(np.ascontiguousarray(np.pad(
+            packed, ((0, 0), (0, 0), (0, s_pad - packed.shape[2]))))).to(dev)
         check(spans.shape == (d, 8, s_pad), f"span shape {spans.shape}")
         order = torch.argsort(torch.rand((d, s_pad), device=dev),
                               dim=1).to(torch.int32)
@@ -472,15 +494,26 @@ def phase_plane_kernel_parity(torch, dev, report):
                         zip(("starts", "hash", "total"), got)},
                        {k: w.cpu().numpy() for k, w in
                         zip(("starts", "hash", "total"), want)},
-                       f"span_rank_hash {label} S_pad={s_pad}",
+                       f"span_rank_hash {label} D={d} S_pad={s_pad}",
                        report["span_rank_hash"])
-        print(f"phase 1: span_rank_hash D={d} S_pad={s_pad}: pre-sorted "
-              f"and through an order, one launch each, equal to the plain "
-              f"version")
-    for d, n_pad, k_pad in [(256, 512, 512), (32, 4096, 4096),
-                            (4, 8192, 1024)]:
+        print(f"phase 1: span_rank_hash D={d} S_pad={s_pad} "
+              f"({'warp' if sk.span_launch(s_pad) else 'block'} per "
+              f"document): pre-sorted and through an order, one launch "
+              f"each, equal to the plain version")
+    # registers and shared memory on each side of each threshold of the
+    # launch plan (a node a thread up to 512 nodes, 512 threads x 4 up to
+    # 2,048, 1,024 x 4 up to SMEM_MAX_NODES, 4,096), the global scratch
+    # above it (labels: the narrow code on ranks and on labels whose hi is
+    # the pad, and wide labels)
+    for d, n_pad, k_pad, labels in [
+            (256, 512, 512, "ranks"), (64, 640, 640, "ranks"),
+            (16, 2176, 1024, "ranks"), (32, 4096, 4096, "ranks"),
+            (4, 4224, 1024, "ranks"), (4, 8192, 1024, "ranks"),
+            (2, 16384, 2048, "ranks"),
+            (64, 1664, 1664, "wide"),
+            (64, 1664, 1664, "pad_hi")]:
         nodes, cands, ptr = (torch.from_numpy(a).to(dev) for a in
-                             random_move_lanes(rng, d, n_pad, k_pad))
+                             random_move_lanes(rng, d, n_pad, k_pad, labels))
         got, n = counted("move_round",
                          lambda: mk.move_round(nodes, cands, ptr))
         check(n == 1, f"move_round launched {n} times")
@@ -495,9 +528,11 @@ def phase_plane_kernel_parity(torch, dev, report):
         hold_equal({k: v.cpu().numpy() for k, v in got.items()},
                    {k: v.cpu().numpy() for k, v in want.items()},
                    f"resolve_moves N_pad={n_pad}", report["resolve_moves"])
+        threads, npt = mk.move_launch(n_pad)
+        where = (f"{threads} threads, {npt} nodes a thread in registers"
+                 if npt else "global scratch")
         print(f"phase 1: move_round and resolve_moves D={d} N_pad={n_pad} "
-              f"K_pad={k_pad} "
-              f"({'shared memory' if n_pad <= mk.SMEM_MAX_NODES else 'global scratch'}): "
+              f"K_pad={k_pad} labels {labels} ({where}): "
               f"one round and the fixpoint, one launch each, equal to the "
               f"plain version (cycle drops {int(want['dropped'].sum())})")
 
@@ -693,6 +728,7 @@ def drive_text_plane(torch, dev, report):
                                  torch.cuda.synchronize()), 5)
         merge_s = host_s(lambda: (merge_spans(spans_dev),
                                   torch.cuda.synchronize()), 5)
+        split = merge_split(torch, spans_dev)
         rows = [len(t) for t in tables]
         print(f"phase 6: {name}: {len(tables)} docs, spans per doc "
               f"{min(rows)}-{max(rows)}, lanes {tuple(spans.shape)}; plan "
@@ -704,13 +740,42 @@ def drive_text_plane(torch, dev, report):
               f"{host_wall * 1e3:.3f} ms; launches {n}; visible length total "
               f"{int(got['total'].astype('int64').sum())}; order, start, "
               f"total, hash equal to the plain version and the oracle")
+        print(f"phase 6: {name}: merge_spans on the card by CUDA events "
+              f"(ms per call, host enqueue ms and CUDA-graph ms in "
+              f"brackets): "
+              + "; ".join(f"{k} {v[0]:.4f} [{v[1]:.4f}, graph {v[2]:.4f}]"
+                          for k, v in split.items()))
     return inputs, launches
+
+
+def merge_split(torch, spans):
+    """merge_spans in its three steps, each timed by CUDA events around 10
+    calls (cuda_ms) and as a CUDA-graph replay of them (graph_ms, the
+    device alone), on the same lanes: the four stable sorts
+    (merge_order), the rank+hash kernel through the order, and the glue
+    (slot_starts: the masked lanes' gathers, cummax and scatter_), then
+    the whole call. {step: (ms, host enqueue ms, graph ms)}."""
+    from automerge_tpu_torch.engine.span_kernels import (
+        merge_order, merge_spans, slot_starts, span_rank_hash)
+    order, mask = merge_order(spans)
+    order32 = order.to(torch.int32)
+    starts_o = span_rank_hash(spans, order32)[0]
+    steps = {"sorts": lambda: merge_order(spans),
+             "kernel": lambda: span_rank_hash(spans, order32),
+             "glue": lambda: slot_starts(spans, mask, order, starts_o),
+             "whole merge_spans": lambda: merge_spans(spans)}
+    out = {}
+    for k, fn in steps.items():
+        enq = []
+        out[k] = (cuda_ms(fn, 10, enq), enq[0], graph_ms(fn, 10))
+    return out
 
 
 def drive_move_plane(torch, dev, report):
     """Phase 7: the storm realm and the realm fleet through the router.
-    Returns {workload: (device nodes, cands)} and the launches of the
-    plane's kernel on this path."""
+    Returns {workload: (device nodes, cands, the kernel's schedule from
+    its CPU model)} and the launches of the plane's kernel on this
+    path."""
     from automerge_tpu_torch.core.moves import _resolve_walk
     from automerge_tpu_torch.engine import cuda_kernels as ck
     from automerge_tpu_torch.engine.dispatch import (resolve_moves_adaptive,
@@ -718,6 +783,7 @@ def drive_move_plane(torch, dev, report):
     from automerge_tpu_torch.engine.move_kernels import (
         resolve_moves, resolve_moves_host, resolve_moves_plain)
     from automerge_tpu_torch.engine.pack import pack_moves
+    from automerge_tpu_torch.move_schedule import schedule_model
     from automerge_tpu_torch.workloads import move_fleet, move_storm
 
     t0 = time.perf_counter()
@@ -752,7 +818,12 @@ def drive_move_plane(torch, dev, report):
             check(got["ptr"][0][:len(storm.nodes)].tolist() == walk_ptr
                   and int(got["dropped"][0]) == walk_dropped,
                   "storm realm != the host walk")
-        inputs[name] = (nodes, cands)
+        t0 = time.perf_counter()
+        sched = schedule_model(pk["nodes"], pk["cands"])
+        model_s = time.perf_counter() - t0
+        hold_equal({k: sched[k] for k in host}, host,
+                   f"{name}: schedule model vs numpy", report["resolve_moves"])
+        inputs[name] = (nodes, cands, sched)
         pack_s = host_s(lambda: pack_moves(workloads[name]), 1)
         resolve_s = host_s(lambda: (resolve_moves(nodes, cands),
                                     torch.cuda.synchronize()), 5)
@@ -769,7 +840,8 @@ def drive_move_plane(torch, dev, report):
               f"unresolved nodes "
               f"{int((pk['nodes'][:, 0] > 0).sum() - got['resolved'].sum())}"
               f"; ptr, parent, resolved, dropped, hash equal to the plain "
-              f"version and the oracle"
+              f"version, the oracle and the kernel's schedule model ("
+              f"{model_s:.2f} s)"
               + ("" if name != "storm realm" else " and the host walk"))
     return inputs, launches
 
@@ -1083,19 +1155,36 @@ def time_kernel(torch, ds, label):
 def time_span_kernel(torch, spans, order, label):
     """The rank+hash launch that merge_spans makes on this workload."""
     from automerge_tpu_torch.engine.span_kernels import (
-        span_rank_hash, span_rank_hash_plain)
+        span_launch, span_rank_hash, span_rank_hash_plain)
     t = launch_times(lambda: span_rank_hash(spans, order), 20)
     p_ms = cuda_ms(lambda: span_rank_hash_plain(spans, order), 3)
     b_ms, b_by, nbytes, ops = span_bound(spans)
-    print(f"timing {label}: span_rank_hash lanes={tuple(spans.shape)} "
+    path = "warp" if span_launch(spans.shape[2]) else "block"
+    print(f"timing {label}: span_rank_hash ({path} per document) "
+          f"lanes={tuple(spans.shape)} "
           f"{times_text(t)} plain_ms={p_ms:.3f} bound_ms={b_ms:.5f} "
           f"({b_by}; bytes={nbytes} ops={ops})")
     return t["graph_ms"], p_ms, b_ms, b_by
 
 
-def time_move_kernel(torch, nodes, cands, label):
+def schedule_text(sched) -> str:
+    """The kernel's schedule on a workload, summed over its realms (CPU
+    model): rounds, doubling steps (each ends on a block barrier) and node
+    gathers, against those of the plain schedule (every walk the full
+    steps over every node)."""
+    return (f"rounds={int(sched['rounds'].sum())} (most "
+            f"{int(sched['rounds'].max())}) walks={int(sched['walks'].sum())}"
+            f" (old {int(sched['rounds'].sum() + len(sched['rounds']))}) "
+            f"doubling steps={int(sched['steps'].sum())} (old "
+            f"{int(sched['steps_old'].sum())}) node gathers="
+            f"{int(sched['gathers'].sum())} (old "
+            f"{int(sched['gathers_old'].sum())})")
+
+
+def time_move_kernel(torch, nodes, cands, sched, label):
     """The fixpoint launch that resolve_moves makes on this workload."""
-    from automerge_tpu_torch.engine.move_kernels import (resolve_moves,
+    from automerge_tpu_torch.engine.move_kernels import (move_launch,
+                                                         resolve_moves,
                                                          resolve_moves_plain)
     t = launch_times(lambda: resolve_moves(nodes, cands), 20)
     p_ms = cuda_ms(lambda: resolve_moves_plain(nodes, cands), 2)
@@ -1103,7 +1192,10 @@ def time_move_kernel(torch, nodes, cands, label):
     print(f"timing {label}: resolve_moves (fixpoint) nodes="
           f"{tuple(nodes.shape)} cands={tuple(cands.shape)} "
           f"{times_text(t)} plain_ms={p_ms:.3f} bound_ms={b_ms:.5f} "
-          f"({b_by}; bytes={nbytes} ops={ops})")
+          f"({b_by}; bytes={nbytes} ops={ops}); launch plan "
+          f"{move_launch(nodes.shape[2])} (threads, nodes a thread); "
+          f"schedule (CPU model) "
+          f"{schedule_text(sched)}")
     return t["graph_ms"], p_ms, b_ms, b_by
 
 

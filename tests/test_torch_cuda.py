@@ -98,13 +98,25 @@ def _launched(name, fn):
     return out
 
 
+def _span_lanes(tables, s_pad):
+    """pack_spans(tables) ([D, 8, S], S a multiple of 128) cut or padded
+    with masked lanes to exactly s_pad lanes."""
+    spans = pack_spans(tables)[:, :, :s_pad]
+    return np.ascontiguousarray(np.pad(
+        spans, ((0, 0), (0, 0), (0, s_pad - spans.shape[2]))))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("s_pad", [128, 1024, 4096])
+@pytest.mark.parametrize("s_pad", [128, 131, 1024, 1025, 4096, 9000])
 def test_span_kernel_matches_plain(cuda_device, s_pad):
+    """Both paths of the kernel: a warp per document (S <= 1,024; 131 is
+    not a multiple of 4, so scalar loads) and a block per document (one
+    chunk up to 8,192 lanes; 9,000 takes two)."""
     rng = np.random.default_rng(s_pad)
     tables = (random_span_tables(rng, 16, s_pad - 3)
               + random_span_tables(rng, 16, s_pad - 3, full_range=True))
-    spans = torch.from_numpy(pack_spans(tables)).to(cuda_device)
+    spans_np = _span_lanes(tables, s_pad)
+    spans = torch.from_numpy(spans_np).to(cuda_device)
     order = torch.argsort(torch.rand(spans.shape[0], s_pad,
                                      device=cuda_device), 1).to(torch.int32)
     for args in ((spans,), (spans, order)):
@@ -113,19 +125,41 @@ def test_span_kernel_matches_plain(cuda_device, s_pad):
             assert torch.equal(g, w)
     got = result_to_numpy(_launched("span_rank_hash",
                                     lambda: sk.merge_spans(spans)))
-    want = sk.merge_spans_host(pack_spans(tables))
+    want = sk.merge_spans_host(spans_np)
     for k in want:
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("s_pad", [128, 131, 2176])
+def test_span_kernel_on_one_document(cuda_device, s_pad):
+    """D = 1 on both paths, through an order and pre-sorted."""
+    tables = random_span_tables(np.random.default_rng(s_pad), 1, s_pad - 2,
+                                full_range=True)
+    spans = torch.from_numpy(_span_lanes(tables, s_pad)).to(cuda_device)
+    order = torch.randperm(s_pad, device=cuda_device)[None].to(torch.int32)
+    for args in ((spans,), (spans, order)):
+        got = _launched("span_rank_hash", lambda: sk.span_rank_hash(*args))
+        for g, w in zip(got, sk.span_rank_hash_plain(*args)):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("labels", ["ranks", "wide", "pad_hi"])
 @pytest.mark.parametrize("n_pad,k_pad", [(128, 256), (512, 512),
-                                         (4096, 1024), (8192, 512)])
-def test_move_kernel_matches_plain(cuda_device, n_pad, k_pad):
-    """Shared-memory realms and, at 8,192 nodes, the global scratch."""
+                                         (640, 640), (1664, 1664),
+                                         (2176, 1024), (4096, 1024),
+                                         (4224, 1024), (8192, 512),
+                                         (16384, 2048)])
+def test_move_kernel_matches_plain(cuda_device, n_pad, k_pad, labels):
+    """Realms in registers and shared memory, on each side of each
+    threshold of the launch plan (a node a thread up to 512 nodes, 512
+    threads x 4 up to 2,048, 1,024 x 4 up to the cap SMEM_MAX_NODES,
+    4,096 nodes), and past the cap in the global scratch; in the narrow
+    label code (ranks, labels with the pad as hi) and wide."""
     nodes, cands, ptr = (torch.from_numpy(a).to(cuda_device) for a in
                          random_move_lanes(np.random.default_rng(n_pad), 8,
-                                           n_pad, k_pad))
+                                           n_pad, k_pad, labels))
     got = _launched("move_round", lambda: mk.move_round(nodes, cands, ptr))
     assert torch.equal(got, mk.move_round_plain(nodes, cands, ptr))
     got = _launched("resolve_moves", lambda: mk.resolve_moves(nodes, cands))

@@ -1,9 +1,10 @@
 """The move plane: the port's pack_moves, move_round, resolve_moves
-(device="cpu", the kernel's plain PyTorch versions), resolve_moves_host
-and _resolve_walk against the reference's pack_moves, XLA resolve_moves,
-resolve_moves_host, move_round_pallas in interpret mode and _resolve_walk,
-on the same realms. Tolerance: exact (integer outputs, uint32 hashes bit
-for bit).
+(device="cpu", the kernel's plain PyTorch versions), resolve_moves_host,
+_resolve_walk and schedule_model (the CUDA kernel's schedule in numpy)
+against the reference's pack_moves, XLA resolve_moves, resolve_moves_host,
+move_round_pallas in interpret mode and _resolve_walk, on the same realms;
+and the kernel's launch plan. Tolerance: exact (integer outputs, uint32
+hashes bit for bit).
 
 Realms: the reference tests' random generator, a 1,024-node realm (past
 the Pallas kernel's 512-node cap, so against XLA only), the minimum-
@@ -31,12 +32,13 @@ from automerge_tpu_torch.core.moves import MoveProblem, _resolve_walk
 from automerge_tpu_torch.engine import move_kernels as mk
 from automerge_tpu_torch.engine.dispatch import result_to_numpy
 from automerge_tpu_torch.engine.pack import pack_moves
+from automerge_tpu_torch.move_schedule import schedule_model
 from automerge_tpu_torch.workloads import (
-    move_storm, move_storm_ops, random_move_lanes, random_move_problem,
-    reference_move_problems, storm_key)
+    move_fleet, move_storm, move_storm_ops, random_move_lanes,
+    random_move_problem, reference_move_problems, storm_key)
 
 from test_moves import _rand_problem
-from torch_port_helpers import load_reference_script
+from torch_port_helpers import REPO, load_reference_script
 
 KEYS = ("ptr", "parent", "resolved", "dropped", "hash")
 
@@ -267,3 +269,181 @@ def test_committed_move_outputs_hold_in_both_packages():
         np.testing.assert_array_equal(committed[f"moves_{k}"],
                                       ref[f"moves_{k}"])
         np.testing.assert_array_equal(got[k], committed[f"moves_{k}"])
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's schedule (move_schedule.schedule_model) against the
+# reference: early exit, settled nodes skipped, resolved walks carried
+# over, the narrow label code, the no-drop round reused
+
+
+def _cycle_lanes(n: int, n_pad: int):
+    """One realm that is a single n-node cycle: node i's one candidate
+    moves it under node i + 1 (mod n), priorities all distinct."""
+    nodes = np.zeros((1, 4, n_pad), np.int32)
+    nodes[0, 1] = -1
+    nodes[0, 0, :n] = 1
+    nodes[0, 2, :n] = np.arange(n)
+    nodes[0, 3, :n] = 1
+    cands = np.full((1, 3, n_pad), np.iinfo(np.int32).max, np.int32)
+    cands[0, 0] = -1
+    cands[0, 0, :n] = (np.arange(n) + 1) % n
+    cands[0, 1, :n] = np.arange(n)[::-1] // 3
+    cands[0, 2, :n] = np.arange(n)
+    return nodes, cands
+
+
+def _capped_lanes(rng, d: int, n_pad: int, k_pad: int):
+    """Lanes whose candidate counts run past the candidate axis, so that a
+    node's clamped winner can drop round after round: random_move_lanes
+    with inflated counts, and a last realm that reaches the K + 1 round
+    cap. Its two nodes take the last two candidates, 0 -> 1 at (0, 0) and
+    1 -> 0 at (1, 1); once 0 drops, both clamp to the last one, 0's self-
+    loop, whose label each keeps matching."""
+    nodes, cands, _ = random_move_lanes(rng, d, n_pad, k_pad)
+    nodes[:, 3] = np.where(nodes[:, 0] > 0, nodes[:, 3] + 4 * k_pad, 0)
+    nodes[-1] = 0
+    nodes[-1, 1] = -1
+    nodes[-1, :, :2] = [[1, 1], [-1, -1], [k_pad - 2, k_pad - 1],
+                        [100, 100]]
+    cands[-1] = np.iinfo(np.int32).max
+    cands[-1, 0] = -1
+    cands[-1, :, k_pad - 2:] = [[1, 0], [0, 1], [0, 1]]
+    return nodes, cands
+
+
+def _fleet_lanes():
+    """Three storm realms small enough for the Pallas kernel's cap."""
+    packed = pack_moves(move_fleet(n_realms=3, n_objs=300, n_moves=280))
+    return packed["nodes"], packed["cands"]
+
+
+SCHEDULE_CASES = {
+    "random_lanes": lambda: random_move_lanes(np.random.default_rng(21), 6,
+                                              384, 512)[:2],
+    "wide_labels": lambda: random_move_lanes(np.random.default_rng(22), 6,
+                                             384, 512, labels="wide")[:2],
+    "pad_hi_labels": lambda: random_move_lanes(np.random.default_rng(23), 6,
+                                               384, 512,
+                                               labels="pad_hi")[:2],
+    "fleet_realms": _fleet_lanes,
+    "one_cycle": lambda: _cycle_lanes(500, 512),
+    "round_cap": lambda: _capped_lanes(np.random.default_rng(8), 5, 256,
+                                       12),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SCHEDULE_CASES))
+def test_schedule_model_matches_xla_and_pallas(case):
+    """The kernel's schedule gives the reference's resolution (XLA, and
+    the Pallas round kernel driven round by round in interpret mode) and
+    its single rounds at three pointer states. The Pallas driver
+    (resolve_moves_pallas) loops up to K + 2 rounds where XLA's contract,
+    which the port keeps, stops at K + 1, so on a realm that reaches the
+    cap only XLA is the yardstick of the resolution."""
+    nodes, cands = SCHEDULE_CASES[case]()
+    assert nodes.shape[2] <= ref_mk.PALLAS_MAX_NODES
+    got = schedule_model(nodes, cands)
+    xla = ref_mk.resolve_moves(nodes, cands)
+    pallas = ref_mk.resolve_moves_pallas({"nodes": nodes, "cands": cands},
+                                         interpret=True)
+    free = ~got["capped"]
+    for k in KEYS:
+        np.testing.assert_array_equal(got[k], np.asarray(xla[k]),
+                                      err_msg=k)
+        np.testing.assert_array_equal(got[k][free], pallas[k][free],
+                                      err_msg=k)
+    for ptr in (np.zeros_like(got["ptr"]), got["ptr"],
+                np.maximum(got["ptr"] - 1, 0)):
+        want = ref_mk.move_round_pallas(nodes, cands, ptr, interpret=True)
+        np.testing.assert_array_equal(
+            schedule_model(nodes, cands, ptr)["out"], np.asarray(want))
+
+
+def test_schedule_model_matches_xla_past_the_pallas_cap():
+    nodes, cands = _cycle_lanes(3000, 3072)
+    got = schedule_model(nodes, cands)
+    xla = ref_mk.resolve_moves(nodes, cands)
+    for k in KEYS:
+        np.testing.assert_array_equal(got[k], np.asarray(xla[k]),
+                                      err_msg=k)
+
+
+def test_schedule_runs_what_it_claims():
+    """What the schedule saves on each case, and where it saves nothing:
+    the cycle's first round runs every step (its nodes never end), the
+    capped lanes reach the K + 1 round cap and then walk once more."""
+    steps = mk._ceil_log2(512) + 1
+    cyc = schedule_model(*_cycle_lanes(500, 512))
+    assert cyc["rounds"].tolist() == [2] and cyc["walks"].tolist() == [2]
+    assert cyc["dropped"].tolist() == [1]
+    # round 1 the full steps; round 2 a chain whose farthest node is 500
+    # hops from the root: 2**9 >= 500, so 9 steps end every walk
+    assert cyc["steps"].tolist() == [steps + 9]
+    assert cyc["steps_old"].tolist() == [3 * steps]
+    capped = schedule_model(*_capped_lanes(np.random.default_rng(8), 5,
+                                              256, 12))
+    assert capped["capped"].any()
+    assert (capped["walks"] == capped["rounds"] + capped["capped"]).all()
+    fleet = schedule_model(*_fleet_lanes())
+    assert (fleet["steps"] < fleet["steps_old"]).all()
+    assert (fleet["gathers"] < fleet["gathers_old"]).all()
+    assert not fleet["capped"].any() and fleet["narrow"].all()
+    # only the first walk and the dropped nodes gather their winners
+    assert (fleet["winners"] == fleet["resolved"].shape[1]
+            + fleet["dropped"] * (fleet["rounds"] > 1)).all()
+    wide = schedule_model(*SCHEDULE_CASES["wide_labels"]())
+    assert not wide["narrow"].any() and wide["dropped"].sum() > 0
+    pad_hi = schedule_model(*SCHEDULE_CASES["pad_hi_labels"]())
+    assert pad_hi["narrow"].all() and pad_hi["dropped"].sum() > 0
+
+
+@pytest.mark.parametrize("n,want", [
+    (1, (32, 1)), (32, (32, 1)), (33, (64, 1)), (512, (512, 1)),
+    (513, (512, 4)), (1024, (512, 4)), (1025, (512, 4)), (1664, (512, 4)),
+    (2048, (512, 4)), (2049, (1024, 4)), (mk.SMEM_MAX_NODES, (1024, 4)),
+    (mk.SMEM_MAX_NODES + 1, (1024, 0)), (8192, (1024, 0)),
+    (16384, (1024, 0))])
+def test_move_launch_plan_at_its_boundaries(n, want):
+    """The launch plan: threads and nodes a thread in registers, or the
+    global scratch (npt 0) past SMEM_MAX_NODES, whose buffers fit the
+    shared memory and whose nodes fit the register slots."""
+    assert mk.SMEM_MAX_NODES == 4096
+    assert mk.SMEM_MAX_NODES * mk.MOVE_SMEM_NODE_BYTES <= mk.MOVE_SMEM_BYTES
+    assert mk.SMEM_MAX_NODES <= mk.MOVE_MAX_THREADS * mk.MOVE_NPTS[-1]
+    threads, npt = mk.move_launch(n)
+    assert (threads, npt) == want
+    assert threads % 32 == 0 and threads <= mk.MOVE_MAX_THREADS
+    if npt:
+        assert threads * npt >= n
+    nodes = torch.zeros((2, 4, n), dtype=torch.int32)
+    scratch = mk._scratch(nodes, npt)
+    if npt:
+        assert scratch is None
+    else:
+        assert scratch.shape == (2, mk.MOVE_SCRATCH_NODE_BYTES * n)
+
+
+def test_compare_kernels_loads_another_checkout():
+    """compare_kernels loads a checkout's package under another module
+    name, whose wrappers give this package's results (here this checkout
+    itself, on the CPU); without a checkout to compare it prints its
+    usage and exits 1."""
+    from automerge_tpu_torch import compare_kernels
+    from automerge_tpu_torch.engine import span_kernels as sk
+    from automerge_tpu_torch.engine.pack import pack_spans
+    from automerge_tpu_torch.workloads import random_span_tables
+    other_mk, other_sk = compare_kernels.load_other(REPO, "amt_other_test")
+    assert other_mk.__name__ == "amt_other_test.engine.move_kernels"
+    assert other_mk is not mk
+    rng = np.random.default_rng(5)
+    nodes, cands, _ = (torch.from_numpy(a) for a in
+                       random_move_lanes(rng, 4, 256, 256))
+    got = other_mk.resolve_moves(nodes, cands)
+    want = mk.resolve_moves(nodes, cands)
+    for k in KEYS:
+        assert torch.equal(got[k], want[k]), k
+    spans = torch.from_numpy(pack_spans(random_span_tables(rng, 4, 100)))
+    for g, w in zip(other_sk.span_rank_hash(spans), sk.span_rank_hash(spans)):
+        assert torch.equal(g, w)
+    assert compare_kernels.main([]) == 1

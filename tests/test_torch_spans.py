@@ -186,3 +186,28 @@ def test_committed_span_outputs_hold_in_both_packages():
         np.testing.assert_array_equal(committed[f"spans_{k}"],
                                       ref[f"spans_{k}"])
         np.testing.assert_array_equal(got[k], committed[f"spans_{k}"])
+
+
+@pytest.mark.parametrize("s,warp", [(1, True), (128, True), (131, True),
+                                    (sk.SPAN_WARP_MAX_S, True),
+                                    (sk.SPAN_WARP_MAX_S + 1, False),
+                                    (2176, False)])
+def test_span_launch_plan_at_its_boundary(s, warp):
+    """The kernel takes a warp per document up to SPAN_WARP_MAX_S span
+    lanes (the span fleet's 128) and a block per document above (the
+    bulk merge's 2,176)."""
+    assert sk.span_launch(s) is warp
+
+
+def test_merge_spans_is_its_three_steps():
+    """merge_spans is merge_order, then the rank+hash through the order,
+    then slot_starts: the pieces chip_smoke.py times one by one."""
+    spans = torch.from_numpy(pack_spans(_extreme_tables()))
+    order, mask = sk.merge_order(spans)
+    starts_o, h, total = sk.span_rank_hash(spans, order.to(torch.int32))
+    whole = sk.merge_spans(spans)
+    assert torch.equal(whole["order"], order.to(torch.int32))
+    assert torch.equal(whole["start"],
+                       sk.slot_starts(spans, mask, order, starts_o))
+    assert torch.equal(whole["hash"], h) and torch.equal(whole["total"],
+                                                         total)
