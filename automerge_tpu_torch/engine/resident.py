@@ -1,7 +1,8 @@
 """The resident DocSet (counterpart of `automerge_tpu/engine/resident.py`):
-per-document interning, causal admission, transitive clock rows, the
-pure-Python delta encoder, actor ranking, capacities, the incremental hash
-mirror, and the docs-major device state with its reconcile.
+per-document interning, causal admission, transitive clock rows, the delta
+encoders (the native C++ one of `native/deltaenc.cpp` and the pure-Python
+`_encode_delta`), actor ranking, capacities, the incremental hash mirror,
+and the docs-major device state with its reconcile.
 
 State lives on `self.device` as a dict of docs-major tensors (`state`,
 encode.stack_docs's columns at the instance's capacities), and only deltas
@@ -22,10 +23,13 @@ Key mechanics, as in the reference:
   powers of two, doubled on overflow; padding keeps every hash.
 - Causality: each document keeps a host queue of changes whose dependencies
   are not yet applied; duplicates drop idempotently.
+- Column ingress (`apply_columns`, `apply_and_reconcile_columns`): wire
+  columns (`native.wire.WireColumns`, a decoded AMW1 frame) are admitted
+  per change in Python and encoded per op in C++ straight from the frame
+  bytes, one native call a round for every document.
 
 Not here yet (later slices): the diff plane (`apply_and_reconcile(...,
-diffs=True)`, engine/diffs.py), the native column ingress (`apply_columns`,
-`apply_and_reconcile_columns`) and the snapshot floor.
+diffs=True)`, engine/diffs.py) and the snapshot floor.
 """
 
 from __future__ import annotations
@@ -38,6 +42,8 @@ import torch
 from ..core.change import Change
 from ..core.ids import ROOT_ID, HEAD, make_elem_id
 from ..device import resolve_device
+from ..native.delta import NativeDeltaEncoder, frame_bytes_of
+from ..native.wire import changes_to_columns
 from .encode import (A_INS, A_LINK, A_MAKE_LIST, A_MAKE_MAP,
                      A_MAKE_TEXT, A_MOVE, A_SET, _ACTION_CODE, ValueTable,
                      content_hash, move_loc_key, move_value_key,
@@ -71,6 +77,10 @@ class DocTables:
         self.frontier: dict[str, int] = {}
         self.seen: set[tuple[str, int]] = set()
         self.queue: list = []  # _Pending records awaiting admission
+        # set to the doc index while the rows engine's vectorized admission
+        # owns this table's clock/frontier truth in its dense cache;
+        # _sync_stale_table materializes it back before any dict reader
+        self._stale_idx: int | None = None
         self.n_changes = 0
         self.n_lists = 0
         self.max_elems = 0
@@ -92,18 +102,20 @@ class DocTables:
 
 
 class Delta:
-    """Delta rows for one document, from the Python encoder."""
+    """Delta rows for one document (lists of tuples from the Python encoder
+    or numpy row arrays from the native one; stacked later)."""
 
     def __init__(self):
         self.ops = []        # rows matching OP_COLS[1:]
         self.clocks: list[np.ndarray] = []  # rows [cap_actors]
         self.ins = []        # (list_row, slot, elem, actor, parent_slot, fid)
         self.new_lists = []  # (list_row, obj_idx, obj_hash)
-        self.changes = []    # admitted changes, in order
+        self.changes = []    # admitted changes (Change or AdmittedRef)
 
 
 class _Pending:
-    """A change awaiting causal admission: protocol header + payload."""
+    """A change awaiting causal admission: protocol header + payload (a
+    Change, or (cols, idx) into a columnar frame on a native instance)."""
     __slots__ = ("actor", "seq", "deps", "payload")
 
     def __init__(self, actor: str, seq: int, deps: dict, payload):
@@ -113,15 +125,43 @@ class _Pending:
         self.payload = payload
 
 
+class AdmittedRef:
+    """Lazy handle to an admitted change living in a columnar frame: the
+    change log keeps it without materializing per-op Python objects."""
+    __slots__ = ("cols", "idx")
+
+    def __init__(self, cols, idx: int):
+        self.cols = cols
+        self.idx = idx
+
+    @property
+    def actor(self) -> str:
+        return self.cols.actors[self.cols.change_actor[self.idx]]
+
+    @property
+    def seq(self) -> int:
+        return int(self.cols.change_seq[self.idx])
+
+    def change(self) -> Change:
+        return self.cols.change_at(self.idx)
+
+
 class ResidentDocSet:
     """A DocSet whose columnar state lives on the device.
 
     `device` is where the state lives and the reconcile runs: "cuda" (the
     default) needs a GPU and raises without one; "cpu" runs the kernels'
-    plain PyTorch versions. Ingress is the pure-Python delta encoder."""
+    plain PyTorch versions.
+
+    `native` picks the instance's one delta encoder. True (the default):
+    the C++ encoder (`native/deltaenc.cpp`, built with g++ at first use;
+    a failed build raises RuntimeError), and Change-object ingress is
+    converted to columns first so the C++ tables stay authoritative.
+    False: the pure-Python `_encode_delta`. One instance never mixes the
+    two: their interning tables would drift apart."""
 
     def __init__(self, doc_ids: list[str],
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", native: bool = True):
         self.device = resolve_device(device)
         self.doc_ids = list(doc_ids)
         self.doc_index = {d: i for i, d in enumerate(self.doc_ids)}
@@ -134,6 +174,7 @@ class ResidentDocSet:
         self._lists_hi = 0
         self._elems_hi = 0
         self._fids_hi = 0
+        self._changes_hi = 0
 
         # capacities (powers of two)
         self.cap_ops = 8
@@ -149,6 +190,11 @@ class ResidentDocSet:
         self.change_count = np.zeros(self.cap_docs, dtype=np.int64)
         # doc indices whose causal queue is non-empty
         self._queued_docs: set[int] = set()
+        # docs whose rows of the rows engine's dense admission cache are
+        # stale; admission here only marks them
+        self._cache_dirty: set[int] = set()
+        # {doc_id: admitted changes} of the last docs-major build
+        self.last_admitted: dict = {}
 
         # Incremental hash plane: a host mirror of the last per-doc hash
         # readback plus the doc indices whose state changed since. Reads
@@ -164,6 +210,7 @@ class ResidentDocSet:
         # outputs of the last full reconcile (apply_doc's dict), or None
         # once the state changed since
         self._out: dict[str, torch.Tensor] | None = None
+        self._native = NativeDeltaEncoder.create() if native else None
 
     # ------------------------------------------------------------------
     def _alloc(self):
@@ -371,6 +418,14 @@ class ResidentDocSet:
             if s <= 0:
                 continue
             trans = t.state_clocks.get((a, s))
+            if trans is not None and not isinstance(trans, dict):
+                # lazy dense-row memo of the rows engine's vectorized
+                # admission: (matrix, row) in the CURRENT rank basis (made
+                # dicts before any actor remap)
+                arr, ridx = trans
+                trans = {self.actors[r]: int(v)
+                         for r, v in enumerate(arr[ridx]) if v}
+                t.state_clocks[(a, s)] = trans
             if trans:
                 for a2, s2 in trans.items():
                     if s2 > full.get(a2, 0):
@@ -383,7 +438,8 @@ class ResidentDocSet:
         return row
 
     def _encode_delta(self, doc_idx: int, changes: list[Change]) -> Delta:
-        """Pure-Python delta encode: admit, intern, and build op/ins rows."""
+        """Pure-Python delta encode (`native=False`): admit, intern, and
+        build op/ins rows."""
         t = self.tables[doc_idx]
         delta = Delta()
         ready = self._admit(t, [
@@ -392,12 +448,15 @@ class ResidentDocSet:
             self._queued_docs.add(doc_idx)
         else:
             self._queued_docs.discard(doc_idx)
+        self._cache_dirty.add(doc_idx)
         delta.changes = [p.payload for p in ready]
         for p in ready:
             c: Change = p.payload
             delta.clocks.append(self._clock_row(t, c.actor, c.seq, c.deps))
             change_idx = t.n_changes
             t.n_changes += 1
+            if t.n_changes > self._changes_hi:
+                self._changes_hi = t.n_changes
 
             arank = self.actor_rank[c.actor]
             for op in c.ops:
@@ -471,8 +530,25 @@ class ResidentDocSet:
     def apply_changes(self, changes_by_doc: dict[str, list[Change]]) -> None:
         """Encode + scatter a delta batch into resident state (no
         reconcile: the next read reconciles the docs it needs)."""
+        if self._native is not None:
+            self.apply_columns({d: changes_to_columns(chs)
+                                for d, chs in changes_by_doc.items()})
+            return
         self._register_actors(changes_by_doc)
         flat, meta = self._build_delta_arrays(changes_by_doc)
+        _scatter_delta(self.state, flat, meta)
+        self._out = None
+
+    def apply_columns(self, cols_by_doc: dict) -> None:
+        """Column ingress ({doc_id: WireColumns}): encode + scatter with no
+        per-op Python on a native instance; through Change objects on a
+        `native=False` one."""
+        if self._native is None:
+            self.apply_changes({d: c.to_changes()
+                                for d, c in cols_by_doc.items()})
+            return
+        self._register_actors_cols(cols_by_doc)
+        flat, meta = self._build_delta_arrays_cols(cols_by_doc)
         _scatter_delta(self.state, flat, meta)
         self._out = None
 
@@ -482,16 +558,135 @@ class ResidentDocSet:
         rows to the device, the scatter, `apply_doc` over the whole state
         and one readback of the hashes. Returns np.uint32 hashes aligned
         with doc_ids."""
+        if self._native is not None:
+            return self.apply_and_reconcile_columns(
+                {d: changes_to_columns(chs)
+                 for d, chs in changes_by_doc.items()})
         self._register_actors(changes_by_doc)
         flat, meta = self._build_delta_arrays(changes_by_doc)
         return self._apply_flat(flat, meta)
 
+    def apply_and_reconcile_columns(self, cols_by_doc: dict) -> np.ndarray:
+        """`apply_and_reconcile` for column ingress ({doc_id:
+        WireColumns}); same return value."""
+        if self._native is None:
+            return self.apply_and_reconcile(
+                {d: c.to_changes() for d, c in cols_by_doc.items()})
+        self._register_actors_cols(cols_by_doc)
+        flat, meta = self._build_delta_arrays_cols(cols_by_doc)
+        return self._apply_flat(flat, meta)
+
+    def _register_actors_cols(self, cols_by_doc: dict) -> None:
+        new = set()
+        for cols in cols_by_doc.values():
+            for i in set(np.asarray(cols.change_actor).tolist()):
+                new.add(cols.actors[i])
+        self._register_actor_names(new)
+
     def _build_delta_arrays(self, changes_by_doc: dict[str, list[Change]]):
         deltas = [Delta() for _ in range(self.cap_docs)]
         self._mark_hash_dirty(self.doc_index[d] for d in changes_by_doc)
+        self.last_admitted = {}
         for doc_id, changes in changes_by_doc.items():
             i = self.doc_index[doc_id]
             deltas[i] = self._encode_delta(i, changes)
+            self.last_admitted[doc_id] = deltas[i].changes
+        return self._stack_deltas(deltas)
+
+    def _native_ingest_round(self, cols_by_doc: dict, on_admitted):
+        """The native encode of one round: per-doc causal admission in doc
+        order, frame dedup, the admitted-metadata columns, ONE batched
+        native call straight from the raw AMW1 frame bytes, and the
+        capacity-stats mirror. `on_admitted(i, t, ready)` runs per doc with
+        its admitted _Pending list (clock rows, change logs) before the
+        metadata is assembled. Returns (BatchDelta | None, adm_doc, cidxs),
+        None when nothing was admitted."""
+        frames: list[bytes] = []
+        frame_of: dict[int, int] = {}
+        adm_frame, adm_idx, adm_doc, aranks, seqs, cidxs = \
+            [], [], [], [], [], []
+        for doc_id in sorted(cols_by_doc, key=lambda d: self.doc_index[d]):
+            cols = cols_by_doc[doc_id]
+            i = self.doc_index[doc_id]
+            t = self.tables[i]
+            ready = self._admit(t, [
+                _Pending(cols.actors[cols.change_actor[j]],
+                         int(cols.change_seq[j]), cols.deps_at(j), (cols, j))
+                for j in range(cols.n_changes)])
+            if t.queue:
+                self._queued_docs.add(i)
+            else:
+                self._queued_docs.discard(i)
+            self._cache_dirty.add(i)
+            on_admitted(i, t, ready)
+            for p in ready:
+                c, j = p.payload
+                if id(c) not in frame_of:
+                    frame_of[id(c)] = len(frames)
+                    frames.append(frame_bytes_of(c))
+                adm_frame.append(frame_of[id(c)])
+                adm_idx.append(j)
+                adm_doc.append(i)
+                aranks.append(self.actor_rank[p.actor])
+                seqs.append(p.seq)
+                cidxs.append(t.n_changes)
+                t.n_changes += 1
+                if t.n_changes > self._changes_hi:
+                    self._changes_hi = t.n_changes
+        if not adm_doc:
+            return None, adm_doc, cidxs
+
+        self._native.ensure_docs(len(self.doc_ids))
+        self._native.begin()
+        self._native.apply_frames(frames, adm_frame, adm_idx, adm_doc,
+                                  aranks, seqs, cidxs)
+        bd = self._native.finish()
+        for i in range(min(len(self.tables), len(bd.stats))):
+            t = self.tables[i]
+            t.n_lists = int(bd.stats[i, 0])
+            t.max_elems = int(bd.stats[i, 1])
+        if len(bd.stats):
+            self._lists_hi = max(self._lists_hi, int(bd.stats[:, 0].max()))
+            self._elems_hi = max(self._elems_hi, int(bd.stats[:, 1].max()))
+        return bd, adm_doc, cidxs
+
+    def _build_delta_arrays_cols(self, cols_by_doc: dict):
+        """Columnar round encode: admission + clock rows in Python (per
+        change), ONE batched native call for all per-op work (interning,
+        hashing, row building) across every document of the round, read
+        from the raw AMW1 frame bytes."""
+        n = self.cap_docs
+        deltas = [Delta() for _ in range(n)]
+        self._mark_hash_dirty(self.doc_index[d] for d in cols_by_doc)
+        self.last_admitted = {}
+
+        def on_admitted(i, t, ready):
+            deltas[i].changes = [AdmittedRef(*p.payload) for p in ready]
+            self.last_admitted[self.doc_ids[i]] = deltas[i].changes
+            for p in ready:
+                deltas[i].clocks.append(
+                    self._clock_row(t, p.actor, p.seq, p.deps))
+
+        bd, _, _ = self._native_ingest_round(cols_by_doc, on_admitted)
+        if bd is None:
+            return self._stack_deltas(deltas)
+
+        # slice the doc-grouped rows into per-doc deltas
+        for rows, attr in ((bd.op_rows, "ops"), (bd.ins_rows, "ins"),
+                           (bd.newlist_rows, "new_lists")):
+            if len(rows):
+                bounds = np.searchsorted(rows[:, 0], np.arange(n + 1))
+                for i in range(n):
+                    lo, hi = bounds[i], bounds[i + 1]
+                    if hi > lo:
+                        setattr(deltas[i], attr, rows[lo:hi, 1:])
+        # mirror the table additions
+        for d, name, kind in bd.new_objects:
+            self.tables[d].objects.append((name, kind))
+        for d, oi, key in bd.new_fields:
+            self.tables[d].fields.append((oi, key))
+        for d, v in bd.new_values:
+            self.tables[d].value_list.append(v)
         return self._stack_deltas(deltas)
 
     def _stack_deltas(self, deltas: list[Delta]):

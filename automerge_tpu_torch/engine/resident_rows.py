@@ -10,12 +10,31 @@ kernel launch. Structural events (capacity growth, new actors) rebuild the
 host mirror and re-upload it once.
 
 Causal admission, interning and LWW actor ranking are the host machinery of
-`resident.ResidentDocSet`. List order is kept on the host by the RGA
-linearizer and shipped as position rows.
+`resident.ResidentDocSet`. List order is kept on the host by the native RGA
+linearizer (`native.linearize.linearize_host`) and shipped as position rows.
 
-Not here yet (later slices): the native column ingress (`apply_rounds_cols`,
-`apply_round_frames`), the megabatch route, compaction, the log archive and
-snapshots, rebuild-from-log, `materialize`, and the telemetry planes.
+Ingress, on a native instance (the default):
+- `apply_round_frames`: AMR1 round frames (`sync.frames`), the streaming
+  service's path. A micro-batch whose every change extends its doc's
+  same-actor in-order chain is admitted by one vectorized pass over the
+  frame columns against a dense clock/frontier cache and encoded by ONE
+  native call (`_encode_rounds_batched`, counted in
+  `ROUNDS["rows_rounds_batched"]`); otherwise each round is admitted per
+  doc, fast docs vectorized and the rest through `_admit`
+  (`_encode_round_frame`, counted in `ROUNDS["rows_rounds_fallback"]`).
+  The micro-batch is applied with one scatter and one kernel launch, and
+  the device hash tensor is returned unread; with `lazy_dispatch` set the
+  device work waits for the next hash read.
+- `apply_rounds_cols` ({doc_id: WireColumns} rounds) and `apply_rounds`
+  (Change rounds, converted to columns): one native encode per round and
+  a scatter + launch per round, the hashes read back.
+With `native=False` every route runs the pure-Python encoder.
+
+Left out (later slices): the megabatch route (`mega` is never taken here),
+compaction with its ghost-anchor reject (`ghost_eids`,
+`CompactionAnchorError`), the log archive and snapshots, rebuild-from-log,
+`materialize`, and the telemetry planes (`metrics`, `flightrec`,
+`perfscope`).
 """
 
 from __future__ import annotations
@@ -25,11 +44,21 @@ import contextlib
 import numpy as np
 import torch
 
+from ..native.delta import frame_bytes_of
 from ..native.linearize import linearize_host
+from ..native.wire import changes_to_columns
+from ..storage import _ACTION_IDX
+from ..sync.frames import RoundColumns, decode_round_frame
+from ..utils.gcpause import gc_paused
 from .cuda_kernels import hashes_to_numpy, reconcile_rows_hash
 from .encode import A_DEL, A_SET, _pad_to
 from .pack import pad_to_lanes, row_bases, rows_dims_eligible
-from .resident import ResidentDocSet
+from .resident import AdmittedRef, ResidentDocSet, _Pending
+
+# Rounds of apply_round_frames by admission route (the reference counts the
+# same two through its metrics plane): the whole micro-batch vectorized, or
+# round by round.
+ROUNDS = {"rows_rounds_batched": 0, "rows_rounds_fallback": 0}
 
 
 class DeviceDispatchError(RuntimeError):
@@ -67,11 +96,12 @@ class ResidentRowsDocSet(ResidentDocSet):
 
     `device` is where the buffer lives and the kernel runs: "cuda" (the
     default) needs a GPU and raises without one; "cpu" runs the kernel's
-    plain PyTorch version."""
+    plain PyTorch version. `native` picks the delta encoder, as in
+    `ResidentDocSet`."""
 
     def __init__(self, doc_ids, actors: list[str] = (),  # noqa: B006
-                 device: str | torch.device = "cuda"):
-        super().__init__(doc_ids, device=device)
+                 device: str | torch.device = "cuda", native: bool = True):
+        super().__init__(doc_ids, device=device, native=native)
         self.n_pad = pad_to_lanes(max(len(self.doc_ids), 1))
         # per-doc: list_row -> [(slot, elem, arank, parent_slot), ...]
         self.ins_log: list[dict[int, list[tuple]]] = [
@@ -93,6 +123,22 @@ class ResidentRowsDocSet(ResidentDocSet):
         # device hashes of the last merged-batch apply, not yet read back
         self._hash_handle: torch.Tensor | None = None
         self._poisoned: str | None = None
+        # True = apply_round_frames skips the device dispatch: the host
+        # mirror is the complete post-round truth, and upload + reconcile
+        # wait for the next hash read (which reconciles only the dirty
+        # lanes)
+        self.lazy_dispatch = False
+        # dense admission cache of the vectorized round-frame path: per-doc
+        # clock rows in rank basis and a single-head frontier summary
+        # (size, head rank, head seq), rebuilt lazily from the DocTables
+        # dicts for the docs in _cache_dirty
+        self._clock_cache: np.ndarray | None = None
+        self._fsize = None
+        self._hrank = None
+        self._hseq = None
+        self._cache_dirty = set(range(len(self.doc_ids)))
+        # True once a vectorized admission left some table stale
+        self._stale_tables = False
 
     # ------------------------------------------------------------------
     # row layout
@@ -134,7 +180,16 @@ class ResidentRowsDocSet(ResidentDocSet):
     def add_docs(self, new_ids: list[str]) -> list[str]:
         """Grow the document (lane) axis of the rows mirror. Padded lanes
         are valid empty documents."""
+        old_cap_docs = self.cap_docs
         fresh = super().add_docs(new_ids)
+        if self._clock_cache is not None and self.cap_docs > old_cap_docs:
+            # fresh lanes are valid empty docs (zero clock, no frontier):
+            # grow the cache rather than rebuild it for every doc
+            k = self.cap_docs - old_cap_docs
+            self._clock_cache = np.pad(self._clock_cache, ((0, k), (0, 0)))
+            self._fsize = np.pad(self._fsize, (0, k))
+            self._hrank = np.pad(self._hrank, (0, k), constant_values=-1)
+            self._hseq = np.pad(self._hseq, (0, k))
         for _ in fresh:
             self.ins_log.append({})
             self.list_hash.append({})
@@ -210,6 +265,184 @@ class ResidentRowsDocSet(ResidentDocSet):
                                   p) for (s, e, a, p) in entries]
         self._refill_actor_hash_band()
         self._dirty = True
+
+    # ------------------------------------------------------------------
+    # the dense admission cache and its lazy tables
+
+    class _StaleView:
+        """Read-through guard left in place of a fast-path-stale table's
+        clock/frontier dict: any read materializes the real dicts first
+        (_sync_stale_table), so no reader sees stale values, and a write
+        through it fails (no __setitem__)."""
+
+        __slots__ = ("_owner", "_t", "_attr")
+
+        def __init__(self, owner, t, attr):
+            self._owner = owner
+            self._t = t
+            self._attr = attr
+
+        def _m(self) -> dict:
+            self._owner._sync_stale_table(self._t)
+            real = getattr(self._t, self._attr)
+            if real is self:
+                raise RuntimeError("stale table could not materialize")
+            return real
+
+        def get(self, k, d=None):
+            return self._m().get(k, d)
+
+        def __getitem__(self, k):
+            return self._m()[k]
+
+        def __contains__(self, k):
+            return k in self._m()
+
+        def __iter__(self):
+            return iter(self._m())
+
+        def __len__(self):
+            return len(self._m())
+
+        def __eq__(self, other):
+            return self._m() == other
+
+        def __bool__(self):
+            return bool(self._m())
+
+        def items(self):
+            return self._m().items()
+
+        def keys(self):
+            return self._m().keys()
+
+        def values(self):
+            return self._m().values()
+
+        def __repr__(self):
+            return repr(self._m())
+
+    def _mirror_stats(self, bd, docs) -> None:
+        """Mirror the native encoder's per-doc list/elem stats into the
+        host tables (the batched and the per-round encode share it)."""
+        touched = np.unique(docs)
+        if len(touched) and len(bd.stats):
+            sub = bd.stats[touched[touched < len(bd.stats)]]
+            if len(sub):
+                self._lists_hi = max(self._lists_hi, int(sub[:, 0].max()))
+                self._elems_hi = max(self._elems_hi, int(sub[:, 1].max()))
+        for i in touched:
+            if i < len(bd.stats):
+                t = self.tables[i]
+                t.n_lists = int(bd.stats[i, 0])
+                t.max_elems = int(bd.stats[i, 1])
+
+    def _queued_mask(self) -> np.ndarray | None:
+        """Boolean [cap_docs] mask of docs with queued changes, or None."""
+        if not self._queued_docs:
+            return None
+        qf = np.zeros(self.cap_docs, bool)
+        qf[np.fromiter(self._queued_docs, np.int64,
+                       len(self._queued_docs))] = True
+        return qf
+
+    def sync_tables(self) -> None:
+        """Materialize every fast-path-stale table's clock/frontier dicts
+        from the dense cache. The vectorized admission leaves the dicts
+        stale (the cache is the authority); internal readers sync per
+        table on touch, and an external reader of `tables[i].clock` or
+        `.frontier` calls this first."""
+        if self._stale_tables:
+            for t in self.tables:
+                self._sync_stale_table(t)
+            self._stale_tables = False
+
+    def _sync_stale_table(self, t) -> None:
+        """Materialize one fast-path-stale table's clock/frontier dicts from
+        the dense cache. Runs before any dict reader touches the table:
+        the slow-path _admit, the cache rebuild, an actor remap."""
+        i = t._stale_idx
+        if i is None:
+            return
+        cc = self._clock_cache
+        if cc is None:
+            # every site that drops the cache materializes stale tables
+            # first (_register_actor_names, _refresh_admission_cache)
+            raise RuntimeError("stale table with no clock cache")
+        actors = self.actors
+        t.clock = {actors[r]: int(v)
+                   for r, v in enumerate(cc[i].tolist())
+                   if v and r < len(actors)}
+        if self._fsize[i] == 1 and self._hrank[i] >= 0:
+            t.frontier = {actors[int(self._hrank[i])]: int(self._hseq[i])}
+        elif isinstance(t.frontier, self._StaleView):
+            raise RuntimeError("stale table frontier not single-head")
+        t._stale_idx = None
+
+    def _admit(self, t, incoming):
+        self._sync_stale_table(t)
+        return super()._admit(t, incoming)
+
+    def _register_actor_names(self, names: set) -> None:
+        """Before the rank basis changes: materialize the stale tables and
+        the lazy dense clock memos (both in the OLD basis) and drop the
+        cache, which rebuilds at its next use."""
+        new = set(names) - set(self.actors)
+        if not new:
+            return
+        self.sync_tables()
+        old_actors = list(self.actors)
+        for t in self.tables:
+            for key, trans in t.state_clocks.items():
+                if trans is not None and not isinstance(trans, dict):
+                    arr, ridx = trans
+                    t.state_clocks[key] = {
+                        old_actors[r]: int(v)
+                        for r, v in enumerate(arr[ridx])
+                        if v and r < len(old_actors)}
+        self._clock_cache = None
+        self._cache_dirty = set(range(len(self.doc_ids)))
+        super()._register_actor_names(new)
+
+    def _refresh_admission_cache(self) -> None:
+        """Rebuild the dense clock/frontier cache rows of stale docs. The
+        DocTables dicts stay authoritative; the cache lets a round's
+        admission checks run as a handful of numpy gathers."""
+        D, A = self.cap_docs, self.cap_actors
+        if self._clock_cache is None \
+                or self._clock_cache.shape != (D, A):
+            # a full rebuild reads every table's dicts: materialize the
+            # fast-path-stale tables from the OLD cache before zeroing it
+            self.sync_tables()
+            self._clock_cache = np.zeros((D, A), np.int64)
+            self._fsize = np.zeros(D, np.int64)
+            self._hrank = np.full(D, -1, np.int64)
+            self._hseq = np.zeros(D, np.int64)
+            dirty = range(len(self.doc_ids))
+        elif self._cache_dirty:
+            dirty = self._cache_dirty
+        else:
+            return
+        rank_of = self.actor_rank
+        cc, fs, hr, hs = (self._clock_cache, self._fsize,
+                          self._hrank, self._hseq)
+        for i in dirty:
+            t = self.tables[i]
+            if t._stale_idx is not None:
+                # stale AND dirtied: the dicts must be current before this
+                # rebuild reads them
+                self._sync_stale_table(t)
+            row = cc[i]
+            row[:] = 0
+            for a, s in t.clock.items():
+                row[rank_of[a]] = s
+            f = t.frontier
+            fs[i] = len(f)
+            if len(f) == 1:
+                (a, s), = f.items()
+                hr[i] = rank_of[a]
+                hs[i] = s
+        self._cache_dirty = set()
 
     # ------------------------------------------------------------------
     # delta encoding to scatter triplets
@@ -406,8 +639,15 @@ class ResidentRowsDocSet(ResidentDocSet):
         intermediate round is only comparable to hashes under the same final
         actor universe. The FINAL round's hash is the canonical post-batch
         hash.
+
+        On a native instance the rounds are converted to columns and run
+        through `apply_rounds_cols`.
         """
         self._check_poisoned()
+        if self._native is not None:
+            return self.apply_rounds_cols(
+                [{d: changes_to_columns(chs) for d, chs in r.items()}
+                 for r in rounds])
         for r in rounds:
             self._register_actors(r)
         self._reserve_for(rounds)
@@ -415,6 +655,30 @@ class ResidentRowsDocSet(ResidentDocSet):
             pre_rows = self.rows_host.copy() \
                 if self._dirty or self.rows_dev is None else None
             trip_list = [self._round_triplets(r) for r in rounds]
+            with self._dispatch_guard():
+                return self._dispatch_rounds(trip_list, pre_rows)
+
+    def apply_rounds_cols(self, rounds) -> np.ndarray:
+        """`apply_rounds` for column rounds ({doc_id: WireColumns}, decoded
+        wire frames): frame bytes -> native delta encoder -> vectorized
+        triplet assembly -> a scatter and a launch per round. Admission and
+        clock rows stay per-change Python. Same return value and actor
+        universe as apply_rounds."""
+        self._check_poisoned()
+        if self._native is None:
+            return self.apply_rounds(
+                [{d: c.to_changes() for d, c in r.items()} for r in rounds])
+        for r in rounds:
+            self._register_actors_cols(r)
+        # reject an oversized batch BEFORE admission mutates any state
+        # (seen-sets, clocks, change logs, C++ tables)
+        self._precheck_rows_budget_cols(rounds)
+        with self._admission_guard():
+            encoded = [self._native_encode_round(r) for r in rounds]
+            self._grow_for_rounds(encoded)
+            pre_rows = self.rows_host.copy() \
+                if self._dirty or self.rows_dev is None else None
+            trip_list = [self._cols_triplets(e) for e in encoded]
             with self._dispatch_guard():
                 return self._dispatch_rounds(trip_list, pre_rows)
 
@@ -457,13 +721,648 @@ class ResidentRowsDocSet(ResidentDocSet):
             self._adopt_full_hashes(vals[-1])
         return vals[:, :n]
 
-    def _dispatch_final(self, trip_list, pre_rows) -> torch.Tensor:
+    # ------------------------------------------------------------------
+    # native column ingress
+
+    def _precheck_rows_budget_cols(self, rounds) -> None:
+        """Upper-bound budget check from the submitted columns plus the
+        causal queues, BEFORE any admission runs. Conservative: duplicates
+        and changes that stay queued count as applied; the exact check in
+        _grow_for_rounds still runs after the encode."""
+        ins_idx = _ACTION_IDX["ins"]
+        list_idxs = (_ACTION_IDX["makeList"], _ACTION_IDX["makeText"])
+
+        need_ops = self.op_count.copy()
+        n_elems: dict[int, int] = {}
+        n_lists: dict[int, int] = {}
+
+        def count(i, cols, j):
+            o0, o1 = int(cols.op_off[j]), int(cols.op_off[j + 1])
+            need_ops[i] += o1 - o0
+            acts = np.asarray(cols.op_action[o0:o1])
+            n_elems[i] = n_elems.get(i, 0) + int((acts == ins_idx).sum())
+            n_lists[i] = n_lists.get(i, 0) + int(
+                np.isin(acts, list_idxs).sum())
+
+        for i in self._queued_docs:
+            for p in self.tables[i].queue:  # native payloads: (cols, j)
+                count(i, *p.payload)
+        for r in rounds:
+            for doc_id, cols in r.items():
+                i = self.doc_index[doc_id]
+                for j in range(cols.n_changes):
+                    count(i, cols, j)
+        self._check_prospective_caps(need_ops,
+                                     max(n_elems.values(), default=0),
+                                     max(n_lists.values(), default=0))
+
+    def _check_prospective_caps(self, need_ops: np.ndarray, add_elems: int,
+                                add_lists: int) -> None:
+        cap_ops = max(self.cap_ops, _pad_to(int(need_ops.max(initial=1))))
+        cap_elems = max(self.cap_elems, _pad_to(self._elems_hi + add_elems))
+        cap_lists = max(self.cap_lists,
+                        _pad_to(self._lists_hi + add_lists, 1))
+        if not rows_dims_eligible(cap_ops, self.cap_actors,
+                                  cap_lists * cap_elems):
+            raise _budget_error(cap_ops, self.cap_actors,
+                                cap_lists * cap_elems)
+
+    def _native_encode_round(self, cols_by_doc):
+        """Causal admission (Python, per change) + ONE native encode for
+        the round (`_native_ingest_round`). Returns the BatchDelta with the
+        admission-aligned clock matrix, or None if nothing was admitted."""
+        clock_rows = []
+
+        def on_admitted(i, t, ready):
+            self.change_log[i].extend(
+                AdmittedRef(*p.payload) for p in ready)
+            for p in ready:
+                clock_rows.append(self._clock_row(t, p.actor, p.seq, p.deps))
+
+        bd, adm_doc, cidxs = self._native_ingest_round(cols_by_doc,
+                                                       on_admitted)
+        if bd is None:
+            return None
+        return {"bd": bd, "clock_mat": np.stack(clock_rows),
+                "adm_doc": np.asarray(adm_doc, np.int64),
+                "adm_cidx": np.asarray(cidxs, np.int64)}
+
+    def _grow_for_rounds(self, encoded) -> None:
+        """Exact capacity growth from the encoded rounds (the native
+        encoder reports which op, element and list slots each round
+        fills)."""
+        need_ops = self.op_count.copy()
+        for enc in encoded:
+            if enc is None:
+                continue
+            doc = enc["bd"].op_rows[:, 0]
+            if len(doc):
+                ids, cnts = np.unique(doc, return_counts=True)
+                need_ops[ids] += cnts
+        grow = {}
+        if need_ops.max(initial=0) > self.cap_ops:
+            grow["cap_ops"] = _pad_to(int(need_ops.max()))
+        if self._lists_hi > self.cap_lists:
+            grow["cap_lists"] = _pad_to(self._lists_hi, 1)
+        if self._elems_hi > self.cap_elems:
+            grow["cap_elems"] = _pad_to(self._elems_hi)
+        self._check_rows_budget(
+            grow.get("cap_ops", self.cap_ops),
+            grow.get("cap_lists", self.cap_lists)
+            * grow.get("cap_elems", self.cap_elems))
+        if grow:
+            self._grow(**grow)
+        if self._changes_hi > self.cap_changes:
+            self.cap_changes = _pad_to(self._changes_hi)
+
+    def _cols_triplets(self, enc) -> np.ndarray:
+        """Vectorized scatter-triplet assembly from one encoded round (the
+        numpy counterpart of _round_triplets' per-op loop), applied to the
+        host mirror."""
+        if enc is None:
+            return np.zeros((0, 3), np.int32)
+        b = self._bases()
+        I, E = self.cap_ops, self.cap_elems
+        bd = enc["bd"]
+        parts_r, parts_d, parts_v = [], [], []
+
+        op = bd.op_rows.astype(np.int64)
+        if len(op):
+            doc = op[:, 0]
+            # rows are doc-grouped in admission order: the index within a
+            # group from each row's group start
+            starts = np.searchsorted(doc, doc, side="left")
+            slot = self.op_count[doc] + (np.arange(len(op)) - starts)
+            for g, v in (("om", np.ones(len(op), np.int64)), ("ac", op[:, 1]),
+                         ("fid", op[:, 2]), ("act", op[:, 3]),
+                         ("seq", op[:, 4]), ("chg", op[:, 5]),
+                         ("fh", op[:, 7]), ("vh", op[:, 8])):
+                parts_r.append(b[g] + slot)
+                parts_d.append(doc)
+                parts_v.append(v)
+            # each op's change-clock row into the actor-major clock_op
+            # bands; (doc, cidx) keys ascend in both arrays, so the op ->
+            # admitted-change join is one searchsorted
+            key_adm = enc["adm_doc"] * (1 << 32) + enc["adm_cidx"]
+            key_op = doc * (1 << 32) + op[:, 5]
+            ai = np.searchsorted(key_adm, key_op)
+            cmat = enc["clock_mat"][ai]                      # [k, A]
+            oi, a = np.nonzero(cmat)
+            parts_r.append(b["co"] + a * I + slot[oi])
+            parts_d.append(doc[oi])
+            parts_v.append(cmat[oi, a])
+            ids, cnts = np.unique(doc, return_counts=True)
+            self.op_count[ids] += cnts
+        ids, cnts = np.unique(enc["adm_doc"], return_counts=True)
+        self.change_count[ids] += cnts
+
+        for (d, lrow, _oi, objhash) in bd.newlist_rows.tolist():
+            self.list_hash[d][lrow] = objhash
+
+        ins = bd.ins_rows
+        if len(ins):
+            touched = set()
+            ir, idd, iv = [], [], []
+            for (d, lrow, slot_, elem, arank, parent_slot, fid) in \
+                    ins.tolist():
+                # without compaction an entry's index in the log is its
+                # slot (as in _round_triplets)
+                self.ins_log[d].setdefault(lrow, []).append(
+                    (slot_, elem, arank, parent_slot))
+                le = lrow * E + slot_
+                ir += [b["im"] + le, b["if"] + le, b["io"] + le]
+                idd += [d, d, d]
+                iv += [1, fid, self.list_hash[d][lrow]]
+                touched.add((d, lrow))
+            parts_r.append(np.asarray(ir, np.int64))
+            parts_d.append(np.asarray(idd, np.int64))
+            parts_v.append(np.asarray(iv, np.int64))
+            for (d, lrow) in touched:
+                prow, pval = self._linearized_pos_rows(d, lrow)
+                parts_r.append(prow)
+                parts_d.append(np.full(len(prow), d, np.int64))
+                parts_v.append(pval)
+
+        if not parts_r:
+            return np.zeros((0, 3), np.int32)
+        trips = np.stack([np.concatenate(parts_r),
+                          np.concatenate(parts_d),
+                          np.concatenate(parts_v)], axis=1).astype(np.int32)
+        self.rows_host[trips[:, 0], trips[:, 1]] = trips[:, 2]
+        return trips
+
+    # ------------------------------------------------------------------
+    # round-frame ingress: the streaming sync service's path
+
+    def apply_round_frames(self, frames) -> torch.Tensor | None:
+        """Apply a micro-batch of sync rounds shipped as round frames
+        (sync/frames.py AMR1: one columnar frame a round covering every
+        document it touches) with ONE scatter and ONE kernel launch.
+
+        frames: round-frame bytes or decoded RoundColumns; the documents
+        must exist in this set. Returns the device tensor of the post-batch
+        per-doc hashes (int32 bits, padded to n_pad; `cuda_kernels.
+        hashes_to_numpy` reads it) without reading it back, or None under
+        `lazy_dispatch`, when the next hash read does the device work.
+        Consecutive calls chain on the device, so the host encode of one
+        batch overlaps the device work of the one before.
+
+        On a `native=False` instance the rounds go through Change objects
+        and the pure-Python encoder, then the same merged dispatch."""
+        self._check_poisoned()
+        rounds = [f if isinstance(f, RoundColumns) else decode_round_frame(f)
+                  for f in frames]
+        if self._native is None:
+            return self._apply_rounds_final([rc.to_dict() for rc in rounds])
+        # the path's allocation bursts (admitted refs, delta rows) would
+        # trigger generation-2 collections over the whole heap
+        with gc_paused():
+            return self._apply_round_frames(rounds)
+
+    def _apply_round_frames(self, rounds):
+        for rc in rounds:
+            self._register_round_actors(rc)
+        self._precheck_round_frames(rounds)
+        with self._admission_guard():
+            # steady state: ONE vectorized admission + native encode for
+            # the whole micro-batch; per-round encode (every protocol
+            # case) when any change breaks the per-doc in-order chain
+            enc_all = self._encode_rounds_batched(rounds)
+            if enc_all is not None:
+                ROUNDS["rows_rounds_batched"] += len(rounds)
+                encoded = [enc_all]
+            else:
+                if any(rc.cols.n_changes for rc in rounds):
+                    ROUNDS["rows_rounds_fallback"] += len(rounds)
+                encoded = [self._encode_round_frame(rc) for rc in rounds]
+            self._grow_for_rounds(encoded)
+            need_pre = (not self.lazy_dispatch
+                        and (self._dirty or self.rows_dev is None))
+            pre_rows = self.rows_host.copy() if need_pre else None
+            trip_list = [self._cols_triplets(e) for e in encoded]
+            with self._dispatch_guard():
+                return self._dispatch_final(trip_list, pre_rows)
+
+    def _apply_rounds_final(self, rounds) -> torch.Tensor | None:
+        """Change rounds through the pure-Python encoder, then the merged
+        dispatch of apply_round_frames."""
+        for r in rounds:
+            self._register_actors(r)
+        self._reserve_for(rounds)
+        with self._admission_guard():
+            need_pre = (not self.lazy_dispatch
+                        and (self._dirty or self.rows_dev is None))
+            pre_rows = self.rows_host.copy() if need_pre else None
+            trip_list = [self._round_triplets(r) for r in rounds]
+            with self._dispatch_guard():
+                return self._dispatch_final(trip_list, pre_rows)
+
+    def _register_round_actors(self, rc) -> None:
+        cols = rc.cols
+        idx = set(np.asarray(cols.change_actor).tolist())
+        self._register_actor_names({cols.actors[i] for i in idx})
+
+    def _precheck_round_frames(self, rounds) -> None:
+        """Vectorized budget precheck for round frames (one numpy pass a
+        round instead of per-change slicing)."""
+        ins_idx = _ACTION_IDX["ins"]
+        l1, l2 = _ACTION_IDX["makeList"], _ACTION_IDX["makeText"]
+
+        need_ops = self.op_count.copy()
+        n_elems = np.zeros(self.cap_docs, np.int64)
+        n_lists = np.zeros(self.cap_docs, np.int64)
+        for i in self._queued_docs:
+            for p in self.tables[i].queue:
+                cols, j = p.payload
+                o0, o1 = int(cols.op_off[j]), int(cols.op_off[j + 1])
+                need_ops[i] += o1 - o0
+                acts = np.asarray(cols.op_action[o0:o1])
+                n_elems[i] += int((acts == ins_idx).sum())
+                n_lists[i] += int(((acts == l1) | (acts == l2)).sum())
+        for rc in rounds:
+            cols = rc.cols
+            doc_idx = np.fromiter((self.doc_index[d] for d in rc.doc_ids),
+                                  np.int64, len(rc.doc_ids))
+            off = np.asarray(rc.change_off, np.int64)
+            op_off = np.asarray(cols.op_off, np.int64)
+            ops_per_doc = op_off[off[1:]] - op_off[off[:-1]]
+            np.add.at(need_ops, doc_idx, ops_per_doc)
+            acts = np.asarray(cols.op_action)
+            if (acts == ins_idx).any() or (acts == l1).any() \
+                    or (acts == l2).any():
+                op_doc = np.repeat(doc_idx, ops_per_doc)
+                np.add.at(n_elems, op_doc, acts == ins_idx)
+                np.add.at(n_lists, op_doc, (acts == l1) | (acts == l2))
+        self._check_prospective_caps(need_ops, int(n_elems.max(initial=0)),
+                                     int(n_lists.max(initial=0)))
+
+    def _encode_rounds_batched(self, rounds):
+        """Whole-micro-batch vectorized admission (the streaming steady
+        state): every change of every round extends its doc's SAME-ACTOR
+        in-order chain, one peer's consecutive edits per document. One
+        classification over the frame columns, one batched clock-row
+        construction and ONE native encode for all rounds; per-change
+        Python shrinks to the clock memo and the change-log append.
+        Returns the merged encode, or None when any change breaks the
+        chain shape (the caller then encodes round by round, which handles
+        every protocol case)."""
+        rcs = [rc for rc in rounds if rc.cols.n_changes]
+        if not rcs:
+            return None
+        self._refresh_admission_cache()
+        rank_of = self.actor_rank
+
+        doc_l, j_l, rnd_l, arank_l, seq_l = [], [], [], [], []
+        dep_rank_l, dep_seq_l, dep_chg_l = [], [], []
+        off = 0
+        for r, rc in enumerate(rcs):
+            cols = rc.cols
+            n_k = len(rc.doc_ids)
+            ch_off = np.asarray(rc.change_off, np.int64)
+            ch_per_k = np.diff(ch_off)
+            if (ch_per_k > 1).any():
+                return None  # multi-change docs: per-round path
+            sel = ch_per_k == 1
+            docs_r = np.fromiter((self.doc_index[d] for d in rc.doc_ids),
+                                 np.int64, n_k)[sel]
+            js_r = ch_off[:-1][sel]
+            perm = np.fromiter((rank_of.get(a, -1) for a in cols.actors),
+                               np.int64, len(cols.actors))
+            arank_r = perm[np.asarray(cols.change_actor, np.int64)[js_r]]
+            seq_r = np.asarray(cols.change_seq, np.int64)[js_r]
+            doc_l.append(docs_r)
+            j_l.append(js_r)
+            rnd_l.append(np.full(len(js_r), r, np.int64))
+            arank_l.append(arank_r)
+            seq_l.append(seq_r)
+            deps_off = np.asarray(cols.deps_off, np.int64)
+            dep_cnt = np.diff(deps_off)
+            if dep_cnt.any():
+                # change index within the frame -> admitted position
+                dep_chg_frame = np.repeat(np.arange(cols.n_changes), dep_cnt)
+                pos_of_j = np.full(cols.n_changes, -1, np.int64)
+                pos_of_j[js_r] = off + np.arange(len(js_r))
+                dep_pos = pos_of_j[dep_chg_frame]
+                if (dep_pos < 0).any():
+                    return None  # dep rows of unadmitted changes
+                dep_rank_l.append(perm[np.asarray(cols.deps_actor,
+                                                  np.int64)])
+                dep_seq_l.append(np.asarray(cols.deps_seq, np.int64))
+                dep_chg_l.append(dep_pos)
+            off += len(js_r)
+
+        doc_all = np.concatenate(doc_l)
+        n = len(doc_all)
+        if n == 0:
+            return None
+        j_all = np.concatenate(j_l)
+        rnd_all = np.concatenate(rnd_l)
+        arank_all = np.concatenate(arank_l)
+        seq_all = np.concatenate(seq_l)
+        if (arank_all < 0).any():
+            return None
+        qf = self._queued_mask()
+        if qf is not None and qf[doc_all].any():
+            return None
+
+        order = np.lexsort((rnd_all, doc_all))
+        d = doc_all[order]
+        a = arank_all[order]
+        s = seq_all[order]
+        starts = np.searchsorted(d, d, side="left")
+        is_first = starts == np.arange(n)
+        cc, fs_, hr_, hs_ = (self._clock_cache, self._fsize,
+                             self._hrank, self._hseq)
+        # one actor a chain, consecutive seqs from the pre-batch clock
+        if (a != a[starts]).any():
+            return None
+        base = cc[d[starts], a[starts]]
+        if not (s == base + 1 + (np.arange(n) - starts)).all():
+            return None
+        # frontier coverage of the chain firsts (deps checked below)
+        own = (a == hr_[d]) & (s - 1 >= hs_[d])
+        cov = np.zeros(n, np.int64)
+        if dep_chg_l:
+            dep_chg = np.concatenate(dep_chg_l)
+            dep_rank = np.concatenate(dep_rank_l)
+            dep_seq = np.concatenate(dep_seq_l)
+            # dep rows into the ordered space
+            inv = np.empty(n, np.int64)
+            inv[order] = np.arange(n)
+            dep_pos = inv[dep_chg]
+            dep_doc = d[dep_pos]
+            safe_rank = np.maximum(dep_rank, 0)
+            sat_pre = (dep_rank >= 0) & (cc[dep_doc, safe_rank] >= dep_seq)
+            sat_chain = (dep_rank == a[dep_pos]) & (dep_seq < s[dep_pos])
+            bad = np.zeros(n, np.int64)
+            np.add.at(bad, dep_pos, ~(sat_pre | sat_chain))
+            if bad.any():
+                return None
+            np.add.at(cov, dep_pos,
+                      (dep_rank == hr_[dep_doc]) & (dep_seq >= hs_[dep_doc]))
+        fsz = fs_[d]
+        first_ok = (~is_first) | (fsz == 0) | ((fsz == 1) & ((cov > 0) | own))
+        if not first_ok.all():
+            return None
+
+        # ---- admitted: batched bookkeeping ----
+        # the clock row before each change: the pre-batch row with its own
+        # entry at seq - 1
+        cmat = cc[d].astype(np.int32)
+        cmat[np.arange(n), a] = (s - 1).astype(np.int32)
+        # the cache from each chain's last change
+        last = np.ones(n, bool)
+        last[:-1] = d[1:] != d[:-1]
+        cc[d[last], a[last]] = s[last]
+        fs_[d[last]] = 1
+        hr_[d[last]] = a[last]
+        hs_[d[last]] = s[last]
+
+        j_ord = j_all[order]
+        rnd_ord = rnd_all[order]
+        cidx = np.empty(n, np.int64)
+        tables = self.tables
+        change_log = self.change_log
+        actor_names = self.actors
+        cols_of = [rc.cols for rc in rcs]
+        for pos, (i, j, r, ar, s_) in enumerate(zip(
+                d.tolist(), j_ord.tolist(), rnd_ord.tolist(),
+                a.tolist(), s.tolist())):
+            t = tables[i]
+            t.state_clocks[(actor_names[ar], s_)] = (cmat, pos)
+            change_log[i].append(AdmittedRef(cols_of[r], j))
+            cidx[pos] = t.n_changes
+            t.n_changes += 1
+            if t.n_changes > self._changes_hi:
+                self._changes_hi = t.n_changes
+            if t._stale_idx is None:
+                t._stale_idx = i
+                t.clock = self._StaleView(self, t, "clock")
+                t.frontier = self._StaleView(self, t, "frontier")
+        self._stale_tables = True
+
+        self._native.ensure_docs(len(self.doc_ids))
+        self._native.begin()
+        self._native.apply_frames([frame_bytes_of(c) for c in cols_of],
+                                  rnd_ord, j_ord, d, a, s, cidx)
+        bd = self._native.finish()
+        self._mirror_stats(bd, d)
+        return {"bd": bd, "clock_mat": cmat, "adm_doc": d,
+                "adm_cidx": cidx}
+
+    def _encode_round_frame(self, rc):
+        """Admission + clock rows for one round frame, then ONE native
+        encode over its embedded AMW1 frame.
+
+        The hot case, in-order delivery of one change per doc whose
+        declared deps cover the doc's dependency frontier, is classified
+        vectorized against the dense cache: its transitive clock IS the
+        doc's current clock (one gather for the round), no closure walk,
+        no _Pending. Anything else (gaps, duplicates, queued docs,
+        multi-change docs, partial frontiers) goes per doc through _admit
+        and _clock_row."""
+        cols = rc.cols
+        n_ch = cols.n_changes
+        if n_ch == 0:
+            return None
+        self._refresh_admission_cache()
+        actors = cols.actors
+        rank_of = self.actor_rank
+
+        n_k = len(rc.doc_ids)
+        doc_of_k = np.fromiter((self.doc_index[d] for d in rc.doc_ids),
+                               np.int64, n_k)
+        ch_off = np.asarray(rc.change_off, np.int64)
+        ch_per_k = np.diff(ch_off)
+        chg_doc = np.repeat(doc_of_k, ch_per_k)
+        chg_k = np.repeat(np.arange(n_k), ch_per_k)
+        # the frame may intern actors seen only in deps, with no rank yet:
+        # -1 marks them, and a dep on one is unsatisfied (the change goes
+        # the slow way and queues)
+        perm = np.fromiter((rank_of.get(a, -1) for a in actors),
+                           np.int64, len(actors))
+        arank = perm[np.asarray(cols.change_actor, np.int64)]
+        seq = np.asarray(cols.change_seq, np.int64)
+
+        cc, fs_, hr_, hs_ = (self._clock_cache, self._fsize,
+                             self._hrank, self._hseq)
+        # in-order next change of its actor
+        ok = seq == cc[chg_doc, arank] + 1
+        # every declared dep satisfied; the frontier head covered by a dep
+        deps_off = np.asarray(cols.deps_off, np.int64)
+        dep_cnt = np.diff(deps_off)
+        cov = np.zeros(n_ch, np.int64)
+        if dep_cnt.any():
+            dep_chg = np.repeat(np.arange(n_ch), dep_cnt)
+            dep_doc = chg_doc[dep_chg]
+            dep_rank = perm[np.asarray(cols.deps_actor, np.int64)]
+            dep_seq = np.asarray(cols.deps_seq, np.int64)
+            safe_rank = np.maximum(dep_rank, 0)
+            bad = np.zeros(n_ch, np.int64)
+            np.add.at(bad, dep_chg,
+                      (dep_rank < 0) | (cc[dep_doc, safe_rank] < dep_seq))
+            ok &= bad == 0
+            np.add.at(cov, dep_chg,
+                      (dep_rank == hr_[dep_doc]) & (dep_seq >= hs_[dep_doc]))
+        own = (arank == hr_[chg_doc]) & (seq - 1 >= hs_[chg_doc])
+        fsz = fs_[chg_doc]
+        ok &= (fsz == 0) | ((fsz == 1) & ((cov > 0) | own))
+        qflag = self._queued_mask()
+        if qflag is not None:
+            ok &= ~qflag[chg_doc]
+        # multi-change docs need sequential cache updates: slow path
+        ok &= np.repeat(ch_per_k == 1, ch_per_k)
+        k_bad = np.zeros(n_k, np.int64)
+        np.add.at(k_bad, chg_k, ~ok)
+
+        order = sorted(range(n_k), key=lambda k: doc_of_k[k])
+        # fast docs: exactly one change this round, passing every check
+        # (empty docs are no-ops; multi-change docs went slow above)
+        fast_in_order = [k for k in order
+                         if ch_per_k[k] == 1 and not k_bad[k]]
+        fast_js = ch_off[fast_in_order]
+        fast_docs = doc_of_k[fast_in_order]
+        # clock rows = the clock BEFORE each fast change (doc-disjoint, so
+        # one gather), then one batched cache update
+        cmat_fast = cc[fast_docs]
+        cc[fast_docs, arank[fast_js]] = seq[fast_js]
+        fs_[fast_docs] = 1
+        hr_[fast_docs] = arank[fast_js]
+        hs_[fast_docs] = seq[fast_js]
+
+        # fast bookkeeping: the per-doc dicts (clock, frontier, seen) are
+        # NOT updated; the dense cache is their authority until
+        # _sync_stale_table materializes them. What stays per doc: the
+        # clock memo (read by _clock_row for later slow changes), the
+        # change log and the change counter.
+        n_fast = len(fast_in_order)
+        cidx_fast = np.empty(n_fast, np.int64)
+        ca_list = np.asarray(cols.change_actor)[fast_js].tolist()
+        seq_list = seq[fast_js].tolist()
+        tables = self.tables
+        change_log = self.change_log
+        for pos, (i, j, ca, s) in enumerate(zip(
+                fast_docs.tolist(), fast_js.tolist(), ca_list, seq_list)):
+            t = tables[i]
+            t.state_clocks[(actors[ca], s)] = (cmat_fast, pos)
+            change_log[i].append(AdmittedRef(cols, j))
+            cidx_fast[pos] = t.n_changes
+            t.n_changes += 1
+            if t.n_changes > self._changes_hi:
+                self._changes_hi = t.n_changes
+            if t._stale_idx is None:
+                t._stale_idx = i
+                t.clock = self._StaleView(self, t, "clock")
+                t.frontier = self._StaleView(self, t, "frontier")
+        if n_fast:
+            self._stale_tables = True
+
+        frames: list[bytes] = [frame_bytes_of(cols)]
+        frame_of: dict[int, int] = {id(cols): 0}
+        adm_frame: list[int] = []
+        adm_idx: list[int] = []
+        adm_doc: list[int] = []
+        aranks: list[int] = []
+        seqs: list[int] = []
+        cidxs: list[int] = []
+        clock_rows: list[np.ndarray] = []
+
+        queued = self._queued_docs
+        change_actor = cols.change_actor
+        for k in order:
+            if not ch_per_k[k] or (ch_per_k[k] == 1 and not k_bad[k]):
+                continue
+            i = int(doc_of_k[k])
+            t = self.tables[i]
+            log = self.change_log[i]
+            # slow path: full causal admission, change by change (may also
+            # release changes queued earlier, from other frames too)
+            for j in range(int(ch_off[k]), int(ch_off[k + 1])):
+                actor = actors[int(change_actor[j])]
+                s = int(seq[j])
+                ready = self._admit(t, [_Pending(actor, s,
+                                                 cols.deps_at(j), (cols, j))])
+                if t.queue:
+                    queued.add(i)
+                else:
+                    queued.discard(i)
+                for p in ready:
+                    pc, pj = p.payload
+                    if id(pc) not in frame_of:
+                        frame_of[id(pc)] = len(frames)
+                        frames.append(frame_bytes_of(pc))
+                    clock_rows.append(
+                        self._clock_row(t, p.actor, p.seq, p.deps))
+                    log.append(AdmittedRef(pc, pj))
+                    adm_frame.append(frame_of[id(pc)])
+                    adm_idx.append(pj)
+                    adm_doc.append(i)
+                    aranks.append(rank_of[p.actor])
+                    seqs.append(p.seq)
+                    cidxs.append(t.n_changes)
+                    t.n_changes += 1
+                    if t.n_changes > self._changes_hi:
+                        self._changes_hi = t.n_changes
+            self._cache_dirty.add(i)
+
+        n_adm = n_fast + len(adm_doc)
+        if not n_adm:
+            return None
+
+        # merge fast (vectors) and slow (lists) into (doc, cidx)-ascending
+        # admitted columns: the order of the native encoder's doc-grouped
+        # rows and of _cols_triplets' searchsorted join
+        if adm_doc:
+            m_frame = np.concatenate([np.zeros(n_fast, np.int64),
+                                      np.asarray(adm_frame, np.int64)])
+            m_idx = np.concatenate([fast_js, np.asarray(adm_idx, np.int64)])
+            m_doc = np.concatenate([fast_docs,
+                                    np.asarray(adm_doc, np.int64)])
+            m_arank = np.concatenate([arank[fast_js],
+                                      np.asarray(aranks, np.int64)])
+            m_seq = np.concatenate([seq[fast_js],
+                                    np.asarray(seqs, np.int64)])
+            m_cidx = np.concatenate([cidx_fast,
+                                     np.asarray(cidxs, np.int64)])
+            m_clock = np.zeros((n_adm, cc.shape[1]), np.int32)
+            m_clock[:n_fast] = cmat_fast
+            for r, row in enumerate(clock_rows):
+                m_clock[n_fast + r, :len(row)] = row
+            perm2 = np.lexsort((m_cidx, m_doc))
+            m_frame, m_idx, m_doc = (m_frame[perm2], m_idx[perm2],
+                                     m_doc[perm2])
+            m_arank, m_seq, m_cidx = (m_arank[perm2], m_seq[perm2],
+                                      m_cidx[perm2])
+            m_clock = m_clock[perm2]
+        else:
+            m_frame = np.zeros(n_fast, np.int64)
+            m_idx, m_doc = fast_js, fast_docs
+            m_arank, m_seq, m_cidx = arank[fast_js], seq[fast_js], cidx_fast
+            m_clock = cmat_fast.astype(np.int32)
+
+        self._native.ensure_docs(len(self.doc_ids))
+        self._native.begin()
+        self._native.apply_frames(frames, m_frame, m_idx, m_doc,
+                                  m_arank, m_seq, m_cidx)
+        bd = self._native.finish()
+        self._mirror_stats(bd, m_doc)
+        return {"bd": bd, "clock_mat": m_clock, "adm_doc": m_doc,
+                "adm_cidx": m_cidx}
+
+    def _dispatch_final(self, trip_list, pre_rows) -> torch.Tensor | None:
         """One scatter + one reconcile for a whole batch: triplets merged
-        in round order with last-wins dedup. Returns the device hash tensor
-        without reading it back; the next hashes() read consumes it. (The
-        reference's frame ingress drives this; in the port it arrives with
-        that ingress.)"""
+        in round order with last-wins dedup (rounds overwrite each other
+        only on re-linearized position rows). Returns the device hash
+        tensor without reading it back; the next hashes() read consumes
+        it. Under lazy_dispatch it returns None and launches nothing."""
         self._mark_trips_dirty(trip_list)
+        if self.lazy_dispatch:
+            # the triplets are already in the host mirror; the next hash
+            # read uploads and reconciles only the lanes just marked
+            self.rows_dev = None
+            self._dirty = True
+            self._hash_handle = None
+            return None
         if pre_rows is not None:
             self.rows_dev = self._to_dev(pre_rows)
             self._dirty = False

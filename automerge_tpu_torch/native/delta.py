@@ -1,0 +1,240 @@
+"""Python surface of the native columnar delta encoder (deltaenc.cpp;
+counterpart of `automerge_tpu/native/delta.py`).
+
+`NativeDeltaEncoder` owns a C++ handle holding per-document persistent
+interning tables (objects/fields/values/element slots). One begin/apply/
+finish cycle covers a whole sync round across every document — the admitted
+changes carry a doc column — so ctypes marshalling cost is per round, not
+per document (per-doc calls measured ~200us/doc in pure overhead).
+
+`create()` builds the library at first use and raises RuntimeError when it
+cannot: nothing falls back to the pure-Python encoder.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+from dataclasses import dataclass
+
+import numpy as np
+
+from . import load_shared
+
+_state: dict = {}
+_lock = threading.Lock()
+
+_PTR = ctypes.c_void_p
+
+
+def _lib():
+    with _lock:
+        lib = load_shared("deltaenc.cpp", "amtpudelta", _state)
+        if getattr(lib, "_denc_ready", False):
+            return lib
+        lib.amtpu_denc_new.restype = _PTR
+        lib.amtpu_denc_free.argtypes = [_PTR]
+        lib.amtpu_denc_add_docs.restype = ctypes.c_int32
+        lib.amtpu_denc_add_docs.argtypes = [_PTR, ctypes.c_int32]
+        lib.amtpu_denc_begin.argtypes = [_PTR]
+        lib.amtpu_denc_apply_frames.restype = ctypes.c_int32
+        # every pointer (arrays of frame pointers, string buffers) is
+        # passed as c_void_p
+        lib.amtpu_denc_apply_frames.argtypes = [
+            _PTR, _PTR, _PTR, ctypes.c_int32] + \
+            [_PTR] * 6 + [ctypes.c_int32, _PTR, ctypes.c_int64]
+        lib.amtpu_denc_sizes.argtypes = [_PTR, _PTR]
+        lib.amtpu_denc_stats.argtypes = [_PTR, _PTR]
+        lib.amtpu_denc_reset_elem_slots.argtypes = [
+            _PTR, ctypes.c_int32, _PTR, _PTR, _PTR, _PTR,
+            ctypes.c_int32, ctypes.c_int32]
+        lib.amtpu_denc_copy.argtypes = [_PTR] + [_PTR] * 17
+        lib._denc_ready = True
+        return lib
+
+
+def _ptr(arr: np.ndarray):
+    return arr.ctypes.data_as(_PTR)
+
+
+def frame_bytes_of(cols) -> bytes:
+    """The raw AMW1 frame for a columns batch — the native encoder's direct
+    input. Frames decoded off the wire carry their original bytes; columns
+    built locally (changes_to_columns / JSON parse) serialize once here."""
+    fb = getattr(cols, "frame_bytes", None)
+    if fb is None:
+        from ..sync.frames import columns_to_bytes
+        fb = columns_to_bytes(cols)
+        try:
+            cols.frame_bytes = fb
+        except AttributeError:
+            pass
+    return fb
+
+
+@dataclass
+class BatchDelta:
+    """One round's delta rows + doc-tagged table additions. Row arrays are
+    doc-grouped (admission runs doc by doc), first column = doc slot."""
+    op_rows: np.ndarray        # [k, 9] int32
+    ins_rows: np.ndarray       # [k, 7] int32
+    newlist_rows: np.ndarray   # [k, 4] int32
+    new_objects: list[tuple[int, str, int]]   # (doc, obj_id, kind)
+    new_fields: list[tuple[int, int, str]]    # (doc, obj_idx, key)
+    new_values: list[tuple[int, object]]      # (doc, decoded value)
+    stats: np.ndarray          # [n_docs, 3] (n_lists, max_elems, n_fields)
+
+
+def _decode_value(tag: int, bits: int, s: str):
+    if tag == 0:
+        return None
+    if tag == 1:
+        return False
+    if tag == 2:
+        return True
+    if tag == 3:
+        return int(bits)
+    if tag == 4:
+        return np.int64(bits).view(np.float64).item()
+    if tag == 5:
+        return s
+    if tag == 6:
+        return int(s)
+    if tag == 7:
+        return ("__link__", s)
+    if tag == 8:
+        obj, _sep, key = s.partition("\x00")
+        return ("__move__", obj, key, int(bits))
+    raise ValueError(f"bad native value tag {tag}")
+
+
+class NativeDeltaEncoder:
+    @staticmethod
+    def create() -> "NativeDeltaEncoder":
+        return NativeDeltaEncoder(_lib())
+
+    def __init__(self, lib):
+        self._cl = lib
+        self._handle = lib.amtpu_denc_new()
+        self._n_docs = 0
+
+    def __del__(self):
+        try:
+            if getattr(self, "_handle", None):
+                self._cl.amtpu_denc_free(self._handle)
+        except Exception:
+            pass
+
+    def ensure_docs(self, n: int) -> None:
+        if n > self._n_docs:
+            self._n_docs = self._cl.amtpu_denc_add_docs(
+                self._handle, n - self._n_docs)
+
+    def begin(self) -> None:
+        """Start a new round (clears the batch output accumulators)."""
+        self._cl.amtpu_denc_begin(self._handle)
+
+    def apply_frames(self, frames: list[bytes], adm_frame, adm_idx, adm_doc,
+                     aranks, seqs, change_idxs) -> None:
+        """Encode the admitted changes straight from raw AMW1 frame bytes
+        (adm_frame[j] indexes `frames`, adm_idx[j] the change within it),
+        accumulating output rows in admission order."""
+        lib = self._cl
+        frame_arr = (ctypes.c_char_p * len(frames))(*frames)
+        frame_lens = np.asarray([len(f) for f in frames], np.int64)
+        adm_frame = np.ascontiguousarray(adm_frame, np.int32)
+        adm_idx = np.ascontiguousarray(adm_idx, np.int32)
+        adm_doc = np.ascontiguousarray(adm_doc, np.int32)
+        aranks = np.ascontiguousarray(aranks, np.int32)
+        seqs = np.ascontiguousarray(seqs, np.int32)
+        change_idxs = np.ascontiguousarray(change_idxs, np.int32)
+
+        errbuf = ctypes.create_string_buffer(256)
+        rc = lib.amtpu_denc_apply_frames(
+            self._handle, frame_arr, _ptr(frame_lens), len(frames),
+            _ptr(adm_frame), _ptr(adm_idx), _ptr(adm_doc), _ptr(aranks),
+            _ptr(seqs), _ptr(change_idxs),
+            len(adm_idx), errbuf, len(errbuf))
+        if rc != 0:
+            raise ValueError(f"native delta encode: {errbuf.value.decode()}")
+
+    def reset_elem_slots(self, doc: int, objs, slots, eids,
+                         max_elems: int) -> None:
+        """Replace doc's element-slot maps with the compacted view
+        (engine/compaction.py): the C++ side resolves insert anchors and
+        assigns the next slot from these maps, so they must mirror the
+        renumbered host tables exactly."""
+        lib = self._cl
+        objs = np.ascontiguousarray(objs, np.int32)
+        slots = np.ascontiguousarray(slots, np.int32)
+        blob = "".join(eids).encode()
+        off = np.zeros(len(eids) + 1, np.int32)
+        if eids:
+            off[1:] = np.cumsum([len(e.encode()) for e in eids])
+        lib.amtpu_denc_reset_elem_slots(
+            self._handle, doc, _ptr(objs), _ptr(slots),
+            ctypes.c_char_p(blob), _ptr(off), len(eids), max_elems)
+
+    def finish(self) -> BatchDelta:
+        """Collect the round's accumulated rows + table additions."""
+        lib = self._cl
+        sizes = (ctypes.c_int64 * 9)()
+        lib.amtpu_denc_sizes(self._handle, sizes)
+        (n_ops, n_ins, n_nl, n_obj, b_obj, n_fld, b_fld, n_val,
+         b_val) = sizes
+
+        op_rows = np.zeros((max(n_ops, 1), 9), np.int32)
+        ins_rows = np.zeros((max(n_ins, 1), 7), np.int32)
+        nl_rows = np.zeros((max(n_nl, 1), 4), np.int32)
+        obj_doc = np.zeros(max(n_obj, 1), np.int32)
+        obj_kinds = np.zeros(max(n_obj, 1), np.int8)
+        obj_off = np.zeros(n_obj + 1, np.int32)
+        obj_blob = ctypes.create_string_buffer(max(int(b_obj), 1))
+        fld_doc = np.zeros(max(n_fld, 1), np.int32)
+        fld_obj = np.zeros(max(n_fld, 1), np.int32)
+        fld_off = np.zeros(n_fld + 1, np.int32)
+        fld_blob = ctypes.create_string_buffer(max(int(b_fld), 1))
+        val_doc = np.zeros(max(n_val, 1), np.int32)
+        val_tag = np.zeros(max(n_val, 1), np.int8)
+        val_int = np.zeros(max(n_val, 1), np.int64)
+        val_dbl = np.zeros(max(n_val, 1), np.float64)
+        val_off = np.zeros(n_val + 1, np.int32)
+        val_blob = ctypes.create_string_buffer(max(int(b_val), 1))
+
+        lib.amtpu_denc_copy(
+            self._handle, _ptr(op_rows), _ptr(ins_rows), _ptr(nl_rows),
+            _ptr(obj_doc), _ptr(obj_kinds), _ptr(obj_off),
+            ctypes.cast(obj_blob, _PTR),
+            _ptr(fld_doc), _ptr(fld_obj), _ptr(fld_off),
+            ctypes.cast(fld_blob, _PTR),
+            _ptr(val_doc), _ptr(val_tag), _ptr(val_int), _ptr(val_dbl),
+            _ptr(val_off), ctypes.cast(val_blob, _PTR))
+
+        stats = np.zeros((self._n_docs, 3), np.int64)
+        if self._n_docs:
+            lib.amtpu_denc_stats(
+                self._handle,
+                stats.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
+
+        def names(blob, off, n):
+            raw = blob.raw
+            return [raw[off[i]:off[i + 1]].decode("utf-8", "surrogatepass")
+                    for i in range(n)]
+
+        obj_names = names(obj_blob, obj_off, int(n_obj))
+        new_objects = [(int(obj_doc[i]), obj_names[i], int(obj_kinds[i]))
+                       for i in range(int(n_obj))]
+        fld_names = names(fld_blob, fld_off, int(n_fld))
+        new_fields = [(int(fld_doc[i]), int(fld_obj[i]), fld_names[i])
+                      for i in range(int(n_fld))]
+        val_strs = names(val_blob, val_off, int(n_val))
+        new_values = [
+            (int(val_doc[i]),
+             _decode_value(int(val_tag[i]), int(val_int[i]), val_strs[i]))
+            for i in range(int(n_val))]
+
+        return BatchDelta(
+            op_rows=op_rows[:n_ops], ins_rows=ins_rows[:n_ins],
+            newlist_rows=nl_rows[:n_nl], new_objects=new_objects,
+            new_fields=new_fields, new_values=new_values, stats=stats)
+

@@ -1,0 +1,509 @@
+"""Python surface of the native wire codec (counterpart of
+`automerge_tpu/native/wire.py`): the `WireColumns` schema shared by JSON
+and frame ingress, the JSON parse through `wirecodec.cpp`, the encode of
+Change objects into columns, and the concatenation of column batches."""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+
+import numpy as np
+
+from . import get_lib
+
+V_NONE, V_NULL, V_FALSE, V_TRUE, V_INT, V_DOUBLE, V_STR, V_BIGINT = range(8)
+
+
+@dataclass
+class WireColumns:
+    """Columnar decode of a JSON change list (one contiguous parse)."""
+    change_actor: np.ndarray
+    change_seq: np.ndarray
+    change_msg: np.ndarray
+    deps_off: np.ndarray
+    deps_actor: np.ndarray
+    deps_seq: np.ndarray
+    op_off: np.ndarray
+    op_action: np.ndarray
+    op_obj: np.ndarray
+    op_key: np.ndarray
+    op_elem: np.ndarray
+    op_vtag: np.ndarray
+    op_vint: np.ndarray
+    op_vdbl: np.ndarray
+    op_vstr: np.ndarray
+    actors: list[str]
+    objects: list[str]
+    keys: list[str]
+    messages: list[str]
+    strings: list[str]
+
+    @property
+    def n_changes(self) -> int:
+        return len(self.change_actor)
+
+    def op_value(self, j: int):
+        """Decode op j's scalar value (None for absent/null)."""
+        return _decode_vtag(int(self.op_vtag[j]), int(self.op_vint[j]),
+                            float(self.op_vdbl[j]), int(self.op_vstr[j]),
+                            self.strings)
+
+    def deps_at(self, i: int) -> dict:
+        """Change i's dependency frontier as {actor: seq}."""
+        return {self.actors[a]: int(s) for a, s in zip(
+            self.deps_actor[self.deps_off[i]:self.deps_off[i + 1]],
+            self.deps_seq[self.deps_off[i]:self.deps_off[i + 1]])}
+
+    def change_at(self, i: int):
+        """Materialize one Change object from the columns."""
+        from ..core.change import Change, Op
+        from ..storage import _ACTIONS
+        ops = []
+        for j in range(int(self.op_off[i]), int(self.op_off[i + 1])):
+            action = _ACTIONS[self.op_action[j]]
+            key = self.keys[self.op_key[j]] if self.op_key[j] >= 0 else None
+            elem = int(self.op_elem[j]) if self.op_elem[j] >= 0 else None
+            if action in ("set", "link", "move"):
+                value = self.op_value(j)
+            else:
+                value = None
+            ops.append(Op(action, self.objects[self.op_obj[j]],
+                          key=key, value=value, elem=elem))
+        msg = (self.messages[self.change_msg[i]]
+               if self.change_msg[i] >= 0 else None)
+        return Change(self.actors[self.change_actor[i]],
+                      int(self.change_seq[i]), self.deps_at(i), ops, msg)
+
+    def to_changes(self):
+        """Materialize Change objects from the columns, bulk-converting
+        every column to plain lists first (numpy scalar indexing costs ~3x
+        list indexing — this loop is the host ingress floor when columns
+        must become interactive Change objects). (The column-direct engine
+        ingest path that skips Change construction entirely is
+        native/delta.py + ResidentDocSet.apply_columns.)"""
+        from ..core.change import Change, Op
+        from ..storage import _ACTIONS
+
+        n = self.n_changes
+        if n == 0:
+            return []
+        ch_actor = np.asarray(self.change_actor).tolist()
+        ch_seq = np.asarray(self.change_seq).tolist()
+        ch_msg = np.asarray(self.change_msg).tolist()
+        d_off = np.asarray(self.deps_off).tolist()
+        d_actor = np.asarray(self.deps_actor).tolist()
+        d_seq = np.asarray(self.deps_seq).tolist()
+        o_off = np.asarray(self.op_off).tolist()
+        o_act = np.asarray(self.op_action).tolist()
+        o_obj = np.asarray(self.op_obj).tolist()
+        o_key = np.asarray(self.op_key).tolist()
+        o_elem = np.asarray(self.op_elem).tolist()
+        o_vtag = np.asarray(self.op_vtag).tolist()
+        o_vint = np.asarray(self.op_vint).tolist()
+        o_vdbl = np.asarray(self.op_vdbl).tolist()
+        o_vstr = np.asarray(self.op_vstr).tolist()
+        actors, objects, keys = self.actors, self.objects, self.keys
+        messages, strings = self.messages, self.strings
+        new_op = Op.__new__
+
+        out = []
+        for i in range(n):
+            ops = []
+            for j in range(o_off[i], o_off[i + 1]):
+                action = _ACTIONS[o_act[j]]
+                value = None
+                if action in ("set", "link", "move"):
+                    value = _decode_vtag(o_vtag[j], o_vint[j], o_vdbl[j],
+                                         o_vstr[j], strings)
+                op = new_op(Op)
+                op.action = action
+                op.obj = objects[o_obj[j]]
+                op.key = keys[o_key[j]] if o_key[j] >= 0 else None
+                op.value = value
+                op.elem = o_elem[j] if o_elem[j] >= 0 else None
+                op.actor = None
+                op.seq = None
+                ops.append(op)
+            deps = {actors[d_actor[k]]: d_seq[k]
+                    for k in range(d_off[i], d_off[i + 1])}
+            msg = messages[ch_msg[i]] if ch_msg[i] >= 0 else None
+            out.append(Change(actors[ch_actor[i]], ch_seq[i], deps, ops,
+                              msg))
+        return out
+
+
+_I64_MIN = -(2 ** 63)
+_I64_MAX = 2 ** 63 - 1
+
+
+def _decode_vtag(tag, vint, vdbl, vstr, strings):
+    """THE value-tag decode (one source of truth for per-change and bulk
+    materialization paths)."""
+    if tag == V_INT:
+        return vint
+    if tag == V_STR:
+        return strings[vstr]
+    if tag == V_DOUBLE:
+        return vdbl
+    if tag == V_TRUE:
+        return True
+    if tag == V_FALSE:
+        return False
+    if tag == V_BIGINT:
+        # integer token outside int64 range, carried verbatim
+        return int(strings[vstr])
+    return None  # V_NONE / V_NULL
+
+
+class _Interner:
+    """Frame-local string table (insertion-ordered)."""
+
+    def __init__(self):
+        self.index: dict[str, int] = {}
+        self.items: list[str] = []
+
+    def add(self, s: str) -> int:
+        i = self.index.get(s)
+        if i is None:
+            i = len(self.items)
+            self.index[s] = i
+            self.items.append(s)
+        return i
+
+
+def _encode_value(op, strings: _Interner):
+    """(vtag, vint, vdbl, vstr) for one op, matching WireColumns.op_value."""
+    if op.action not in ("set", "link", "move"):
+        return V_NONE, 0, 0.0, -1
+    v = op.value
+    if v is None:
+        return V_NULL, 0, 0.0, -1
+    if v is True:
+        return V_TRUE, 0, 0.0, -1
+    if v is False:
+        return V_FALSE, 0, 0.0, -1
+    if isinstance(v, int):
+        if _I64_MIN <= v <= _I64_MAX:
+            return V_INT, v, 0.0, -1
+        return V_BIGINT, 0, 0.0, strings.add(str(v))
+    if isinstance(v, float):
+        return V_DOUBLE, 0, float(v), -1
+    if isinstance(v, str):
+        return V_STR, 0, 0.0, strings.add(v)
+    raise TypeError(f"unsupported scalar value on the wire: {type(v).__name__}")
+
+
+def changes_to_columns(changes) -> WireColumns:
+    """Encode Change objects as columns (the send-side per-op pass — the
+    analog of the per-op dict building JSON senders pay in to_dict)."""
+    from ..storage import _ACTION_IDX
+    actors, objects, keys, messages, strings = (
+        _Interner(), _Interner(), _Interner(), _Interner(), _Interner())
+    n = len(changes)
+    change_actor = np.zeros(n, np.int32)
+    change_seq = np.zeros(n, np.int32)
+    change_msg = np.full(n, -1, np.int32)
+    deps_off = np.zeros(n + 1, np.int32)
+    op_off = np.zeros(n + 1, np.int32)
+    deps_actor: list[int] = []
+    deps_seq: list[int] = []
+    op_action: list[int] = []
+    op_obj: list[int] = []
+    op_key: list[int] = []
+    op_elem: list[int] = []
+    op_vtag: list[int] = []
+    op_vint: list[int] = []
+    op_vdbl: list[float] = []
+    op_vstr: list[int] = []
+
+    for i, c in enumerate(changes):
+        change_actor[i] = actors.add(c.actor)
+        change_seq[i] = c.seq
+        if c.message is not None:
+            change_msg[i] = messages.add(c.message)
+        for a, s in c.deps.items():
+            deps_actor.append(actors.add(a))
+            deps_seq.append(int(s))
+        deps_off[i + 1] = len(deps_actor)
+        for op in c.ops:
+            op_action.append(_ACTION_IDX[op.action])
+            op_obj.append(objects.add(op.obj))
+            op_key.append(keys.add(op.key) if op.key is not None else -1)
+            op_elem.append(int(op.elem) if op.elem is not None else -1)
+            tag, vi, vd, vs = _encode_value(op, strings)
+            op_vtag.append(tag)
+            op_vint.append(vi)
+            op_vdbl.append(vd)
+            op_vstr.append(vs)
+        op_off[i + 1] = len(op_action)
+
+    return WireColumns(
+        change_actor=change_actor, change_seq=change_seq,
+        change_msg=change_msg, deps_off=deps_off,
+        deps_actor=np.asarray(deps_actor, np.int32),
+        deps_seq=np.asarray(deps_seq, np.int32),
+        op_off=op_off,
+        op_action=np.asarray(op_action, np.int8),
+        op_obj=np.asarray(op_obj, np.int32),
+        op_key=np.asarray(op_key, np.int32),
+        op_elem=np.asarray(op_elem, np.int32),
+        op_vtag=np.asarray(op_vtag, np.int8),
+        op_vint=np.asarray(op_vint, np.int64),
+        op_vdbl=np.asarray(op_vdbl, np.float64),
+        op_vstr=np.asarray(op_vstr, np.int32),
+        actors=actors.items, objects=objects.items, keys=keys.items,
+        messages=messages.items, strings=strings.items)
+
+
+def _table(lib, handle, which: int, n_items: int, blob_len: int) -> list[str]:
+    blob = ctypes.create_string_buffer(max(blob_len, 1))
+    offsets = (ctypes.c_int32 * (n_items + 1))()
+    lib.amtpu_copy_table(handle, which, blob, offsets)
+    raw = blob.raw[:blob_len]  # offsets are BYTE offsets: slice before decode
+    # surrogatepass: json.dumps happily emits lone \ud800 escapes, which the
+    # C++ side encodes as WTF-8; round-trip them like json.loads would.
+    return [raw[offsets[i]:offsets[i + 1]].decode("utf-8", "surrogatepass")
+            for i in range(n_items)]
+
+
+def parse_changes_json(data: bytes | str) -> WireColumns:
+    """Parse a JSON change array with the native codec. Raises ValueError
+    on malformed input (and RuntimeError if the codec cannot be built)."""
+    lib = get_lib()
+    if isinstance(data, str):
+        data = data.encode("utf-8")
+    errbuf = ctypes.create_string_buffer(512)
+    handle = lib.amtpu_parse_changes(data, len(data), errbuf, len(errbuf))
+    if not handle:
+        raise ValueError(f"wire parse error: {errbuf.value.decode()}")
+    try:
+        sizes = (ctypes.c_int64 * 13)()
+        lib.amtpu_sizes(handle, sizes)
+        (n_changes, n_ops, n_deps, n_actors, n_objects, n_keys, n_messages,
+         n_strings, b_actors, b_objects, b_keys, b_messages, b_strings) = sizes
+
+        def arr(n, dtype):
+            return np.zeros(max(n, 1), dtype=dtype)
+
+        cols = WireColumns(
+            change_actor=arr(n_changes, np.int32),
+            change_seq=arr(n_changes, np.int32),
+            change_msg=arr(n_changes, np.int32),
+            deps_off=arr(n_changes + 1, np.int32),
+            deps_actor=arr(n_deps, np.int32),
+            deps_seq=arr(n_deps, np.int32),
+            op_off=arr(n_changes + 1, np.int32),
+            op_action=arr(n_ops, np.int8),
+            op_obj=arr(n_ops, np.int32),
+            op_key=arr(n_ops, np.int32),
+            op_elem=arr(n_ops, np.int32),
+            op_vtag=arr(n_ops, np.int8),
+            op_vint=arr(n_ops, np.int64),
+            op_vdbl=arr(n_ops, np.float64),
+            op_vstr=arr(n_ops, np.int32),
+            actors=_table(lib, handle, 0, n_actors, b_actors),
+            objects=_table(lib, handle, 1, n_objects, b_objects),
+            keys=_table(lib, handle, 2, n_keys, b_keys),
+            messages=_table(lib, handle, 3, n_messages, b_messages),
+            strings=_table(lib, handle, 4, n_strings, b_strings),
+        )
+
+        def ptr(a):
+            return a.ctypes.data_as(ctypes.c_void_p)
+
+        lib.amtpu_copy_columns(
+            handle, ptr(cols.change_actor), ptr(cols.change_seq),
+            ptr(cols.change_msg), ptr(cols.deps_off), ptr(cols.deps_actor),
+            ptr(cols.deps_seq), ptr(cols.op_off), ptr(cols.op_action),
+            ptr(cols.op_obj), ptr(cols.op_key), ptr(cols.op_elem),
+            ptr(cols.op_vtag), ptr(cols.op_vint), ptr(cols.op_vdbl),
+            ptr(cols.op_vstr))
+
+        # trim the max(n,1) padding back to true sizes
+        cols.change_actor = cols.change_actor[:n_changes]
+        cols.change_seq = cols.change_seq[:n_changes]
+        cols.change_msg = cols.change_msg[:n_changes]
+        cols.deps_actor = cols.deps_actor[:n_deps]
+        cols.deps_seq = cols.deps_seq[:n_deps]
+        cols.op_action = cols.op_action[:n_ops]
+        cols.op_obj = cols.op_obj[:n_ops]
+        cols.op_key = cols.op_key[:n_ops]
+        cols.op_elem = cols.op_elem[:n_ops]
+        cols.op_vtag = cols.op_vtag[:n_ops]
+        cols.op_vint = cols.op_vint[:n_ops]
+        cols.op_vdbl = cols.op_vdbl[:n_ops]
+        cols.op_vstr = cols.op_vstr[:n_ops]
+        return cols
+    finally:
+        lib.amtpu_free(handle)
+
+
+# ---------------------------------------------------------------------------
+# columnar concatenation (no per-op Python)
+
+#: below this many total ops a round concatenates in pure Python: the
+#: numpy path launches ~60 tiny-array kernels whose fixed cost dominates
+#: small group-commit rounds (a handful of single-change parts — the
+#: epoch-ingestion steady state), measured ~0.1ms of pure overhead per
+#: part. Python lists win comfortably at these sizes.
+_SMALL_CONCAT_OPS = 192
+
+
+def _concat_columns_small(parts: list[WireColumns]) -> WireColumns:
+    """Pure-python merge of a SMALL round (see _SMALL_CONCAT_OPS): same
+    semantics as the numpy path below — union string tables, remapped
+    indices (-1 sentinel preserved), shifted offsets, loud IndexError on
+    an out-of-range part-local index."""
+    tabs = [_Interner() for _ in range(5)]
+    # per table: per part, the part-local -> union index map
+    maps: list[list[list[int]]] = [[], [], [], [], []]
+    for p in parts:
+        for t, tbl in enumerate((p.actors, p.objects, p.keys,
+                                 p.messages, p.strings)):
+            add = tabs[t].add
+            maps[t].append([add(s) for s in tbl])
+
+    def remap(field: str, t: int) -> np.ndarray:
+        out: list[int] = []
+        for j, p in enumerate(parts):
+            m = maps[t][j]
+            nm = len(m)
+            for v in np.asarray(getattr(p, field)).tolist():
+                if v < 0:
+                    out.append(-1)
+                elif v < nm:
+                    out.append(m[v])
+                else:
+                    raise IndexError("frame-local string index out of "
+                                     "range for its part's table")
+        return np.asarray(out, np.int32)
+
+    def cat(field: str, dtype) -> np.ndarray:
+        out: list = []
+        for p in parts:
+            out.extend(np.asarray(getattr(p, field)).tolist())
+        return np.asarray(out, dtype)
+
+    def off(field: str) -> np.ndarray:
+        out = [0]
+        shift = 0
+        for p in parts:
+            o = np.asarray(getattr(p, field)).tolist()
+            out.extend(v + shift for v in o[1:])
+            shift += o[-1]
+        return np.asarray(out, np.int32)
+
+    return WireColumns(
+        change_actor=remap("change_actor", 0),
+        change_seq=cat("change_seq", np.int32),
+        change_msg=remap("change_msg", 3),
+        deps_off=off("deps_off"),
+        deps_actor=remap("deps_actor", 0),
+        deps_seq=cat("deps_seq", np.int32),
+        op_off=off("op_off"),
+        op_action=cat("op_action", np.int8),
+        op_obj=remap("op_obj", 1),
+        op_key=remap("op_key", 2),
+        op_elem=cat("op_elem", np.int32),
+        op_vtag=cat("op_vtag", np.int8),
+        op_vint=cat("op_vint", np.int64),
+        op_vdbl=cat("op_vdbl", np.float64),
+        op_vstr=remap("op_vstr", 4),
+        actors=tabs[0].items, objects=tabs[1].items, keys=tabs[2].items,
+        messages=tabs[3].items, strings=tabs[4].items)
+
+
+def concat_columns(parts: list[WireColumns]) -> WireColumns:
+    """Merge several column batches into one, remapping frame-local string
+    tables into a union. Per-op work is numpy take/where; Python loops only
+    touch the string tables (O(distinct strings), not O(ops)). This is how
+    a sync service coalesces per-doc frames into one round batch without
+    materializing Change objects. Small rounds (the group-commit steady
+    state) route to a pure-python merge whose per-part cost is ~5x lower
+    than the tiny-array numpy launches (_concat_columns_small)."""
+    if len(parts) == 1:
+        return parts[0]
+    if sum(len(p.op_action) for p in parts) <= _SMALL_CONCAT_OPS:
+        return _concat_columns_small(parts)
+
+    def union_maps(tables: list[list[str]]):
+        interner = _Interner()
+        maps = [np.fromiter((interner.add(s) for s in tbl),
+                            np.int32, len(tbl)) if tbl
+                else np.zeros(1, np.int32)
+                for tbl in tables]
+        return interner.items, maps, [len(tbl) for tbl in tables]
+
+    actors, a_maps, a_lens = union_maps([p.actors for p in parts])
+    objects, o_maps, o_lens = union_maps([p.objects for p in parts])
+    keys, k_maps, k_lens = union_maps([p.keys for p in parts])
+    messages, m_maps, m_lens = union_maps([p.messages for p in parts])
+    strings, s_maps, s_lens = union_maps([p.strings for p in parts])
+
+    def remap_cat(raw_cols, maps, real_lens):
+        # ONE remap over the concatenation instead of one per part: a
+        # service round coalesces thousands of tiny per-doc frames, and
+        # per-part numpy calls dominated the flush (measured ~50% of a
+        # 2000-change fleet round). Indices stay part-local; a flattened
+        # union table plus per-part base offsets resolves them in a
+        # single gather.
+        arrs = [np.asarray(c, np.int32) for c in raw_cols]
+        cat = np.concatenate(arrs)
+        flat = np.concatenate(maps)
+        lens = [len(m) for m in maps]
+        bases = np.concatenate(([0], np.cumsum(lens[:-1])))
+        seg = np.repeat(bases, [len(a) for a in arrs])
+        # keep the old per-part remap's loud failure: an out-of-range
+        # part-local index must not silently gather from a NEIGHBORING
+        # part's table (misattributed changes = silent divergence). The
+        # limit is the part's REAL table length — an empty table's
+        # placeholder map has length 1, which would let index 0 pass
+        # (the small-round python path raises for the same input)
+        limit = np.repeat(np.asarray(real_lens), [len(a) for a in arrs])
+        if ((cat >= limit) & (cat >= 0)).any():
+            raise IndexError("frame-local string index out of range for "
+                             "its part's table")
+        return np.where(cat >= 0, flat[np.maximum(cat, 0) + seg],
+                        -1).astype(np.int32)
+
+    def cat_off(offs):
+        # concatenate offset arrays: drop each part's leading 0, shift
+        arrs = [np.asarray(off, np.int32) for off in offs]
+        tails = [a[1:] for a in arrs]
+        ends = np.concatenate(
+            ([0], np.cumsum([int(a[-1]) for a in arrs[:-1]])))
+        shift = np.repeat(ends, [len(t) for t in tails])
+        return np.concatenate([np.zeros(1, np.int32),
+                               (np.concatenate(tails) + shift)
+                               .astype(np.int32)])
+
+    cols = WireColumns(
+        change_actor=remap_cat([p.change_actor for p in parts],
+                               a_maps, a_lens),
+        change_seq=np.concatenate(
+            [np.asarray(p.change_seq, np.int32) for p in parts]),
+        change_msg=remap_cat([p.change_msg for p in parts],
+                             m_maps, m_lens),
+        deps_off=cat_off([p.deps_off for p in parts]),
+        deps_actor=remap_cat([p.deps_actor for p in parts],
+                             a_maps, a_lens),
+        deps_seq=np.concatenate(
+            [np.asarray(p.deps_seq, np.int32) for p in parts]),
+        op_off=cat_off([p.op_off for p in parts]),
+        op_action=np.concatenate(
+            [np.asarray(p.op_action, np.int8) for p in parts]),
+        op_obj=remap_cat([p.op_obj for p in parts], o_maps, o_lens),
+        op_key=remap_cat([p.op_key for p in parts], k_maps, k_lens),
+        op_elem=np.concatenate(
+            [np.asarray(p.op_elem, np.int32) for p in parts]),
+        op_vtag=np.concatenate(
+            [np.asarray(p.op_vtag, np.int8) for p in parts]),
+        op_vint=np.concatenate(
+            [np.asarray(p.op_vint, np.int64) for p in parts]),
+        op_vdbl=np.concatenate(
+            [np.asarray(p.op_vdbl, np.float64) for p in parts]),
+        op_vstr=remap_cat([p.op_vstr for p in parts], s_maps, s_lens),
+        actors=actors, objects=objects, keys=keys, messages=messages,
+        strings=strings)
+    return cols

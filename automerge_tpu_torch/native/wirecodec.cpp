@@ -1,0 +1,549 @@
+// Native wire codec: parse the JSON change wire format straight into
+// columnar integer arrays, skipping per-op Python object construction.
+//
+// The wire schema is the reference's change format
+// (Automerge's INTERNALS.md:104-115): a JSON array of
+//   {"actor": str, "seq": int, "deps": {actor: int, ...},
+//    "message"?: str, "ops": [{"action": str, "obj": str, "key"?: str,
+//                              "value"?: scalar, "elem"?: int}, ...]}
+//
+// This is a minimal, schema-specific parser (no external JSON library):
+// objects/arrays nest only in the places the schema allows; "value" holds
+// scalars only (links carry object-id strings, handled as strings).
+//
+// Exposed as a C ABI for ctypes: parse once into an arena, query sizes,
+// copy columns out into caller-provided (numpy) buffers, free.
+
+#include <algorithm>
+#include <cerrno>
+#include <climits>
+#include <cstdint>
+#include <cstring>
+#include <string>
+#include <unordered_map>
+#include <vector>
+
+namespace {
+
+struct Interner {
+  std::vector<std::string> items;
+  std::unordered_map<std::string, int32_t> index;
+  int32_t add(const std::string& s) {
+    auto it = index.find(s);
+    if (it != index.end()) return it->second;
+    int32_t id = static_cast<int32_t>(items.size());
+    index.emplace(s, id);
+    items.push_back(s);
+    return id;
+  }
+};
+
+// value tags (V_BIGINT: integer token outside int64 range, carried verbatim
+// in the strings table so Python can reconstruct the arbitrary-precision int)
+enum VTag : int8_t { V_NONE = 0, V_NULL = 1, V_FALSE = 2, V_TRUE = 3,
+                     V_INT = 4, V_DOUBLE = 5, V_STR = 6, V_BIGINT = 7 };
+
+enum Action : int8_t { A_MAKE_MAP = 0, A_MAKE_LIST = 1, A_MAKE_TEXT = 2,
+                       A_INS = 3, A_SET = 4, A_DEL = 5, A_LINK = 6,
+                       A_MOVE = 7, A_BAD = -1 };
+
+struct Parsed {
+  // per change
+  std::vector<int32_t> change_actor, change_seq, change_msg;
+  std::vector<int32_t> deps_off, deps_actor, deps_seq;
+  std::vector<int32_t> op_off;
+  // per op
+  std::vector<int8_t> op_action;
+  std::vector<int32_t> op_obj, op_key, op_elem, op_vstr;
+  std::vector<int8_t> op_vtag;
+  std::vector<int64_t> op_vint;
+  std::vector<double> op_vdbl;
+  // tables
+  Interner actors, objects, keys, messages, strings;
+  std::string error;
+};
+
+struct Cursor {
+  const char* p;
+  const char* end;
+  bool fail = false;
+  std::string msg;
+
+  void error(const std::string& m) {
+    if (!fail) { fail = true; msg = m; }
+  }
+  void ws() { while (p < end && (*p == ' ' || *p == '\t' || *p == '\n' || *p == '\r')) ++p; }
+  bool eat(char c) {
+    ws();
+    if (p < end && *p == c) { ++p; return true; }
+    return false;
+  }
+  bool expect(char c) {
+    if (!eat(c)) { error(std::string("expected '") + c + "'"); return false; }
+    return true;
+  }
+  bool peek(char c) { ws(); return p < end && *p == c; }
+};
+
+bool parse_string(Cursor& c, std::string& out) {
+  if (!c.expect('"')) return false;
+  out.clear();
+  while (c.p < c.end) {
+    char ch = *c.p++;
+    if (ch == '"') return true;
+    if (ch == '\\') {
+      if (c.p >= c.end) break;
+      char esc = *c.p++;
+      switch (esc) {
+        case '"': out += '"'; break;
+        case '\\': out += '\\'; break;
+        case '/': out += '/'; break;
+        case 'b': out += '\b'; break;
+        case 'f': out += '\f'; break;
+        case 'n': out += '\n'; break;
+        case 'r': out += '\r'; break;
+        case 't': out += '\t'; break;
+        case 'u': {
+          if (c.end - c.p < 4) { c.error("bad \\u escape"); return false; }
+          unsigned code = 0;
+          for (int i = 0; i < 4; i++) {
+            char h = *c.p++;
+            code <<= 4;
+            if (h >= '0' && h <= '9') code |= h - '0';
+            else if (h >= 'a' && h <= 'f') code |= h - 'a' + 10;
+            else if (h >= 'A' && h <= 'F') code |= h - 'A' + 10;
+            else { c.error("bad \\u escape"); return false; }
+          }
+          // surrogate pair?
+          if (code >= 0xD800 && code <= 0xDBFF && c.end - c.p >= 6 &&
+              c.p[0] == '\\' && c.p[1] == 'u') {
+            unsigned lo = 0;
+            const char* q = c.p + 2;
+            bool ok = true;
+            for (int i = 0; i < 4; i++) {
+              char h = q[i];
+              lo <<= 4;
+              if (h >= '0' && h <= '9') lo |= h - '0';
+              else if (h >= 'a' && h <= 'f') lo |= h - 'a' + 10;
+              else if (h >= 'A' && h <= 'F') lo |= h - 'A' + 10;
+              else { ok = false; break; }
+            }
+            if (ok && lo >= 0xDC00 && lo <= 0xDFFF) {
+              code = 0x10000 + ((code - 0xD800) << 10) + (lo - 0xDC00);
+              c.p += 6;
+            }
+          }
+          // utf-8 encode
+          if (code < 0x80) out += static_cast<char>(code);
+          else if (code < 0x800) {
+            out += static_cast<char>(0xC0 | (code >> 6));
+            out += static_cast<char>(0x80 | (code & 0x3F));
+          } else if (code < 0x10000) {
+            out += static_cast<char>(0xE0 | (code >> 12));
+            out += static_cast<char>(0x80 | ((code >> 6) & 0x3F));
+            out += static_cast<char>(0x80 | (code & 0x3F));
+          } else {
+            out += static_cast<char>(0xF0 | (code >> 18));
+            out += static_cast<char>(0x80 | ((code >> 12) & 0x3F));
+            out += static_cast<char>(0x80 | ((code >> 6) & 0x3F));
+            out += static_cast<char>(0x80 | (code & 0x3F));
+          }
+          break;
+        }
+        default: c.error("bad escape"); return false;
+      }
+    } else {
+      out += ch;
+    }
+  }
+  c.error("unterminated string");
+  return false;
+}
+
+bool parse_literal(Cursor& c, const char* lit);
+
+// kind: 0 = int64 (i), 1 = double (d), 2 = out-of-int64-range integer
+// (token holds the raw text)
+bool parse_number(Cursor& c, int& kind, int64_t& i, double& d,
+                  std::string& token) {
+  c.ws();
+  const char* start = c.p;
+  if (c.p < c.end && (*c.p == '-' || *c.p == '+')) ++c.p;
+  bool saw_digit = false, saw_dot = false, saw_exp = false;
+  while (c.p < c.end) {
+    char ch = *c.p;
+    if (ch >= '0' && ch <= '9') { saw_digit = true; ++c.p; }
+    else if (ch == '.' && !saw_dot) { saw_dot = true; ++c.p; }
+    else if ((ch == 'e' || ch == 'E') && !saw_exp) {
+      saw_exp = true; ++c.p;
+      if (c.p < c.end && (*c.p == '-' || *c.p == '+')) ++c.p;
+    } else break;
+  }
+  if (!saw_digit) { c.error("bad number"); return false; }
+  token.assign(start, c.p);
+  if (!saw_dot && !saw_exp) {
+    errno = 0;
+    i = strtoll(token.c_str(), nullptr, 10);
+    kind = (errno == ERANGE) ? 2 : 0;
+  } else {
+    kind = 1;
+    d = strtod(token.c_str(), nullptr);
+  }
+  return true;
+}
+
+// parse a small integer that must fit int32 (seq, elem, deps seqs)
+bool parse_int32(Cursor& c, const char* what, int32_t& out) {
+  int kind; int64_t i = 0; double d = 0; std::string tok;
+  if (!parse_number(c, kind, i, d, tok)) return false;
+  if (kind == 1) i = static_cast<int64_t>(d);
+  if (kind == 2 || i < INT32_MIN || i > INT32_MAX) {
+    c.error(std::string(what) + " out of int32 range: " + tok);
+    return false;
+  }
+  out = static_cast<int32_t>(i);
+  return true;
+}
+
+// skip any JSON value (for unknown fields: the Python path ignores them, so
+// the native path must too)
+bool skip_value(Cursor& c) {
+  c.ws();
+  if (c.p >= c.end) { c.error("unexpected end"); return false; }
+  char ch = *c.p;
+  if (ch == '"') { std::string s; return parse_string(c, s); }
+  if (ch == '{') {
+    ++c.p;
+    if (!c.peek('}')) {
+      do {
+        std::string k;
+        if (!parse_string(c, k)) return false;
+        if (!c.expect(':')) return false;
+        if (!skip_value(c)) return false;
+      } while (c.eat(','));
+    }
+    return c.expect('}');
+  }
+  if (ch == '[') {
+    ++c.p;
+    if (!c.peek(']')) {
+      do {
+        if (!skip_value(c)) return false;
+      } while (c.eat(','));
+    }
+    return c.expect(']');
+  }
+  if (parse_literal(c, "true") || parse_literal(c, "false") ||
+      parse_literal(c, "null")) return true;
+  int kind; int64_t i; double d; std::string tok;
+  return parse_number(c, kind, i, d, tok);
+}
+
+bool parse_literal(Cursor& c, const char* lit) {
+  size_t n = strlen(lit);
+  c.ws();
+  if (static_cast<size_t>(c.end - c.p) >= n && strncmp(c.p, lit, n) == 0) {
+    c.p += n;
+    return true;
+  }
+  return false;
+}
+
+Action action_code(const std::string& s) {
+  if (s == "set") return A_SET;
+  if (s == "ins") return A_INS;
+  if (s == "del") return A_DEL;
+  if (s == "link") return A_LINK;
+  if (s == "move") return A_MOVE;
+  if (s == "makeMap") return A_MAKE_MAP;
+  if (s == "makeList") return A_MAKE_LIST;
+  if (s == "makeText") return A_MAKE_TEXT;
+  return A_BAD;
+}
+
+bool parse_op(Cursor& c, Parsed& out) {
+  if (!c.expect('{')) return false;
+  int8_t action = A_BAD;
+  int32_t obj = -1, key = -1, elem = -1, vstr = -1;
+  int8_t vtag = V_NONE;
+  int64_t vint = 0;
+  double vdbl = 0;
+  std::string field, sval;
+  if (!c.peek('}')) {
+    do {
+      if (!parse_string(c, field)) return false;
+      if (!c.expect(':')) return false;
+      if (field == "action") {
+        if (!parse_string(c, sval)) return false;
+        action = action_code(sval);
+        if (action == A_BAD) { c.error("unknown action " + sval); return false; }
+      } else if (field == "obj") {
+        if (!parse_string(c, sval)) return false;
+        obj = out.objects.add(sval);
+      } else if (field == "key") {
+        if (!parse_string(c, sval)) return false;
+        key = out.keys.add(sval);
+      } else if (field == "elem") {
+        if (!parse_int32(c, "elem", elem)) return false;
+      } else if (field == "value") {
+        if (c.peek('"')) {
+          if (!parse_string(c, sval)) return false;
+          vtag = V_STR;
+          vstr = out.strings.add(sval);
+        } else if (parse_literal(c, "true")) {
+          vtag = V_TRUE;
+        } else if (parse_literal(c, "false")) {
+          vtag = V_FALSE;
+        } else if (parse_literal(c, "null")) {
+          vtag = V_NULL;
+        } else {
+          int kind; int64_t i; double d; std::string tok;
+          if (!parse_number(c, kind, i, d, tok)) return false;
+          if (kind == 0) { vtag = V_INT; vint = i; }
+          else if (kind == 1) { vtag = V_DOUBLE; vdbl = d; }
+          else { vtag = V_BIGINT; vstr = out.strings.add(tok); }
+        }
+      } else {
+        // unknown fields are ignored, matching the Python wire path
+        if (!skip_value(c)) return false;
+      }
+    } while (c.eat(','));
+  }
+  if (!c.expect('}')) return false;
+  if (action == A_BAD) { c.error("op missing action"); return false; }
+  out.op_action.push_back(action);
+  out.op_obj.push_back(obj);
+  out.op_key.push_back(key);
+  out.op_elem.push_back(elem);
+  out.op_vtag.push_back(vtag);
+  out.op_vint.push_back(vint);
+  out.op_vdbl.push_back(vdbl);
+  out.op_vstr.push_back(vstr);
+  return true;
+}
+
+bool parse_change(Cursor& c, Parsed& out) {
+  if (!c.expect('{')) return false;
+  int32_t actor = -1, seq = -1, msg = -1;
+  std::string field, sval;
+  bool saw_ops = false;
+  if (!c.peek('}')) {
+    do {
+      if (!parse_string(c, field)) return false;
+      if (!c.expect(':')) return false;
+      if (field == "actor") {
+        if (!parse_string(c, sval)) return false;
+        actor = out.actors.add(sval);
+      } else if (field == "seq") {
+        if (!parse_int32(c, "seq", seq)) return false;
+      } else if (field == "message") {
+        if (parse_literal(c, "null")) {
+          msg = -1;
+        } else {
+          if (!parse_string(c, sval)) return false;
+          msg = out.messages.add(sval);
+        }
+      } else if (field == "deps") {
+        if (!c.expect('{')) return false;
+        if (!c.peek('}')) {
+          do {
+            if (!parse_string(c, sval)) return false;
+            if (!c.expect(':')) return false;
+            int32_t dep_seq;
+            if (!parse_int32(c, "deps seq", dep_seq)) return false;
+            out.deps_actor.push_back(out.actors.add(sval));
+            out.deps_seq.push_back(dep_seq);
+          } while (c.eat(','));
+        }
+        if (!c.expect('}')) return false;
+      } else if (field == "ops") {
+        saw_ops = true;
+        if (!c.expect('[')) return false;
+        if (!c.peek(']')) {
+          do {
+            if (!parse_op(c, out)) return false;
+          } while (c.eat(','));
+        }
+        if (!c.expect(']')) return false;
+      } else {
+        // unknown fields are ignored, matching the Python wire path
+        if (!skip_value(c)) return false;
+      }
+    } while (c.eat(','));
+  }
+  if (!c.expect('}')) return false;
+  (void)saw_ops;  // missing "ops" means an empty op list (Python parity)
+  if (actor < 0 || seq < 0) {
+    c.error("change missing actor/seq");
+    return false;
+  }
+  out.change_actor.push_back(actor);
+  out.change_seq.push_back(seq);
+  out.change_msg.push_back(msg);
+  out.deps_off.push_back(static_cast<int32_t>(out.deps_actor.size()));
+  out.op_off.push_back(static_cast<int32_t>(out.op_action.size()));
+  return true;
+}
+
+void blob_of(const Interner& in, std::string& blob, std::vector<int32_t>& off) {
+  off.clear();
+  off.push_back(0);
+  blob.clear();
+  for (const auto& s : in.items) {
+    blob += s;
+    off.push_back(static_cast<int32_t>(blob.size()));
+  }
+}
+
+struct Handle {
+  Parsed parsed;
+  std::string actors_blob, objects_blob, keys_blob, messages_blob, strings_blob;
+  std::vector<int32_t> actors_off, objects_off, keys_off, messages_off, strings_off;
+};
+
+}  // namespace
+
+extern "C" {
+
+void* amtpu_parse_changes(const char* data, int64_t len, char* errbuf,
+                          int64_t errlen) {
+  auto* h = new Handle();
+  Cursor c{data, data + len};
+  c.ws();
+  bool ok = true;
+  h->parsed.deps_off.push_back(0);
+  h->parsed.op_off.push_back(0);
+  if (!c.expect('[')) ok = false;
+  if (ok && !c.peek(']')) {
+    do {
+      if (!parse_change(c, h->parsed)) { ok = false; break; }
+    } while (c.eat(','));
+  }
+  if (ok && !c.expect(']')) ok = false;
+  if (ok) {
+    c.ws();
+    if (c.p != c.end) { c.error("trailing data"); ok = false; }
+  }
+  if (!ok || c.fail) {
+    if (errbuf && errlen > 0) {
+      std::string m = c.msg.empty() ? "parse error" : c.msg;
+      strncpy(errbuf, m.c_str(), errlen - 1);
+      errbuf[errlen - 1] = '\0';
+    }
+    delete h;
+    return nullptr;
+  }
+  blob_of(h->parsed.actors, h->actors_blob, h->actors_off);
+  blob_of(h->parsed.objects, h->objects_blob, h->objects_off);
+  blob_of(h->parsed.keys, h->keys_blob, h->keys_off);
+  blob_of(h->parsed.messages, h->messages_blob, h->messages_off);
+  blob_of(h->parsed.strings, h->strings_blob, h->strings_off);
+  return h;
+}
+
+void amtpu_free(void* handle) { delete static_cast<Handle*>(handle); }
+
+// sizes: [n_changes, n_ops, n_deps, n_actors, n_objects, n_keys, n_messages,
+//         n_strings, actors_blob, objects_blob, keys_blob, messages_blob,
+//         strings_blob]
+void amtpu_sizes(void* handle, int64_t* out) {
+  auto* h = static_cast<Handle*>(handle);
+  out[0] = static_cast<int64_t>(h->parsed.change_actor.size());
+  out[1] = static_cast<int64_t>(h->parsed.op_action.size());
+  out[2] = static_cast<int64_t>(h->parsed.deps_actor.size());
+  out[3] = static_cast<int64_t>(h->parsed.actors.items.size());
+  out[4] = static_cast<int64_t>(h->parsed.objects.items.size());
+  out[5] = static_cast<int64_t>(h->parsed.keys.items.size());
+  out[6] = static_cast<int64_t>(h->parsed.messages.items.size());
+  out[7] = static_cast<int64_t>(h->parsed.strings.items.size());
+  out[8] = static_cast<int64_t>(h->actors_blob.size());
+  out[9] = static_cast<int64_t>(h->objects_blob.size());
+  out[10] = static_cast<int64_t>(h->keys_blob.size());
+  out[11] = static_cast<int64_t>(h->messages_blob.size());
+  out[12] = static_cast<int64_t>(h->strings_blob.size());
+}
+
+void amtpu_copy_columns(void* handle,
+                        int32_t* change_actor, int32_t* change_seq,
+                        int32_t* change_msg, int32_t* deps_off,
+                        int32_t* deps_actor, int32_t* deps_seq,
+                        int32_t* op_off, int8_t* op_action, int32_t* op_obj,
+                        int32_t* op_key, int32_t* op_elem, int8_t* op_vtag,
+                        int64_t* op_vint, double* op_vdbl, int32_t* op_vstr) {
+  auto* h = static_cast<Handle*>(handle);
+  auto cpy = [](auto* dst, const auto& src) {
+    if (!src.empty())
+      memcpy(dst, src.data(), src.size() * sizeof(src[0]));
+  };
+  cpy(change_actor, h->parsed.change_actor);
+  cpy(change_seq, h->parsed.change_seq);
+  cpy(change_msg, h->parsed.change_msg);
+  cpy(deps_off, h->parsed.deps_off);
+  cpy(deps_actor, h->parsed.deps_actor);
+  cpy(deps_seq, h->parsed.deps_seq);
+  cpy(op_off, h->parsed.op_off);
+  cpy(op_action, h->parsed.op_action);
+  cpy(op_obj, h->parsed.op_obj);
+  cpy(op_key, h->parsed.op_key);
+  cpy(op_elem, h->parsed.op_elem);
+  cpy(op_vtag, h->parsed.op_vtag);
+  cpy(op_vint, h->parsed.op_vint);
+  cpy(op_vdbl, h->parsed.op_vdbl);
+  cpy(op_vstr, h->parsed.op_vstr);
+}
+
+// table: 0 actors, 1 objects, 2 keys, 3 messages, 4 strings
+void amtpu_copy_table(void* handle, int table, char* blob, int32_t* offsets) {
+  auto* h = static_cast<Handle*>(handle);
+  const std::string* b = nullptr;
+  const std::vector<int32_t>* o = nullptr;
+  switch (table) {
+    case 0: b = &h->actors_blob; o = &h->actors_off; break;
+    case 1: b = &h->objects_blob; o = &h->objects_off; break;
+    case 2: b = &h->keys_blob; o = &h->keys_off; break;
+    case 3: b = &h->messages_blob; o = &h->messages_off; break;
+    case 4: b = &h->strings_blob; o = &h->strings_off; break;
+    default: return;
+  }
+  if (!b->empty()) memcpy(blob, b->data(), b->size());
+  memcpy(offsets, o->data(), o->size() * sizeof(int32_t));
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// Host RGA linearizer.
+//
+// The device linearizer (engine/kernels.py linearize) is a sequential
+// lax.scan — fine for the short lists of typical documents, but a wall for
+// long text (sequential typing builds a parent chain as deep as the
+// document). This native implementation runs the same algorithm at C speed:
+// process 'ins' ops ascending by (elem, actor-rank), head-inserting each
+// element immediately after its parent in a next-pointer array, then walk
+// the list once to emit positions. O(n log n) in the sort.
+
+extern "C" void amtpu_linearize(int64_t n, const int32_t* elem,
+                                const int32_t* actor, const int32_t* parent,
+                                const uint8_t* mask, int32_t* out_pos) {
+  std::vector<int32_t> order;
+  order.reserve(n);
+  for (int64_t i = 0; i < n; ++i)
+    if (mask[i]) order.push_back(static_cast<int32_t>(i));
+  std::sort(order.begin(), order.end(), [&](int32_t a, int32_t b) {
+    if (elem[a] != elem[b]) return elem[a] < elem[b];
+    return actor[a] < actor[b];
+  });
+
+  // node 0 is the head sentinel; element slot e lives at node e+1
+  std::vector<int32_t> next(n + 1, -1);
+  for (int32_t idx : order) {
+    int32_t p = parent[idx] >= 0 ? parent[idx] + 1 : 0;
+    int32_t e = idx + 1;
+    next[e] = next[p];
+    next[p] = e;
+  }
+
+  for (int64_t i = 0; i < n; ++i) out_pos[i] = -1;
+  int32_t pos = 0;
+  for (int32_t v = next[0]; v != -1; v = next[v]) out_pos[v - 1] = pos++;
+}

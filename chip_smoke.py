@@ -2,11 +2,14 @@
 """Smoke run of the PyTorch/CUDA port (automerge_tpu_torch) on one NVIDIA
 GPU: builds the hand-written kernels from the checkout, holds each against
 its plain PyTorch version, and drives the port's main paths at full size:
-the rows engine (`ResidentRowsDocSet.apply_rounds`, `hashes`,
-`hashes_for`), the text-merge plane (`dispatch.merge_spans_adaptive`), the
-move plane (`dispatch.resolve_moves_adaptive`) and the docs-major engine
-(`ResidentDocSet.apply_and_reconcile`, `apply_changes`, `hashes_for`,
-`batchdoc.apply_batch`).
+the rows engine (`ResidentRowsDocSet.apply_round_frames`, `apply_rounds`,
+`hashes`, `hashes_for`), the text-merge plane
+(`dispatch.merge_spans_adaptive`), the move plane
+(`dispatch.resolve_moves_adaptive`) and the docs-major engine
+(`ResidentDocSet.apply_and_reconcile_columns`, `apply_and_reconcile`,
+`apply_changes`, `hashes_for`, `batchdoc.apply_batch`). Ingress runs the
+native C++ encoder, built with g++ at first use, unless a line says
+native=False.
 
     python3 chip_smoke.py
 
@@ -30,16 +33,28 @@ Phases:
      32, 4) (the docset fleet's shape) and (300, 45, 3), each with values
      below 2**24 and over the whole int32 range;
   2. the map storm of the reference's bench config 20: 10,000 docs, 8 heavy
-     docs of 400 ops, 8 zipf(1.1) rounds of ~1K dirty docs, then a
-     minority-dirty hashes_for read;
+     docs of 400 ops, 8 zipf(1.1) rounds of ~1K dirty docs. (a) The main
+     path: the rounds pre-encoded as AMR1 round frames, applied by
+     apply_round_frames one frame a call, each followed by hashes(); each
+     round's host legs (decode, actor registration + precheck, admission
+     + native encode, triplets, dispatch, readback) timed by wrapping the
+     engine's methods; every round after the first call on the batched
+     admission path. (b) The 8 frames as one micro-batch. (c)
+     apply_rounds (native), then late docs and a minority-dirty
+     hashes_for read. (d) apply_rounds with native=False. One final hash
+     set;
   3. a text fleet of 2,048 docs, 4 concurrent typists each, so the list
      half of the kernel runs; its startup read takes the full-buffer path;
+     the main path through apply_round_frames (a frame a call, read back,
+     legs split), then apply_rounds native and native=False, all equal;
   4. both paths' final hashes recomputed from the device buffer by the plain
      version, and the launch counts of both paths;
   5. small fixed-seed workloads against outputs the JAX reference computed
      (automerge_tpu_torch/testdata/reference_hashes.npz): the rows streams'
-     hashes, span-table merges, move resolutions and the docs-major
-     engine's hashes (512 docs of the docset fleet, 64 of the text fleet);
+     hashes (through apply_rounds and apply_round_frames), span-table
+     merges, move resolutions and the docs-major engine's hashes (512 docs
+     of the docset fleet, 64 of the text fleet; through apply_and_reconcile
+     and apply_and_reconcile_columns);
   6. the text-merge plane: bench config 10's 1,000,000-char bulk merge and
      a 10,000-doc fleet of its small-doc shape, each one routed dispatch
      (the plan must pick the device, the kernel must launch once), held
@@ -56,11 +71,14 @@ Phases:
   9. the docs-major engine: (a) bench config 5's docset fleet (10,000
      docs, 12 rounds of 2,000 one-op changes) through ResidentDocSet, then
      apply_changes and a minority hashes_for read, held to apply_batch
-     from scratch; (b) phase 3's text fleet through ResidentDocSet, its
-     hashes equal to the rows engine's; (c) apply_batch of the text
-     fleet's change sets equal to (b). For (a) and (b) the domination
-     kernel on the final state equals its plain version, and (b)'s last
-     apply_doc kept exactly the ops the plain flags leave undominated.
+     from scratch; the same rounds through apply_and_reconcile_columns
+     (per-doc columns decoded from AMW1 frames) and through
+     apply_and_reconcile with native=False; (b) phase 3's text fleet
+     through ResidentDocSet by the same three routes, its hashes equal to
+     the rows engine's; (c) apply_batch of the text fleet's change sets
+     equal to (b). For (a) and (b) the domination kernel on the final
+     state equals its plain version, and (b)'s last apply_doc kept
+     exactly the ops the plain flags leave undominated.
 Then the kernel timings (each kernel's launches timed three ways:
 `kernel_ms` from CUDA events around a host loop of launches, the host's
 `enqueue_ms` per launch in that loop, and `graph_ms` from a replay of the
@@ -561,66 +579,267 @@ def phase_dominated_parity(torch, dev, report):
                   f"{float(got.float().mean()):.3f})")
 
 
+def p50(xs) -> float:
+    return sorted(xs)[len(xs) // 2]
+
+
+def walls_text(walls) -> str:
+    return (f"{[round(w, 4) for w in walls]} (p50 {p50(walls):.4f})")
+
+
+# The host legs of each ingress route, each the engine methods it wraps
+# (chip_smoke.py times them from outside; the package has no switch). The
+# frame decode and the readback are timed around the calls, and "other" is
+# the call's wall less its legs.
+FRAME_LEGS = {
+    "register+precheck": ("_register_round_actors", "_precheck_round_frames"),
+    "admit+encode": ("_encode_rounds_batched", "_encode_round_frame",
+                     "_grow_for_rounds"),
+    "triplets": ("_cols_triplets",),
+    "dispatch": ("_dispatch_final",),
+}
+# apply_rounds on the native encoder ("other": changes_to_columns, the
+# guards)
+ROUNDS_LEGS = {
+    "register+precheck": ("_register_actors_cols",
+                          "_precheck_rows_budget_cols"),
+    "admit+encode": ("_native_encode_round", "_grow_for_rounds"),
+    "triplets": ("_cols_triplets",),
+    "dispatch+readback": ("_dispatch_rounds",),
+}
+# apply_and_reconcile_columns ("other": a Delta per doc slot, the rows
+# sliced per doc, the table mirror)
+COLUMN_LEGS = {
+    "register": ("_register_actors_cols",),
+    "admit+encode": ("_native_ingest_round",),
+    "stack+copy": ("_stack_deltas",),
+    "apply+readback": ("_apply_flat",),
+}
+
+
+def time_legs(ds, spec=FRAME_LEGS) -> dict:
+    """Wrap ds's methods named in `spec` to add their host seconds into
+    the returned dict."""
+    legs = {leg: 0.0 for leg in spec}
+
+    def wrap(leg, fn):
+        def timed(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                legs[leg] += time.perf_counter() - t
+        return timed
+
+    for leg, names in spec.items():
+        for name in names:
+            setattr(ds, name, wrap(leg, getattr(ds, name)))
+    return legs
+
+
+def timed_calls(ds, spec, calls):
+    """Run each call (a function of ds) with ds's `spec` legs timed.
+    Returns the walls and the legs of each call, "other" included."""
+    legs = time_legs(ds, spec)
+    walls, per_call = [], []
+    for call in calls:
+        for k in legs:
+            legs[k] = 0.0
+        t0 = time.perf_counter()
+        out = call(ds)
+        wall = time.perf_counter() - t0
+        walls.append(wall)
+        per_call.append({**legs, "other": wall - sum(legs.values())})
+    return out, walls, per_call
+
+
+def frame_rounds(ds, frames):
+    """The main path: one round frame a call, then the hash read, each
+    round split into its host legs. Returns the final hashes, the walls
+    and the legs of each round."""
+    from automerge_tpu_torch.sync.frames import decode_round_frame
+    legs = time_legs(ds)
+    walls, per_round = [], []
+    final = None
+    for f in frames:
+        for k in legs:
+            legs[k] = 0.0
+        t0 = time.perf_counter()
+        rc = decode_round_frame(f)
+        t1 = time.perf_counter()
+        ds.apply_round_frames([rc])
+        t2 = time.perf_counter()
+        final = ds.hashes()
+        t3 = time.perf_counter()
+        split = {"decode": t1 - t0, **legs, "readback": t3 - t2}
+        split["other"] = (t2 - t1) - sum(legs.values())
+        walls.append(t3 - t0)
+        per_round.append(split)
+    return final, walls, per_round
+
+
+def legs_text(per_round) -> str:
+    """Each leg's p50 seconds over the rounds and its share of the summed
+    walls."""
+    total = sum(sum(r.values()) for r in per_round)
+    return "; ".join(
+        f"{k} p50 {p50([r[k] for r in per_round]):.5f} s "
+        f"({100 * sum(r[k] for r in per_round) / total:.1f}%)"
+        for k in per_round[0])
+
+
 def drive_map_storm(torch, dev):
-    """Phase 2: the main path at bench config 20's scale. Returns the
-    engine, its final hashes and the launch count of this path."""
+    """Phase 2: the main path at bench config 20's scale, the storm's AMR1
+    round frames through apply_round_frames one a call, each read back;
+    then the same rounds as one 8-frame micro-batch, through apply_rounds
+    (native) with the late docs and the minority read, and through
+    apply_rounds with native=False. Returns the main path's engine, its
+    final hashes and its launches, and the apply_rounds engine with its
+    final hashes."""
     from automerge_tpu_torch.engine import cuda_kernels as ck
+    from automerge_tpu_torch.engine import resident_rows as rr
     from automerge_tpu_torch.engine.resident_rows import ResidentRowsDocSet
+    from automerge_tpu_torch.sync.frames import encode_round_frame
     from automerge_tpu_torch.workloads import map_storm
 
     ids, heavy, storm = map_storm()
+    n = len(ids)
+    t0 = time.perf_counter()
+    heavy_frame = encode_round_frame(heavy)
+    frames = [encode_round_frame(r) for r in storm]
+    encode_s = time.perf_counter() - t0
+
+    # (a) the main path
     ds = ResidentRowsDocSet(ids, device=dev)
     ck.LAUNCHES["reconcile_rows_hash"] = 0
     t0 = time.perf_counter()
-    ds.apply_rounds([heavy])
+    ds.apply_round_frames([heavy_frame])
     ds.hashes()
     heavy_s = time.perf_counter() - t0
-    walls = []
-    for rnd in storm:
-        t = time.perf_counter()
-        ds.apply_rounds([rnd])
-        walls.append(time.perf_counter() - t)
+    before = dict(rr.ROUNDS)
+    final, walls, per_round = frame_rounds(ds, frames)
+    launches = ck.LAUNCHES["reconcile_rows_hash"]
+    moved = {k: rr.ROUNDS[k] - before[k] for k in before}
+    check(moved == {"rows_rounds_batched": len(frames),
+                    "rows_rounds_fallback": 0},
+          f"map storm frames: rounds not all batched: {moved}")
+
+    # (b) the same rounds as one micro-batch
+    mb = ResidentRowsDocSet(ids, device=dev)
+    mb.apply_round_frames([heavy_frame])
+    mb.hashes()
+    before = dict(rr.ROUNDS)
+    t0 = time.perf_counter()
+    h = mb.apply_round_frames(frames)
+    t1 = time.perf_counter()
+    mb_final = ck.hashes_to_numpy(h)[:n]
+    mb_s, mb_read_s = t1 - t0, time.perf_counter() - t1
+    mb_moved = {k: rr.ROUNDS[k] - before[k] for k in before}
+    check(mb_moved["rows_rounds_fallback"] == 0,
+          f"map storm micro-batch fell back: {mb_moved}")
+
+    # (c) apply_rounds, native, with late docs and a minority read
+    rd = ResidentRowsDocSet(ids, device=dev)
+    rd.apply_rounds([heavy])
+    rd.hashes()
+    _, r_walls, r_legs = timed_calls(
+        rd, ROUNDS_LEGS,
+        [lambda e, rnd=rnd: e.apply_rounds([rnd]) for rnd in storm])
     # late docs fill padding lanes: a minority-dirty read gathers them
     fresh = [f"late{k:03d}"
-             for k in range(min(100, ds.n_pad - len(ds.doc_ids)))]
-    ds.add_docs(fresh)
+             for k in range(min(100, rd.n_pad - len(rd.doc_ids)))]
+    rd.add_docs(fresh)
     t = time.perf_counter()
-    ds.hashes_for([ds.doc_index[d] for d in fresh] + [0, 9, 500])
+    rd.hashes_for([rd.doc_index[d] for d in fresh] + [0, 9, 500])
     minority_s = time.perf_counter() - t
-    final = ds.hashes()
-    launches = ck.LAUNCHES["reconcile_rows_hash"]
-    print(f"phase 2: {len(ds.doc_ids)} docs n_pad={ds.n_pad} dims={ds.dims()} "
+    rd_final = rd.hashes()
+
+    # (d) apply_rounds on the pure-Python encoder
+    py = ResidentRowsDocSet(ids, device=dev, native=False)
+    py.apply_rounds([heavy])
+    py.hashes()
+    py_walls = []
+    for rnd in storm:
+        t = time.perf_counter()
+        py.apply_rounds([rnd])
+        py_walls.append(time.perf_counter() - t)
+    py_final = py.hashes()
+
+    for name, got in (("micro-batch", mb_final), ("apply_rounds", rd_final),
+                      ("apply_rounds native=False", py_final)):
+        check((got[:n] == final).all(), f"map storm: {name} != frames")
+    print(f"phase 2: {n} docs n_pad={ds.n_pad} dims={ds.dims()} "
           f"buffer_bytes={ds.rows_host.nbytes} "
-          f"dirty_per_round={[len(r) for r in storm]}")
-    print(f"phase 2: heavy round + read {heavy_s:.4f} s; storm round walls s "
-          f"{[round(w, 4) for w in walls]} (p50 {sorted(walls)[len(walls) // 2]:.4f}); "
-          f"minority hashes_for {minority_s:.4f} s; launches {launches}")
-    return ds, final, launches
+          f"dirty_per_round={[len(r) for r in storm]}; frames encoded "
+          f"outside the timed window in {encode_s:.4f} s")
+    print(f"phase 2: (a) apply_round_frames, one frame a call + hashes(): "
+          f"heavy round + read {heavy_s:.4f} s; storm round walls s "
+          f"{walls_text(walls)}; rounds batched {moved['rows_rounds_batched']}"
+          f", fallback {moved['rows_rounds_fallback']}; launches {launches}")
+    print(f"phase 2: (a) host legs a round: {legs_text(per_round)}")
+    for k, r in enumerate(per_round):
+        print(f"phase 2: (a) round {k} legs s " + " ".join(
+            f"{leg}={v:.5f}" for leg, v in r.items()))
+    print(f"phase 2: (b) one {len(frames)}-frame micro-batch {mb_s:.4f} s "
+          f"({mb_s / len(frames):.4f} s a round) + readback {mb_read_s:.4f}"
+          f" s; rounds batched {mb_moved['rows_rounds_batched']}, fallback "
+          f"{mb_moved['rows_rounds_fallback']}")
+    print(f"phase 2: (c) apply_rounds (native) storm round walls s "
+          f"{walls_text(r_walls)}; minority hashes_for {minority_s:.4f} s")
+    print(f"phase 2: (c) host legs a round: {legs_text(r_legs)}")
+    print(f"phase 2: (d) apply_rounds native=False storm round walls s "
+          f"{walls_text(py_walls)}; final hashes of (a)-(d) equal")
+    return ds, final, launches, rd, rd_final
 
 
 def drive_text_fleet(torch, dev):
-    """Phase 3: concurrent text editing, so the list half runs."""
+    """Phase 3: concurrent text editing, so the list half runs: the
+    main path through apply_round_frames (a frame a call, each read
+    back), then apply_rounds with the native and the Python encoder."""
     from automerge_tpu_torch.engine import cuda_kernels as ck
+    from automerge_tpu_torch.engine import resident_rows as rr
     from automerge_tpu_torch.engine.pack import rows_dims_eligible
     from automerge_tpu_torch.engine.resident_rows import ResidentRowsDocSet
+    from automerge_tpu_torch.sync.frames import encode_round_frame
     from automerge_tpu_torch.workloads import text_fleet
 
     ids, rounds = text_fleet()
+    frames = [encode_round_frame(r) for r in rounds]
+    ds = ResidentRowsDocSet(ids, device=dev)
     ck.LAUNCHES["reconcile_rows_hash"] = 0
     t0 = time.perf_counter()
-    ds = ResidentRowsDocSet(ids, device=dev)
     ds.hashes()                      # startup read: full-buffer branch
     t1 = time.perf_counter()
-    per_round = ds.apply_rounds(rounds)
-    t2 = time.perf_counter()
-    final = ds.hashes()
+    before = dict(rr.ROUNDS)
+    final, walls, per_round = frame_rounds(ds, frames)
     launches = ck.LAUNCHES["reconcile_rows_hash"]
+    moved = {k: rr.ROUNDS[k] - before[k] for k in before}
     check(rows_dims_eligible(*ds.dims()[:3]), "text dims off the envelope")
-    check((per_round[-1] == final).all(), "last round != hashes()")
+
+    walls_by = {}
+    for native in (True, False):
+        other = ResidentRowsDocSet(ids, device=dev, native=native)
+        spec = ROUNDS_LEGS if native else {}
+        per, wall, r_legs = timed_calls(
+            other, spec, [lambda e: e.apply_rounds(rounds)])
+        walls_by[native] = wall[0]
+        if native:
+            native_legs = r_legs
+        check((per[-1] == final).all(),
+              f"text fleet: apply_rounds native={native} != frames")
+        check((other.hashes() == final).all(), "last round != hashes()")
     print(f"phase 3: {len(ids)} docs dims={ds.dims()} "
           f"buffer_bytes={ds.rows_host.nbytes} startup read "
-          f"{t1 - t0:.4f} s; apply_rounds of {len(rounds)} rounds "
-          f"{t2 - t1:.4f} s; launches {launches}")
+          f"{t1 - t0:.4f} s; apply_round_frames, a frame a call + hashes(),"
+          f" round walls s {walls_text(walls)}, all {sum(walls):.4f} s; "
+          f"rounds batched {moved['rows_rounds_batched']}, fallback "
+          f"{moved['rows_rounds_fallback']}; launches {launches}")
+    print(f"phase 3: host legs a round: {legs_text(per_round)}")
+    print(f"phase 3: apply_rounds of {len(rounds)} rounds: native "
+          f"{walls_by[True]:.4f} s, native=False {walls_by[False]:.4f} s; "
+          f"hashes of all three routes equal")
+    print(f"phase 3: apply_rounds (native) host legs of the call: "
+          f"{legs_text(native_legs)}")
     return ds, final, launches
 
 
@@ -646,7 +865,9 @@ def hold_to_plain(ds, final, name, report):
 
 def phase_reference(dev):
     import numpy as np
+    from automerge_tpu_torch.engine.cuda_kernels import hashes_to_numpy
     from automerge_tpu_torch.engine.resident_rows import ResidentRowsDocSet
+    from automerge_tpu_torch.sync.frames import encode_round_frame
     from automerge_tpu_torch.workloads import reference_streams
 
     path = (Path(__file__).resolve().parent / "automerge_tpu_torch"
@@ -658,13 +879,21 @@ def phase_reference(dev):
             ds.apply_rounds(batch)
         got = ds.hashes()
         check((got == committed[name]).all(), f"{name}: != reference")
-        print(f"phase 5: {name}: {len(got)} hashes equal to the reference's")
+        # the same streams as round frames, a micro-batch a call
+        fr = ResidentRowsDocSet(ids, device=dev)
+        for batch in batches:
+            h = fr.apply_round_frames([encode_round_frame(r) for r in batch])
+        check((hashes_to_numpy(h)[:len(ids)] == committed[name]).all(),
+              f"{name}: apply_round_frames != reference")
+        print(f"phase 5: {name}: {len(got)} hashes of apply_rounds and of "
+              f"apply_round_frames equal to the reference's")
 
 
 def phase_docs_reference(dev):
     """Phase 5 for the docs-major engine: the committed reference hashes."""
     import numpy as np
     from automerge_tpu_torch.engine.resident import ResidentDocSet
+    from automerge_tpu_torch.sync.frames import decode_frame, encode_frame
     from automerge_tpu_torch.workloads import reference_docs_streams
 
     committed = np.load(Path(__file__).resolve().parent
@@ -677,8 +906,15 @@ def phase_docs_reference(dev):
         got = ds.hashes()
         check((got == committed[f"docs_{name}"]).all(),
               f"docs-major {name}: != reference")
-        print(f"phase 5: docs-major {name}: {len(got)} hashes equal to the "
-              f"reference's")
+        cols = ResidentDocSet(ids, device=dev)
+        for rnd in rounds:
+            cols.apply_and_reconcile_columns(
+                {d: decode_frame(encode_frame(c)) for d, c in rnd.items()})
+        check((cols.hashes() == committed[f"docs_{name}"]).all(),
+              f"docs-major {name}: apply_and_reconcile_columns != reference")
+        print(f"phase 5: docs-major {name}: {len(got)} hashes of "
+              f"apply_and_reconcile and of apply_and_reconcile_columns "
+              f"equal to the reference's")
 
 
 def drive_text_plane(torch, dev, report):
@@ -915,6 +1151,27 @@ def gen2_timer():
         gc.callbacks.remove(cb)
 
 
+def column_rounds(ds, frames_by_round):
+    """Each round's per-doc AMW1 frames decoded and applied through
+    apply_and_reconcile_columns, its host legs timed. Returns the last
+    hashes, the decode seconds, the apply walls and the legs a round."""
+    from automerge_tpu_torch.sync.frames import decode_frame
+    legs = time_legs(ds, COLUMN_LEGS)
+    got, decode_s, walls, per_round = None, [], [], []
+    for frames in frames_by_round:
+        for k in legs:
+            legs[k] = 0.0
+        t0 = time.perf_counter()
+        cols = {d: decode_frame(f) for d, f in frames.items()}
+        t1 = time.perf_counter()
+        got = ds.apply_and_reconcile_columns(cols)
+        walls.append(time.perf_counter() - t1)
+        decode_s.append(t1 - t0)
+        per_round.append({"decode": t1 - t0, **legs,
+                          "other": walls[-1] - sum(legs.values())})
+    return got, decode_s, walls, per_round
+
+
 def drive_docs_major(torch, dev, report, text_final):
     """Phase 9: the docs-major engine. Returns the docset fleet's and the
     text fleet's engines (their states feed the kernel timings) and the
@@ -923,6 +1180,7 @@ def drive_docs_major(torch, dev, report, text_final):
     from automerge_tpu_torch.engine import cuda_kernels as ck
     from automerge_tpu_torch.engine.batchdoc import apply_batch
     from automerge_tpu_torch.engine.resident import ResidentDocSet
+    from automerge_tpu_torch.sync.frames import encode_frame
     from automerge_tpu_torch.workloads import docset_fleet, text_fleet
 
     t0 = time.perf_counter()
@@ -931,6 +1189,13 @@ def drive_docs_major(torch, dev, report, text_final):
     print(f"phase 9: generated the docset fleet ({len(ids)} docs, "
           f"{len(rounds) - 1} rounds + 1 of {len(rounds[0])} docs) and the "
           f"text fleet ({len(tids)} docs) in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    docset_frames = [{d: encode_frame(c) for d, c in rnd.items()}
+                     for rnd in [initial] + rounds[:12]]
+    text_frames = [{d: encode_frame(c) for d, c in rnd.items()}
+                   for rnd in trounds]
+    print(f"phase 9: encoded the per-doc AMW1 frames of both fleets outside "
+          f"the timed window in {time.perf_counter() - t0:.2f} s")
     ck.LAUNCHES["dominated"] = 0
 
     # (a) the docset fleet
@@ -943,7 +1208,7 @@ def drive_docs_major(torch, dev, report, text_final):
         for rnd in rounds[:12]:
             t = time.perf_counter()
             before = sum(gen2)
-            ds.apply_and_reconcile(rnd)
+            round12 = ds.apply_and_reconcile(rnd)
             walls.append(time.perf_counter() - t)
             gc_s.append(sum(gen2) - before)
     t = time.perf_counter()
@@ -959,6 +1224,12 @@ def drive_docs_major(torch, dev, report, text_final):
           "docset fleet: hashes_for != hashes()")
     docset_bytes = ds.resident_bytes()
 
+    # (a') the docset fleet's rounds as per-doc columns decoded from frames
+    before = ck.LAUNCHES["dominated"]
+    cds = ResidentDocSet(ids, device=dev)
+    cols12, c_decode, c_walls, c_legs = column_rounds(cds, docset_frames)
+    col_launches = ck.LAUNCHES["dominated"] - before
+
     # (b) the text fleet, same streams as phase 3
     tds = ResidentDocSet(tids, device=dev)
     t0 = time.perf_counter()
@@ -966,6 +1237,12 @@ def drive_docs_major(torch, dev, report, text_final):
         tds.apply_and_reconcile(rnd)
     text_s = time.perf_counter() - t0
     text_hashes = tds.hashes()
+
+    # (b') the text fleet as columns
+    before = ck.LAUNCHES["dominated"]
+    tcs = ResidentDocSet(tids, device=dev)
+    tcols, t_decode, t_walls, t_legs = column_rounds(tcs, text_frames)
+    col_launches += ck.LAUNCHES["dominated"] - before
 
     # (c) apply_batch of the text fleet's whole change sets
     per_doc = {d: [] for d in tids}
@@ -979,11 +1256,35 @@ def drive_docs_major(torch, dev, report, text_final):
     launches = ck.LAUNCHES["dominated"]
 
     check(launches > 0, "the docs-major path skipped the domination kernel")
+    check(col_launches == len(docset_frames) + len(text_frames),
+          f"the column routes launched the domination kernel "
+          f"{col_launches} times, not once a round")
     check((text_hashes == text_final).all(),
           "text fleet: docs-major hashes != the rows engine's")
     check((batch_hashes == text_hashes).all(),
           "text fleet: apply_batch != ResidentDocSet")
+    check((cols12 == round12).all(),
+          "docset fleet: apply_and_reconcile_columns != apply_and_reconcile")
+    check((tcols == text_hashes).all(),
+          "text fleet: apply_and_reconcile_columns != apply_and_reconcile")
     # checks after the count: their launches are not the path's
+    # the pure-Python encoder on both fleets
+    py = ResidentDocSet(ids, device=dev, native=False)
+    py.apply_and_reconcile(initial)
+    py_walls = []
+    for rnd in rounds[:12]:
+        t = time.perf_counter()
+        py_last = py.apply_and_reconcile(rnd)
+        py_walls.append(time.perf_counter() - t)
+    check((py_last == round12).all(),
+          "docset fleet: native=False != the native encoder")
+    tpy = ResidentDocSet(tids, device=dev, native=False)
+    t0 = time.perf_counter()
+    for rnd in trounds:
+        tpy_last = tpy.apply_and_reconcile(rnd)
+    tpy_s = time.perf_counter() - t0
+    check((tpy_last == text_hashes).all(),
+          "text fleet: native=False != the native encoder")
     # the docset fleet from scratch
     per_doc = {d: list(initial[d]) for d in ids}
     for rnd in rounds:
@@ -998,20 +1299,32 @@ def drive_docs_major(torch, dev, report, text_final):
     print(f"phase 9: (a) docset fleet: {len(ids)} docs caps ops="
           f"{ds.cap_ops} changes={ds.cap_changes} actors={ds.cap_actors} "
           f"fids={ds.cap_fids}; initial apply_and_reconcile {initial_s:.4f} "
-          f"s; round walls s {[round(w, 4) for w in walls]} (p50 "
-          f"{sorted(walls)[len(walls) // 2]:.4f}); gen-2 garbage collection "
+          f"s; round walls s {walls_text(walls)}; gen-2 garbage collection "
           f"inside each round s {[round(g, 4) for g in gc_s]}; apply_changes of "
           f"{len(rounds[12])} docs {apply_s:.4f} s; hashes_for of "
           f"{len(minority)} docs {read_s:.4f} s; resident_bytes "
           f"{docset_bytes}; equal to apply_batch from scratch")
+    print(f"phase 9: (a) apply_and_reconcile_columns: initial "
+          f"{c_walls[0]:.4f} s (decode {c_decode[0]:.4f}); round walls s "
+          f"{walls_text(c_walls[1:])}, decode p50 {p50(c_decode[1:]):.4f} "
+          f"s; native=False apply_and_reconcile round walls s "
+          f"{walls_text(py_walls)}; hashes of the three routes equal")
+    print(f"phase 9: (a) apply_and_reconcile_columns host legs a round "
+          f"(after the initial one): {legs_text(c_legs[1:])}")
     print(f"phase 9: (b) text fleet: {len(tids)} docs caps ops="
           f"{tds.cap_ops} changes={tds.cap_changes} lists={tds.cap_lists} "
           f"elems={tds.cap_elems} actors={tds.cap_actors} fids="
           f"{tds.cap_fids}; {len(trounds)} apply_and_reconcile rounds "
-          f"{text_s:.4f} s; resident_bytes {tds.resident_bytes()}; hashes "
-          f"equal to the rows engine's (phase 3)")
+          f"{text_s:.4f} s (round p50 {p50(t_walls):.4f} s through "
+          f"apply_and_reconcile_columns, {sum(t_walls):.4f} s in all, "
+          f"decode {sum(t_decode):.4f} s; native=False {tpy_s:.4f} s); "
+          f"resident_bytes {tds.resident_bytes()}; hashes of the three "
+          f"routes equal, and to the rows engine's (phase 3)")
+    print(f"phase 9: (b) apply_and_reconcile_columns host legs a round: "
+          f"{legs_text(t_legs)}")
     print(f"phase 9: (c) apply_batch of the text fleet {batch_s:.4f} s, "
-          f"equal to (b); launches of dominated on this path {launches}")
+          f"equal to (b); launches of dominated on this path {launches} "
+          f"({col_launches} by the column routes)")
     return ds, tds, launches
 
 
@@ -1227,10 +1540,13 @@ def main() -> int:
     phase_kernel_parity(torch, dev, report)
     phase_plane_kernel_parity(torch, dev, report)
     phase_dominated_parity(torch, dev, report)
-    map_ds, map_final, map_launches = drive_map_storm(torch, dev)
+    (map_ds, map_final, map_launches,
+     rounds_ds, rounds_final) = drive_map_storm(torch, dev)
     text_ds, text_final, text_launches = drive_text_fleet(torch, dev)
     check(map_launches > 0 and text_launches > 0, "a path skipped the kernel")
     hold_to_plain(map_ds, map_final, "map storm", report)
+    hold_to_plain(rounds_ds, rounds_final, "map storm (apply_rounds)",
+                  report)
     hold_to_plain(text_ds, text_final, "text fleet", report)
     phase_reference(dev)
     phase_plane_reference(torch, dev, report)

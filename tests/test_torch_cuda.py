@@ -231,3 +231,42 @@ def test_docs_major_engine_on_the_card_reproduces_the_reference(cuda_device):
                            ds.cap_fids)
         for k in on_cpu:
             assert torch.equal(on_card[k].cpu(), on_cpu[k]), (name, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("native", [True, False])
+def test_frame_ingress_on_the_card_equals_the_cpu(cuda_device, native):
+    """apply_round_frames (the rows engine) and apply_and_reconcile_columns
+    (docs-major) on the card give the CPU's hashes and the committed
+    reference's, and launch B1 and B5."""
+    from automerge_tpu_torch.sync.frames import (decode_frame, encode_frame,
+                                                 encode_round_frame)
+    committed = np.load(REFERENCE)
+    for name, ids, batches in reference_streams():
+        frames = [encode_round_frame(r) for batch in batches for r in batch]
+        out = {}
+        for dev in (cuda_device, "cpu"):
+            ds = ResidentRowsDocSet(ids, device=dev, native=native)
+            before = cuda_kernels.LAUNCHES["reconcile_rows_hash"]
+            h = ds.apply_round_frames(frames)
+            assert h.device.type == torch.device(dev).type
+            if dev != "cpu":
+                assert cuda_kernels.LAUNCHES["reconcile_rows_hash"] \
+                    == before + 1
+            out[str(dev)] = hashes_to_numpy(h)[:len(ids)]
+        np.testing.assert_array_equal(out[str(cuda_device)], out["cpu"])
+        np.testing.assert_array_equal(out["cpu"], committed[name])
+    for name, ids, rounds in reference_docs_streams():
+        out = {}
+        for dev in (cuda_device, "cpu"):
+            ds = ResidentDocSet(ids, device=dev, native=native)
+            before = cuda_kernels.LAUNCHES["dominated"]
+            for rnd in rounds:
+                ds.apply_and_reconcile_columns(
+                    {d: decode_frame(encode_frame(c)) for d, c in rnd.items()})
+            if dev != "cpu":
+                assert cuda_kernels.LAUNCHES["dominated"] \
+                    == before + len(rounds)
+            out[str(dev)] = ds.hashes()
+        np.testing.assert_array_equal(out[str(cuda_device)], out["cpu"])
+        np.testing.assert_array_equal(out["cpu"], committed[f"docs_{name}"])

@@ -26,7 +26,9 @@ def test_every_module_imports_with_jax_and_reference_blocked():
               "engine.span_kernels", "engine.move_kernels",
               "engine.dispatch", "core.moves", "core.textspans",
               "workloads", "engine.resident", "engine.batchdoc",
-              "engine.kernels", "engine.pack"):
+              "engine.kernels", "engine.pack", "native.wire",
+              "native.delta", "native.linearize", "sync.frames",
+              "utils.gcpause", "storage"):
         assert f"automerge_tpu_torch.{m}" in mods, m
     code = "\n".join([
         "import importlib, sys",
@@ -49,6 +51,18 @@ def test_every_module_imports_with_jax_and_reference_blocked():
         "ds.apply_changes(rounds[0])",
         "ds.hashes_for([0]); ds.materialize(ids[0])",
         "apply_batch([initial[i] for i in ids], device='cpu')",
+        "from automerge_tpu_torch.sync.frames import (decode_frame,",
+        "    encode_frame, encode_round_frame)",
+        "rows = ResidentRowsDocSet(ids, device='cpu')",
+        "h = rows.apply_round_frames([encode_round_frame(initial),",
+        "                             encode_round_frame(rounds[0])])",
+        "cds = ResidentDocSet(ids, device='cpu')",
+        "cds.apply_and_reconcile_columns(",
+        "    {d: decode_frame(encode_frame(c)) for d, c in initial.items()})",
+        "got = cds.apply_and_reconcile_columns(",
+        "    {d: decode_frame(encode_frame(c)) for d, c in rounds[0].items()})",
+        "from automerge_tpu_torch.engine.cuda_kernels import hashes_to_numpy",
+        "assert (hashes_to_numpy(h)[:len(ids)] == got).all()",
         "from automerge_tpu_torch.engine.dispatch import (",
         "    merge_spans_adaptive, resolve_moves_adaptive)",
         "from automerge_tpu_torch.engine.pack import pack_moves",

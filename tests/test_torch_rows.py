@@ -91,8 +91,12 @@ def split_rounds(per_doc, n_rounds, rng=None):
 
 
 def engines(ids, actors=()):
+    """Both packages' engines on their pure-Python encoders, so their row
+    buffers grow alike (the native encoder's exact growth lays them out
+    differently; tests/test_torch_ingress.py holds that path)."""
     return (RefRows(ids, actors=actors, native=False),
-            ResidentRowsDocSet(ids, actors=actors, device="cpu"))
+            ResidentRowsDocSet(ids, actors=actors, device="cpu",
+                               native=False))
 
 
 def apply_both(ref, port, rounds):
