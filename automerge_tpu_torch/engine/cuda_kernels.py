@@ -1,7 +1,10 @@
 """The build and launch of the port's hand-written CUDA kernels, and the
 two kernels of `automerge_tpu/engine/pallas_kernels.py` with their plain
 PyTorch versions: the fused reconcile over a docs-minor row buffer and the
-domination flags of the docs-major engine.
+domination flags of the docs-major engine. Also the launch of the
+docs-major engine's `linearize` kernel (`csrc/linearize.cu`), whose plain
+version and device dispatch are `kernels.linearize_plain` and
+`kernels.linearize`.
 
 `reconcile_rows_hash` and `dominated` dispatch on the device of the tensor
 they are given: a CUDA tensor launches the kernel of `csrc/reconcile_rows.
@@ -33,7 +36,7 @@ from pathlib import Path
 
 import torch
 
-from .kernels import _int32_bits, _mix4
+from .kernels import _ceil_log2, _int32_bits, _mix4
 from .pack import row_bases, rows_count, rows_dims_eligible, ROWS_VMEM_BUDGET
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -42,12 +45,13 @@ BUILD_DIR = _PKG / "build"
 SOURCES = {"reconcile_rows": CSRC / "reconcile_rows.cu",
            "span_rank_hash": CSRC / "span_rank_hash.cu",
            "move_round": CSRC / "move_round.cu",
-           "dominated": CSRC / "dominated.cu"}
+           "dominated": CSRC / "dominated.cu",
+           "linearize": CSRC / "linearize.cu"}
 
 # Launches of each kernel by its wrapper: one per launch, counted nowhere
 # else, so a run can show that its main path went through the kernel.
 LAUNCHES = {"reconcile_rows_hash": 0, "span_rank_hash": 0, "move_round": 0,
-            "resolve_moves": 0, "dominated": 0}
+            "resolve_moves": 0, "dominated": 0, "linearize": 0}
 
 # The C entry points of each source: argument types (every pointer and the
 # stream as c_void_p, so ctypes never cuts a pointer to 32 bits); each
@@ -63,6 +67,9 @@ _SIGNATURES = {
         "amt_resolve_moves": [_P] * 8 + [_I] * 7 + [_P]},
     "dominated": {
         "amt_dominated": [_P] * 7 + [_I] * 3 + [_P]},
+    "linearize": {
+        "amt_linearize": [_P] * 6 + [_I] * 4 + [_P],
+        "amt_linearize_smem_limit": []},
 }
 
 # The reference's join block height: I and LE must be multiples of it.
@@ -405,4 +412,69 @@ def dominated_plain(clock_op, actor, fid, seq, change_idx,
                    & (torch.where(act_ok[ds, None, :], cji, 0)
                       >= seq[ds, None, :]))
             out[ds] |= hit.any(1)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# linearize (the docs-major engine's RGA order; plain XLA in the reference)
+
+# Ints of work a row needs per node (E + 1 nodes): csrc/linearize.cu's
+# seven arrays, in shared memory where they fit a block, else in a global
+# scratch of LINEARIZE_SCRATCH_BLOCKS_PER_SM blocks an SM.
+LINEARIZE_ARRAYS = 7
+LINEARIZE_SCRATCH_BLOCKS_PER_SM = 2
+
+
+def linearize_uses_scratch(e: int) -> bool:
+    """Whether a row of E slots works in the global scratch on the current
+    CUDA device: its arrays need more shared memory than a block of the
+    device may opt in to."""
+    lib = _library("linearize")
+    limit = lib.amt_linearize_smem_limit()
+    if limit < 0:
+        raise RuntimeError("cudaDeviceGetAttribute failed: "
+                           + lib.amt_cuda_error_string(-limit).decode())
+    return 4 * LINEARIZE_ARRAYS * (e + 1) > limit
+
+
+def linearize(ins_mask, ins_elem, ins_actor, ins_parent) -> torch.Tensor:
+    """Launch the kernel of csrc/linearize.cu on CUDA tensors: the
+    contract of `kernels.linearize` (ins_mask [R, E] bool, ins_elem,
+    ins_actor, ins_parent [R, E] int32 -> elem_pos [R, E] int32), bit-equal
+    to `kernels.linearize_plain`. Rows whose work does not fit a block's
+    shared memory run in a global scratch this wrapper allocates."""
+    shape = ins_mask.shape
+    if ins_mask.dim() != 2 or ins_mask.dtype != torch.bool:
+        raise ValueError(f"ins_mask must be [R, E] bool, got "
+                         f"{ins_mask.dtype} {tuple(shape)}")
+    for name, x in (("ins_elem", ins_elem), ("ins_actor", ins_actor),
+                    ("ins_parent", ins_parent)):
+        if x.shape != shape or x.dtype != torch.int32:
+            raise ValueError(f"{name} must be {tuple(shape)} int32, got "
+                             f"{x.dtype} {tuple(x.shape)}")
+        if x.device != ins_mask.device:
+            raise ValueError(f"{name} is on {x.device}, ins_mask on "
+                             f"{ins_mask.device}")
+    if ins_mask.device.type != "cuda":
+        raise ValueError(f"the linearize kernel takes CUDA tensors, got "
+                         f"{ins_mask.device} (kernels.linearize routes CPU "
+                         f"tensors to linearize_plain)")
+    r, e = shape
+    dev = ins_mask.device
+    args = [t.contiguous() for t in (ins_mask, ins_elem, ins_actor,
+                                     ins_parent)]
+    with torch.cuda.device(dev):
+        out = torch.empty((r, e), dtype=torch.int32, device=dev)
+        if not (r and e):
+            return out
+        work = LINEARIZE_ARRAYS * (e + 1)
+        scratch, grid = None, r
+        if linearize_uses_scratch(e):
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            grid = min(r, LINEARIZE_SCRATCH_BLOCKS_PER_SM * sms)
+            scratch = torch.empty(grid * work, dtype=torch.int32, device=dev)
+        launch("linearize", "amt_linearize", "linearize",
+               *(t.data_ptr() for t in args), out.data_ptr(),
+               None if scratch is None else scratch.data_ptr(), r, e,
+               _ceil_log2(e + 1), grid, stream_of(ins_mask))
     return out

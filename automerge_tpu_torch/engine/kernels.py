@@ -1,8 +1,8 @@
 """The docs-major reconcile of `automerge_tpu/engine/kernels.py` on torch
-tensors (`apply_doc` and its stages: field_states, linearize,
-visible_ranks, state_hash), the murmur-style state-hash mixers it and the
-rows kernel's plain version share, and their numpy uint32 forms for the
-host oracles.
+tensors (`apply_doc` and its stages: field_states, linearize and its
+plain version, visible_ranks, state_hash), the murmur-style state-hash
+mixers it and the rows kernel's plain version share, and their numpy
+uint32 forms for the host oracles.
 
 The reference computes the hash in uint32. Torch's `>>` on int32 is an
 arithmetic shift and its integer products overflow as signed values, so
@@ -180,6 +180,18 @@ def linearize(ins_mask, ins_elem, ins_actor, ins_parent) -> torch.Tensor:
     """RGA order of list objects, one per row of [R, E] columns: returns
     elem_pos [R, E] int32, each element slot's 0-based position in the
     full document order (tombstones included; garbage for masked slots).
+    The route follows the tensors' device: a CUDA tensor launches the
+    kernel of csrc/linearize.cu (`cuda_kernels.linearize`), a CPU tensor
+    runs linearize_plain. Nothing falls back."""
+    if ins_mask.device.type == "cpu":
+        return linearize_plain(ins_mask, ins_elem, ins_actor, ins_parent)
+    from .cuda_kernels import linearize as linearize_kernel
+    return linearize_kernel(ins_mask, ins_elem, ins_actor, ins_parent)
+
+
+def linearize_plain(ins_mask, ins_elem, ins_actor,
+                    ins_parent) -> torch.Tensor:
+    """The plain PyTorch version of `linearize`, on the tensors' own device.
 
     Elements are taken in ascending (elem, actor) order (two stable sorts,
     actor first, for the reference's lexsort) and each is head-inserted

@@ -28,8 +28,13 @@ Key mechanics, as in the reference:
   per change in Python and encoded per op in C++ straight from the frame
   bytes, one native call a round for every document.
 
-Not here yet (later slices): the diff plane (`apply_and_reconcile(...,
-diffs=True)`, engine/diffs.py) and the snapshot floor.
+- The diff plane (`apply_and_reconcile(..., diffs=True)` and its column
+  twin): the round's converged state is compared on the device with the
+  baseline the diff consumer last saw (`_scatter_apply_diff`), only the
+  changed documents' rows come back, and `diffs.decode_round_diffs` turns
+  them into the reference's edit records.
+
+Not here yet (a later slice): the snapshot floor.
 """
 
 from __future__ import annotations
@@ -49,7 +54,8 @@ from .encode import (A_INS, A_LINK, A_MAKE_LIST, A_MAKE_MAP,
                      content_hash, move_loc_key, move_value_key,
                      value_hash_of, _pad_to)
 from .cuda_kernels import hashes_to_numpy
-from .kernels import apply_doc
+from .diffs import DIFF_ROWS, decode_round_diffs
+from .kernels import _int32_bits, _mix4, apply_doc
 
 OP_COLS = ("op_mask", "action", "fid", "actor", "seq", "change_idx", "value",
            "fid_hash", "value_hash")
@@ -210,6 +216,14 @@ class ResidentDocSet:
         # outputs of the last full reconcile (apply_doc's dict), or None
         # once the state changed since
         self._out: dict[str, torch.Tensor] | None = None
+        # the diff plane's state: the baseline the diff consumer last saw
+        # (present, win_value, win_actor, survivor hash, elem_visible,
+        # vis_rank of the last diff round, on the device; None before the
+        # first), the objects announced with a "create" record per doc,
+        # and per doc each map-move child's last emitted location
+        self._diff_prev: tuple | None = None
+        self._diff_announced: dict[int, int] = {}
+        self._diff_move_homes: dict[int, dict] = {}
         self._native = NativeDeltaEncoder.create() if native else None
 
     # ------------------------------------------------------------------
@@ -326,6 +340,14 @@ class ResidentDocSet:
         perm = np.array([self.actor_rank[a] for a in old_actors],
                         dtype=np.int32)
         self._remap_actors(perm)
+        if self._diff_prev is not None and len(perm):
+            # the diff baseline's winner ranks follow the remap, or every
+            # field would look changed on the next diff round
+            p, wv, wa, sh, ev, vr = self._diff_prev
+            perm_t = torch.from_numpy(perm).to(wa.device)
+            wa = torch.where(wa >= 0,
+                             perm_t[wa.clamp(0, len(perm) - 1).long()], wa)
+            self._diff_prev = (p, wv, wa, sh, ev, vr)
 
     def _remap_actors(self, perm: np.ndarray) -> None:
         """Rewrite resident rank columns: old rank r becomes perm[r] (called
@@ -552,29 +574,40 @@ class ResidentDocSet:
         _scatter_delta(self.state, flat, meta)
         self._out = None
 
-    def apply_and_reconcile(self, changes_by_doc: dict[str, list[Change]]
-                            ) -> np.ndarray:
+    def apply_and_reconcile(self, changes_by_doc: dict[str, list[Change]],
+                            diffs: bool = False):
         """Delta apply + full reconcile in one pass: one copy of the delta
         rows to the device, the scatter, `apply_doc` over the whole state
         and one readback of the hashes. Returns np.uint32 hashes aligned
-        with doc_ids."""
+        with doc_ids.
+
+        With diffs=True the pass also compares each field and element with
+        the baseline the diff consumer last saw (the last diff round's
+        state; empty before the first, so that round describes every
+        document from scratch), and returns (hashes, {doc_id: [edit
+        records]}): the reference's records (op_set.js:105-176), decoded
+        for the changed entries only (engine/diffs.py). Rounds without
+        diffs leave the baseline where it was, so their effects show in
+        the next diff round."""
         if self._native is not None:
             return self.apply_and_reconcile_columns(
                 {d: changes_to_columns(chs)
-                 for d, chs in changes_by_doc.items()})
+                 for d, chs in changes_by_doc.items()}, diffs=diffs)
         self._register_actors(changes_by_doc)
         flat, meta = self._build_delta_arrays(changes_by_doc)
-        return self._apply_flat(flat, meta)
+        return self._apply_flat(flat, meta, diffs)
 
-    def apply_and_reconcile_columns(self, cols_by_doc: dict) -> np.ndarray:
+    def apply_and_reconcile_columns(self, cols_by_doc: dict,
+                                    diffs: bool = False):
         """`apply_and_reconcile` for column ingress ({doc_id:
-        WireColumns}); same return value."""
+        WireColumns}); same arguments and return value."""
         if self._native is None:
             return self.apply_and_reconcile(
-                {d: c.to_changes() for d, c in cols_by_doc.items()})
+                {d: c.to_changes() for d, c in cols_by_doc.items()},
+                diffs=diffs)
         self._register_actors_cols(cols_by_doc)
         flat, meta = self._build_delta_arrays_cols(cols_by_doc)
-        return self._apply_flat(flat, meta)
+        return self._apply_flat(flat, meta, diffs)
 
     def _register_actors_cols(self, cols_by_doc: dict) -> None:
         new = set()
@@ -754,12 +787,53 @@ class ResidentDocSet:
         flat = np.concatenate([p.ravel() for p in parts])
         return torch.from_numpy(flat).to(self.device), meta
 
-    def _apply_flat(self, flat: torch.Tensor, meta: tuple) -> np.ndarray:
+    def _apply_flat(self, flat: torch.Tensor, meta: tuple, diffs: bool):
         self._ensure_actor_hash_state()
-        self._out = _scatter_and_apply(self.state, flat, meta, self.cap_fids)
-        vals = hashes_to_numpy(self._out["hash"])[:len(self.doc_ids)]
+        n = len(self.doc_ids)
+        if not diffs:
+            self._out = _scatter_and_apply(self.state, flat, meta,
+                                           self.cap_fids)
+            vals = hashes_to_numpy(self._out["hash"])[:n]
+            self._adopt_full_hashes(vals)   # flush-time capture
+            return vals
+        prev = self._prev_for_diffs()
+        # actor content hashes in the rank basis (every row is the same)
+        actor_hashes = self.state["actor_hash"][0]
+        out, survh, chg_fid, chg_elem = _scatter_apply_diff(
+            self.state, flat, meta, actor_hashes, *prev, self.cap_fids)
+        self._out = out
+        # the baseline of the NEXT diff round stays on the device; it is
+        # independent of _out, so hash-only rounds and add_docs in between
+        # do not reset what the consumer saw
+        self._diff_prev = (out["present"], out["win_value"],
+                           out["win_actor"], survh, out["elem_visible"],
+                           out["vis_rank"])
+        # removed elements take their old index from the baseline's ranks
+        prev_vis, prev_rank = prev[4:]
+        docs, rows = _changed_rows(self.state, out, chg_fid, chg_elem,
+                                   prev_vis, prev_rank, n)
+        records = decode_round_diffs(self, docs, rows)
+        vals = hashes_to_numpy(out["hash"])[:n]
         self._adopt_full_hashes(vals)   # flush-time capture
-        return vals
+        return vals, records
+
+    def _prev_for_diffs(self) -> tuple:
+        """The diff baseline padded to the current capacities: present,
+        win_value, win_actor, survivor hash [cap_docs, cap_fids];
+        elem_visible, vis_rank [cap_docs, cap_lists, cap_elems]. Before the
+        first diff round it is the empty state."""
+        n, f = self.cap_docs, self.cap_fids
+        lists = (n, self.cap_lists, self.cap_elems)
+        fills = (False, -1, -1, 0, False, -1)
+        shapes = ((n, f),) * 4 + (lists,) * 2
+        if self._diff_prev is None:
+            dev = self.device
+            return tuple(
+                torch.full(shape, fill, device=dev,
+                           dtype=torch.bool if fill is False else torch.int32)
+                for shape, fill in zip(shapes, fills))
+        return tuple(_pad(t, shape, fill) for t, shape, fill in
+                     zip(self._diff_prev, shapes, fills))
 
     # -- incremental hash plane ----------------------------------------
 
@@ -790,6 +864,15 @@ class ResidentDocSet:
         n = len(self.doc_ids)
         self._ensure_hash_mirror()[:n] = np.asarray(row)[:n]
         self._doc_dirty.clear()
+
+    @property
+    def hashes_clean(self) -> bool:
+        """True iff hashes() would serve entirely from the host mirror
+        (no launch, no readback)."""
+        n = len(self.doc_ids)
+        return ((n == 0 or (self._hash_mirror is not None
+                            and len(self._hash_mirror) >= n))
+                and not any(i < n for i in self._doc_dirty))
 
     def _reconcile_partial(self, idxs: list[int]) -> None:
         """Reconcile ONLY the given docs: gather their rows out of the
@@ -968,3 +1051,75 @@ def _scatter_and_apply(state: dict, flat: torch.Tensor, meta: tuple,
     outputs."""
     _scatter_delta(state, flat, meta)
     return apply_doc(state, max_fids)
+
+
+def _fid_survivor_hash(state: dict, out: dict, max_fids: int,
+                       actor_hashes: torch.Tensor) -> torch.Tensor:
+    """Order-independent per-field hash of the surviving (actor, value)
+    pairs, [D, max_fids] int32 holding the uint32 bits: the sum over a
+    field's candidates of mix4(ah, value_hash, ah ^ 0x5BF0, value_hash),
+    wrapping. It changes whenever a field's conflict set changes, even
+    when its winner does not (op_set.js:95-103). Actors mix by CONTENT hash
+    (actor_hashes[rank]), so a rank remap leaves it alone. The sum runs in
+    int64 and is taken mod 2**32, the same bits in any order on any
+    device."""
+    ah = actor_hashes[state["actor"].clamp(0, actor_hashes.shape[0] - 1)
+                      .long()]
+    vh = state["value_hash"]
+    contrib = torch.where(out["candidate"], _mix4(ah, vh, ah ^ 0x5BF0, vh), 0)
+    seg = state["fid"].clamp(0, max_fids - 1).long()
+    acc = torch.zeros((seg.shape[0], max_fids), dtype=torch.int64,
+                      device=seg.device)
+    return _int32_bits(acc.scatter_add_(1, seg, contrib))
+
+
+def _scatter_apply_diff(state: dict, flat: torch.Tensor, meta: tuple,
+                        actor_hashes: torch.Tensor, prev_present,
+                        prev_win_value, prev_win_actor, prev_survh, prev_vis,
+                        prev_rank, max_fids: int):
+    """_scatter_and_apply plus the change masks against the diff baseline.
+    chg_fid [D, F]: a field's presence, winner value, winner actor or
+    survivor hash moved. chg_elem [D, L, E]: an element's visibility or
+    rank moved, or its field changed. Returns (out, survh, chg_fid,
+    chg_elem), all on the state's device."""
+    out = _scatter_and_apply(state, flat, meta, max_fids)
+    survh = _fid_survivor_hash(state, out, max_fids, actor_hashes)
+    chg_fid = ((out["present"] != prev_present)
+               | (out["win_value"] != prev_win_value)
+               | (out["win_actor"] != prev_win_actor)
+               | (survh != prev_survh))
+    ins_fid = state["ins_fid"]
+    d = ins_fid.shape[0]
+    field_moved = torch.gather(
+        chg_fid, 1, ins_fid.clamp(0, max_fids - 1).reshape(d, -1).long()
+    ).reshape(ins_fid.shape)
+    chg_elem = ((out["elem_visible"] != prev_vis)
+                | (out["vis_rank"] != prev_rank)
+                | (field_moved & (ins_fid >= 0)))
+    return out, survh, chg_fid, chg_elem
+
+
+def _changed_rows(state: dict, out: dict, chg_fid, chg_elem, prev_vis,
+                  prev_rank, n_docs: int):
+    """The rows `diffs.decode_round_diffs` reads, for the documents among
+    the first n_docs with a changed field or element: (docs, {name: numpy
+    array [k, ...]}). The documents are found on the device; their rows
+    are gathered there and cross to the host in one copy."""
+    changed = chg_fid[:n_docs].any(1) | chg_elem[:n_docs].flatten(1).any(1)
+    docs = changed.nonzero().flatten()
+    src = {"chg_fid": chg_fid, "chg_elem": chg_elem, "prev_vis": prev_vis,
+           "prev_rank": prev_rank}
+    src.update((k, out[k]) for k in ("present", "win_value", "win_actor",
+                                     "candidate", "elem_visible", "vis_rank"))
+    src.update((k, state[k]) for k in ("fid", "actor", "value", "ins_fid",
+                                       "list_obj"))
+    picked = [src[name].index_select(0, docs) for name in DIFF_ROWS]
+    flat = torch.cat([p.flatten(1).to(torch.int32) for p in picked],
+                     1).cpu().numpy()
+    rows, at = {}, 0
+    for name, p in zip(DIFF_ROWS, picked):
+        w = int(np.prod(p.shape[1:]))
+        part = flat[:, at:at + w].reshape(p.shape)
+        rows[name] = part.astype(bool) if p.dtype == torch.bool else part
+        at += w
+    return docs.cpu().numpy(), rows

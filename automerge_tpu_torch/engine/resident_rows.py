@@ -1430,6 +1430,13 @@ class ResidentRowsDocSet(ResidentDocSet):
         self._hash_mirror[np.asarray(idxs, np.int64)] = vals[:k]
         self._doc_dirty.difference_update(idxs)
 
+    @property
+    def hashes_clean(self) -> bool:
+        """True iff hashes() would serve entirely from the host mirror: no
+        launch, no readback, no unread flush-time hash handle."""
+        return (super().hashes_clean and self._hash_handle is None
+                and self._poisoned is None)
+
     def hashes(self) -> np.ndarray:
         """Current per-doc state hashes (np.uint32), O(dirty) not O(fleet):
         served from the host hash mirror; only lanes whose rows changed

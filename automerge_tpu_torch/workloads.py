@@ -1,9 +1,10 @@
 """Seeded change streams that drive the port's engines at the sizes their
 users run: `chip_smoke.py` drives them on the card at full size, and
 `scripts/torch_reference_hashes.py` runs them small through the JAX
-reference to fix the hashes the port must reproduce. Also `random_rows`,
-`reconcile_cases` and `random_dominated`, the random kernel inputs of the
-tests and of `chip_smoke.py`.
+reference to fix the hashes (and, for the diff plane, the records) the
+port must reproduce. Also `random_rows`, `reconcile_cases`,
+`random_dominated` and `random_linearize`, the random kernel inputs of
+the tests and of `chip_smoke.py`.
 
 - `map_storm`: the reference's bench config 20 (`bench.py::
   run_megabatch_config`): a 10,000-doc fleet, 8 heavy docs of 400 `set` ops
@@ -286,6 +287,40 @@ def random_dominated(rng: np.random.Generator, d: int, n: int, a: int,
             rng.random((d, n)) < 0.8)
 
 
+# The linearize kernel's cases (R rows, E slots): E = 1, 8, 256 (the text
+# fleet's), 257 (not a power of two), 4,096, 9,000 (past a block's shared
+# memory: the global scratch) and 20,000 short rows.
+LINEARIZE_CASES = ((64, 1), (512, 8), (512, 256), (64, 257), (4, 4096),
+                   (2, 9000), (20_000, 8))
+
+
+def random_linearize(rng: np.random.Generator, r: int, e: int):
+    """Random inputs of `linearize` (numpy ins_mask [r, e] bool, ins_elem,
+    ins_actor, ins_parent [r, e] int32), a kind of row by r % 4: 0 an RGA
+    list as the encoder builds it (distinct counters, each parent an
+    earlier slot or the head), 1 random parents in [-2, e + 3) (some past
+    the array: detached nodes, self-loops) with few distinct elements and
+    actors (equal keys), 2 all masked, 3 every slot live with one element
+    and actor (every key equal). Other rows mask about a quarter of their
+    slots."""
+    mask = rng.random((r, e)) < 0.75
+    elem = rng.integers(0, 4, size=(r, e))
+    actor = rng.integers(0, 3, size=(r, e))
+    parent = rng.integers(-2, e + 3, size=(r, e))
+    kind = np.arange(r) % 4
+    rga = kind == 0
+    slots = np.arange(e)
+    elem[rga] = slots + 1
+    parent[rga] = np.floor(rng.random((int(rga.sum()), e))
+                           * (slots + 1)).astype(np.int64) - 1
+    mask[kind == 2] = False
+    mask[kind == 3] = True
+    elem[kind == 3] = 7
+    actor[kind == 3] = 1
+    return (mask, elem.astype(np.int32), actor.astype(np.int32),
+            parent.astype(np.int32))
+
+
 # Small cuts of both streams whose reference hashes are committed in
 # testdata/reference_hashes.npz (scripts/torch_reference_hashes.py).
 SMALL_MAP = dict(n_docs=40, n_heavy=2, heavy_ops=20, rounds=3,
@@ -315,6 +350,35 @@ def reference_docs_streams():
     ids, initial, rounds = docset_fleet(**SMALL_DOCSET)
     tids, trounds = text_fleet(**SMALL_DOCS_TEXT)
     return [("docset", ids, [initial] + rounds), ("text", tids, trounds)]
+
+
+def reference_diff_streams():
+    """[(name, doc_ids, rounds)]: each round is one ResidentDocSet.
+    apply_and_reconcile(..., diffs=True) call, and the committed records
+    (testdata/reference_diffs.json) are each round's {doc_id: records}.
+    The streams of reference_docs_streams, each with one more round: on
+    the docset fleet a new actor "C" (it sorts between "B" and "bench",
+    so the actor ranks remap) moves every 64th document's nested map from
+    root "flags" to root "moved" (a map move); on the text fleet alice
+    moves bob's third character after carol's fifth in every 8th document
+    (a list move)."""
+    (_, ids, rounds), (_, tids, trounds) = reference_docs_streams()
+    moves = {}
+    for i in range(0, len(ids), 64):
+        flags = f"{i:08x}-0005-4000-8000-000000000000"
+        moves[ids[i]] = [Change("C", 1, {"A": 2, "B": 1}, [
+            Op("move", ROOT_ID, key="moved", value=flags)])]
+    n_changes = 12  # text_fleet's defaults: 48 chars, 4 a change
+    list_moves = {}
+    for i in range(0, len(tids), 8):
+        text = f"{tids[i]}/text"
+        list_moves[tids[i]] = [Change(
+            "alice", n_changes + 2,
+            {a: n_changes for a in ("bob", "carol", "dave")},
+            [Op("move", text, key=make_elem_id("carol", 5),
+                value=make_elem_id("bob", 3), elem=49)])]
+    return [("docset", ids, rounds + [moves]),
+            ("text", tids, trounds + [list_moves])]
 
 
 # ---------------------------------------------------------------------------

@@ -5,9 +5,10 @@ its plain PyTorch version, and drives the port's main paths at full size:
 the rows engine (`ResidentRowsDocSet.apply_round_frames`, `apply_rounds`,
 `hashes`, `hashes_for`), the text-merge plane
 (`dispatch.merge_spans_adaptive`), the move plane
-(`dispatch.resolve_moves_adaptive`) and the docs-major engine
+(`dispatch.resolve_moves_adaptive`), the docs-major engine
 (`ResidentDocSet.apply_and_reconcile_columns`, `apply_and_reconcile`,
-`apply_changes`, `hashes_for`, `batchdoc.apply_batch`). Ingress runs the
+`apply_changes`, `hashes_for`, `batchdoc.apply_batch`) and its diff plane
+(`apply_and_reconcile_columns(..., diffs=True)`, `diffs.MirrorDoc`). Ingress runs the
 native C++ encoder, built with g++ at first use, unless a line says
 native=False.
 
@@ -31,7 +32,10 @@ Phases:
      and with labels whose hi is the pad; the domination kernel
      at (D, N, A) (512, 128, 4), (64, 1,024, 8), (1, 4,096, 16), (10,000,
      32, 4) (the docset fleet's shape) and (300, 45, 3), each with values
-     below 2**24 and over the whole int32 range;
+     below 2**24 and over the whole int32 range; the linearize kernel on
+     workloads.LINEARIZE_CASES (E = 1, 8, 256, 257, 4,096, 9,000 past the
+     shared memory, 20,000 rows of 8) of random_linearize's edge rows (RGA
+     rows, parents past the array, all-masked rows, equal keys);
   2. the map storm of the reference's bench config 20: 10,000 docs, 8 heavy
      docs of 400 ops, 8 zipf(1.1) rounds of ~1K dirty docs. (a) The main
      path: the rounds pre-encoded as AMR1 round frames, applied by
@@ -78,7 +82,20 @@ Phases:
      the rows engine's; (c) apply_batch of the text fleet's change sets
      equal to (b). For (a) and (b) the domination kernel on the final
      state equals its plain version, and (b)'s last apply_doc kept
-     exactly the ops the plain flags leave undominated.
+     exactly the ops the plain flags leave undominated;
+ 10. the docs-major diff plane at full width: phase 9's docset fleet (an
+     admitting round, then 12) and text fleet (4 rounds) through
+     apply_and_reconcile_columns(..., diffs=True), every round's hashes
+     equal to phase 9's column route, the records equal to a device="cpu"
+     instance's over a subset (every 10th docset doc, every 2nd text doc),
+     and a MirrorDoc per document folded from every round equal to
+     materialize (the docset fleet's 2,000 touched docs and 100 others, all
+     text docs); the round walls with and without diffs and the diff
+     round's legs; then the small streams of
+     workloads.reference_diff_streams (with a map move and a list move)
+     against the records the JAX reference computed
+     (testdata/reference_diffs.json). Each diff round launches the
+     linearize kernel once.
 Then the kernel timings (each kernel's launches timed three ways:
 `kernel_ms` from CUDA events around a host loop of launches, the host's
 `enqueue_ms` per launch in that loop, and `graph_ms` from a replay of the
@@ -579,6 +596,29 @@ def phase_dominated_parity(torch, dev, report):
                   f"{float(got.float().mean()):.3f})")
 
 
+def phase_linearize_parity(torch, dev, report):
+    """Phase 1, the linearize kernel on random_linearize's edge rows: one
+    launch a call, bit-equal to linearize_plain on the card."""
+    import numpy as np
+    from automerge_tpu_torch.engine import cuda_kernels as ck
+    from automerge_tpu_torch.engine.kernels import linearize_plain
+    from automerge_tpu_torch.workloads import LINEARIZE_CASES, random_linearize
+
+    for r, e in LINEARIZE_CASES:
+        args = [torch.from_numpy(x).to(dev)
+                for x in random_linearize(np.random.default_rng(r + e), r, e)]
+        got, k = counted("linearize", lambda: ck.linearize(*args))
+        check(k == 1, f"linearize launched {k} times")
+        hold_equal({"elem_pos": got.cpu().numpy()},
+                   {"elem_pos": linearize_plain(*args).cpu().numpy()},
+                   f"linearize R={r} E={e}", report["linearize"])
+        where = ("global scratch" if ck.linearize_uses_scratch(e)
+                 else "shared memory")
+        print(f"phase 1: linearize R={r} E={e} ({where}; RGA rows, parents "
+              f"past the array, all-masked rows, equal keys): one launch, "
+              f"equal to the plain version")
+
+
 def p50(xs) -> float:
     return sorted(xs)[len(xs) // 2]
 
@@ -617,23 +657,24 @@ COLUMN_LEGS = {
 }
 
 
+def timed_into(legs: dict, leg: str, fn):
+    """fn, wrapped to add the host seconds of each call into legs[leg]."""
+    def timed(*a, **k):
+        t = time.perf_counter()
+        try:
+            return fn(*a, **k)
+        finally:
+            legs[leg] += time.perf_counter() - t
+    return timed
+
+
 def time_legs(ds, spec=FRAME_LEGS) -> dict:
     """Wrap ds's methods named in `spec` to add their host seconds into
     the returned dict."""
     legs = {leg: 0.0 for leg in spec}
-
-    def wrap(leg, fn):
-        def timed(*a, **k):
-            t = time.perf_counter()
-            try:
-                return fn(*a, **k)
-            finally:
-                legs[leg] += time.perf_counter() - t
-        return timed
-
     for leg, names in spec.items():
         for name in names:
-            setattr(ds, name, wrap(leg, getattr(ds, name)))
+            setattr(ds, name, timed_into(legs, leg, getattr(ds, name)))
     return legs
 
 
@@ -1153,23 +1194,23 @@ def gen2_timer():
 
 def column_rounds(ds, frames_by_round):
     """Each round's per-doc AMW1 frames decoded and applied through
-    apply_and_reconcile_columns, its host legs timed. Returns the last
+    apply_and_reconcile_columns, its host legs timed. Returns each round's
     hashes, the decode seconds, the apply walls and the legs a round."""
     from automerge_tpu_torch.sync.frames import decode_frame
     legs = time_legs(ds, COLUMN_LEGS)
-    got, decode_s, walls, per_round = None, [], [], []
+    hashes, decode_s, walls, per_round = [], [], [], []
     for frames in frames_by_round:
         for k in legs:
             legs[k] = 0.0
         t0 = time.perf_counter()
         cols = {d: decode_frame(f) for d, f in frames.items()}
         t1 = time.perf_counter()
-        got = ds.apply_and_reconcile_columns(cols)
+        hashes.append(ds.apply_and_reconcile_columns(cols))
         walls.append(time.perf_counter() - t1)
         decode_s.append(t1 - t0)
         per_round.append({"decode": t1 - t0, **legs,
                           "other": walls[-1] - sum(legs.values())})
-    return got, decode_s, walls, per_round
+    return hashes, decode_s, walls, per_round
 
 
 def drive_docs_major(torch, dev, report, text_final):
@@ -1197,6 +1238,7 @@ def drive_docs_major(torch, dev, report, text_final):
     print(f"phase 9: encoded the per-doc AMW1 frames of both fleets outside "
           f"the timed window in {time.perf_counter() - t0:.2f} s")
     ck.LAUNCHES["dominated"] = 0
+    ck.LAUNCHES["linearize"] = 0
 
     # (a) the docset fleet
     ds = ResidentDocSet(ids, device=dev)
@@ -1227,7 +1269,8 @@ def drive_docs_major(torch, dev, report, text_final):
     # (a') the docset fleet's rounds as per-doc columns decoded from frames
     before = ck.LAUNCHES["dominated"]
     cds = ResidentDocSet(ids, device=dev)
-    cols12, c_decode, c_walls, c_legs = column_rounds(cds, docset_frames)
+    c_hashes, c_decode, c_walls, c_legs = column_rounds(cds, docset_frames)
+    cols12 = c_hashes[-1]
     col_launches = ck.LAUNCHES["dominated"] - before
 
     # (b) the text fleet, same streams as phase 3
@@ -1241,7 +1284,8 @@ def drive_docs_major(torch, dev, report, text_final):
     # (b') the text fleet as columns
     before = ck.LAUNCHES["dominated"]
     tcs = ResidentDocSet(tids, device=dev)
-    tcols, t_decode, t_walls, t_legs = column_rounds(tcs, text_frames)
+    t_hashes, t_decode, t_walls, t_legs = column_rounds(tcs, text_frames)
+    tcols = t_hashes[-1]
     col_launches += ck.LAUNCHES["dominated"] - before
 
     # (c) apply_batch of the text fleet's whole change sets
@@ -1254,6 +1298,7 @@ def drive_docs_major(torch, dev, report, text_final):
     batch_hashes = ck.hashes_to_numpy(out["hash"])
     batch_s = time.perf_counter() - t0
     launches = ck.LAUNCHES["dominated"]
+    lin_launches = ck.LAUNCHES["linearize"]
 
     check(launches > 0, "the docs-major path skipped the domination kernel")
     check(col_launches == len(docset_frames) + len(text_frames),
@@ -1324,23 +1369,225 @@ def drive_docs_major(torch, dev, report, text_final):
           f"{legs_text(t_legs)}")
     print(f"phase 9: (c) apply_batch of the text fleet {batch_s:.4f} s, "
           f"equal to (b); launches of dominated on this path {launches} "
-          f"({col_launches} by the column routes)")
-    return ds, tds, launches
+          f"({col_launches} by the column routes), of linearize "
+          f"{lin_launches} (apply_batch orders on the host)")
+    fleets = {"ids": ids, "docset_frames": docset_frames,
+              "docset_hashes": c_hashes, "docset_walls": c_walls,
+              "tids": tids, "text_frames": text_frames,
+              "text_hashes": t_hashes, "text_walls": t_walls}
+    return ds, tds, launches, fleets
+
+
+# A diff round's legs beyond COLUMN_LEGS' host legs: the module functions
+# _apply_flat calls (the dispatch only enqueues; the readback of the
+# changed documents' rows waits for the device).
+DIFF_LEGS = {"dispatch": "_scatter_apply_diff", "readback": "_changed_rows",
+             "decode": "decode_round_diffs"}
+
+
+@contextlib.contextmanager
+def diff_legs():
+    """Wrap the resident module's DIFF_LEGS functions for the block;
+    yields the dict their host seconds add into."""
+    from automerge_tpu_torch.engine import resident
+    legs = {leg: 0.0 for leg in DIFF_LEGS}
+    saved = {name: getattr(resident, name) for name in DIFF_LEGS.values()}
+    for leg, name in DIFF_LEGS.items():
+        setattr(resident, name, timed_into(legs, leg, saved[name]))
+    try:
+        yield legs
+    finally:
+        for name, fn in saved.items():
+            setattr(resident, name, fn)
+
+
+def diff_rounds(ds, frames_by_round, legs=None):
+    """Each round's frames decoded and applied through
+    apply_and_reconcile_columns(..., diffs=True). With the dict of
+    diff_legs, times each round's legs (COLUMN_LEGS' register,
+    admit+encode and stack+copy, and DIFF_LEGS). Returns each round's
+    hashes and records, the apply walls and the legs a round."""
+    from automerge_tpu_torch.sync.frames import decode_frame
+    host = time_legs(ds, {k: COLUMN_LEGS[k] for k in
+                          ("register", "admit+encode", "stack+copy")}) \
+        if legs is not None else {}
+    hashes, records, walls, per_round = [], [], [], []
+    for frames in frames_by_round:
+        for d in (host, legs or {}):
+            for k in d:
+                d[k] = 0.0
+        cols = {d: decode_frame(f) for d, f in frames.items()}
+        t0 = time.perf_counter()
+        h, recs = ds.apply_and_reconcile_columns(cols, diffs=True)
+        walls.append(time.perf_counter() - t0)
+        hashes.append(h)
+        records.append(recs)
+        split = {**host, **(legs or {})}
+        per_round.append({**split, "other": walls[-1] - sum(split.values())})
+    return hashes, records, walls, per_round
+
+
+def hold_diff_fleet(torch, dev, name, ids, frames, phase9_hashes, subset,
+                    checked):
+    """Phase 10 on one fleet: the rounds through the diff plane on the
+    card, each round's hashes held to phase 9's column route, the records
+    to a device="cpu" instance over `subset` (records are per document),
+    and a MirrorDoc per document folded from every round to materialize
+    for the `checked` documents. Returns the walls, legs and records per
+    round, the seconds of the checks, and the linearize launches of the
+    card's rounds."""
+    from automerge_tpu_torch.core.ids import ROOT_ID
+    from automerge_tpu_torch.engine import cuda_kernels as ck
+    from automerge_tpu_torch.engine.diffs import MirrorDoc
+    from automerge_tpu_torch.engine.resident import ResidentDocSet
+
+    ds = ResidentDocSet(ids, device=dev)
+    for k in ck.LAUNCHES:
+        ck.LAUNCHES[k] = 0
+    with diff_legs() as legs:
+        hashes, records, walls, per_round = diff_rounds(ds, frames, legs)
+    launches = dict(ck.LAUNCHES)
+    check(launches["linearize"] == len(frames),
+          f"{name}: the diff rounds launched linearize "
+          f"{launches['linearize']} times, not once a round")
+    t0 = time.perf_counter()
+    for k, (h, want) in enumerate(zip(hashes, phase9_hashes)):
+        check((h == want).all(), f"{name}: diff round {k} hashes != phase "
+              f"9's apply_and_reconcile_columns")
+    keep = set(subset)
+    cpu = ResidentDocSet(subset, device="cpu")
+    _, cpu_records, _, _ = diff_rounds(
+        cpu, [{d: f for d, f in rnd.items() if d in keep} for rnd in frames])
+    for k, (got, want) in enumerate(zip(records, cpu_records)):
+        mine = {d: r for d, r in got.items() if d in keep}
+        check(mine == want, f"{name}: diff round {k} records != the CPU's "
+              f"on the {len(subset)}-doc subset")
+    mirrors = {d: MirrorDoc() for d in ids}
+    for recs in records:
+        for d, r in recs.items():
+            mirrors[d].apply(r)
+    for d in checked:
+        check(mirrors[d].snapshot(ROOT_ID) == ds.materialize(d),
+              f"{name}: MirrorDoc of {d} != materialize")
+    return walls, per_round, records, time.perf_counter() - t0, launches
+
+
+def drive_diff_plane(torch, dev, fleets):
+    """Phase 10: the docs-major diff plane at full width (the docset fleet
+    and the text fleet through apply_and_reconcile_columns(...,
+    diffs=True)), then the committed reference records. Returns the
+    linearize launches of the two fleets' diff rounds."""
+    import json
+    from automerge_tpu_torch.engine.resident import ResidentDocSet
+    from automerge_tpu_torch.workloads import reference_diff_streams
+
+    t_phase = time.perf_counter()
+    ids, tids = fleets["ids"], fleets["tids"]
+    frames = fleets["docset_frames"]
+    touched = sorted({d for rnd in frames[1:] for d in rnd})
+    others = [d for d in ids if d not in set(touched)][:100]
+    d_walls, d_legs, d_recs, d_check_s, d_launch = hold_diff_fleet(
+        torch, dev, "docset fleet", ids, frames, fleets["docset_hashes"],
+        ids[::10], touched + others)
+    t_walls, t_legs, t_recs, t_check_s, t_launch = hold_diff_fleet(
+        torch, dev, "text fleet", tids, fleets["text_frames"],
+        fleets["text_hashes"], tids[::2], tids)
+
+    committed = json.loads((Path(__file__).resolve().parent
+                            / "automerge_tpu_torch" / "testdata"
+                            / "reference_diffs.json").read_text())
+    n_ref = 0
+    for name, rids, rounds in reference_diff_streams():
+        ds = ResidentDocSet(rids, device=dev)
+        for k, rnd in enumerate(rounds):
+            _, recs = ds.apply_and_reconcile(rnd, diffs=True)
+            check(json.loads(json.dumps(recs)) == committed[name][k],
+                  f"reference records: {name} round {k} differs")
+            n_ref += sum(len(r) for r in recs.values())
+
+    def counts(recs):
+        return [sum(len(r) for r in rnd.values()) for rnd in recs]
+    d_plain = fleets["docset_walls"][1:]
+    print(f"phase 10: (a) docset fleet: {len(ids)} docs, "
+          f"{len(frames) - 1} diff rounds after the admitting one "
+          f"({d_walls[0]:.4f} s); round walls s {walls_text(d_walls[1:])}; "
+          f"without diffs (phase 9, same route) p50 {p50(d_plain):.4f} s; "
+          f"records a round {counts(d_recs)}; hashes equal to phase 9's, "
+          f"records to the CPU's on {len(ids[::10])} docs, MirrorDocs to "
+          f"materialize on {len(touched)} touched + {len(others)} untouched "
+          f"docs ({d_check_s:.2f} s of checks)")
+    print(f"phase 10: (a) diff round legs (after the admitting one): "
+          f"{legs_text(d_legs[1:])}; the admitting round's: "
+          f"{legs_text(d_legs[:1])}")
+    print(f"phase 10: (b) text fleet: {len(tids)} docs, "
+          f"{len(t_walls)} diff rounds, walls s {walls_text(t_walls)}; "
+          f"without diffs (phase 9, same route) p50 "
+          f"{p50(fleets['text_walls']):.4f} s; records a round "
+          f"{counts(t_recs)}; hashes equal to phase 9's, records to the "
+          f"CPU's on {len(tids[::2])} docs, MirrorDocs to materialize on "
+          f"all {len(tids)} docs ({t_check_s:.2f} s of checks)")
+    print(f"phase 10: (b) diff round legs: {legs_text(t_legs)}")
+    print(f"phase 10: (c) {n_ref} reference records of "
+          f"{len(reference_diff_streams())} small streams (map and list "
+          f"moves) equal to the committed ones")
+    nonzero = [{k: v for k, v in lc.items() if v}
+               for lc in (d_launch, t_launch)]
+    print(f"phase 10: launches on the diff rounds (a) {nonzero[0]} (b) "
+          f"{nonzero[1]}; phase 10 took {time.perf_counter() - t_phase:.1f} s")
+    return d_launch["linearize"] + t_launch["linearize"]
 
 
 def time_docs_round(torch, ds):
     """Device milliseconds of one full apply_doc over the text fleet's
-    state and of its linearize step (the plain PyTorch E-step loop)."""
-    from automerge_tpu_torch.engine.kernels import apply_doc, linearize
+    state, of its linearize step (the kernel) and of linearize_plain."""
+    from automerge_tpu_torch.engine.kernels import (apply_doc, linearize,
+                                                    linearize_plain)
     s = ds.state
     d, n_lists, n_elems = s["ins_mask"].shape
     cols = [s[k].reshape(d * n_lists, n_elems)
             for k in ("ins_mask", "ins_elem", "ins_actor", "ins_parent")]
-    whole = cuda_ms(lambda: apply_doc(s, ds.cap_fids), 3)
-    lin = cuda_ms(lambda: linearize(*cols), 3)
+    whole = cuda_ms(lambda: apply_doc(s, ds.cap_fids), 10)
+    lin = cuda_ms(lambda: linearize(*cols), 10)
+    plain = cuda_ms(lambda: linearize_plain(*cols), 3)
     print(f"timing text fleet: apply_doc {whole:.3f} ms, of which linearize "
           f"{lin:.3f} ms ({100 * lin / whole:.1f}%) at [{d * n_lists}, "
-          f"{n_elems}] element rows")
+          f"{n_elems}] element rows (linearize_plain {plain:.3f} ms)")
+
+
+def linearize_bound(mask):
+    """(bound_ms, bound_by, bytes, ops) of one linearize launch on these
+    rows: the mask byte and three int32 columns read, one int32 written, a
+    slot each (17 bytes); operations, for this data: a comparison sort of
+    each row's n live slots (n log2 n), four a live slot for the walk, and
+    three a node for each of the ceil_log2(E + 1) doubling steps."""
+    import math
+
+    from automerge_tpu_torch.engine.kernels import _ceil_log2
+    r, e = mask.shape
+    live = mask.sum(1).cpu().tolist()
+    ops = sum(int(n * math.log2(n)) + 4 * n for n in live if n) \
+        + 3 * r * (e + 1) * _ceil_log2(e + 1)
+    nbytes = 17 * r * e
+    return (*bound_of(nbytes, ops), nbytes, ops)
+
+
+def time_linearize(torch, ds, label):
+    """The linearize launch apply_doc makes on this engine's state."""
+    from automerge_tpu_torch.engine import cuda_kernels as ck
+    from automerge_tpu_torch.engine.kernels import linearize_plain
+    s = ds.state
+    d, n_lists, n_elems = s["ins_mask"].shape
+    cols = [s[k].reshape(d * n_lists, n_elems)
+            for k in ("ins_mask", "ins_elem", "ins_actor", "ins_parent")]
+    t = launch_times(lambda: ck.linearize(*cols), 20)
+    p_ms = cuda_ms(lambda: linearize_plain(*cols), 2)
+    b_ms, b_by, nbytes, ops = linearize_bound(cols[0])
+    print(f"timing {label}: linearize rows=[{d * n_lists}, {n_elems}] "
+          f"live slots={int(cols[0].sum())} {times_text(t)} "
+          f"plain_ms={p_ms:.3f} bound_ms={b_ms:.5f} ({b_by}; "
+          f"bytes={nbytes} ops={ops}); the walk's floor: {n_elems} "
+          f"dependent shared-memory steps a row")
+    return t["graph_ms"], p_ms, b_ms, b_by
 
 
 def dominated_bound(args):
@@ -1535,11 +1782,13 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     t_all = time.perf_counter()
     report = {"reconcile_rows_hash": [], "span_rank_hash": [],
-              "move_round": [], "resolve_moves": [], "dominated": []}
+              "move_round": [], "resolve_moves": [], "dominated": [],
+              "linearize": []}
 
     phase_kernel_parity(torch, dev, report)
     phase_plane_kernel_parity(torch, dev, report)
     phase_dominated_parity(torch, dev, report)
+    phase_linearize_parity(torch, dev, report)
     (map_ds, map_final, map_launches,
      rounds_ds, rounds_final) = drive_map_storm(torch, dev)
     text_ds, text_final, text_launches = drive_text_fleet(torch, dev)
@@ -1554,8 +1803,9 @@ def main() -> int:
     span_inputs, span_launches = drive_text_plane(torch, dev, report)
     move_inputs, move_launches = drive_move_plane(torch, dev, report)
     measure_link(torch, dev)
-    docset_ds, docs_ds, docs_launches = drive_docs_major(torch, dev, report,
-                                                         text_final)
+    docset_ds, docs_ds, docs_launches, fleets = drive_docs_major(
+        torch, dev, report, text_final)
+    lin_launches = drive_diff_plane(torch, dev, fleets)
 
     rows_times = time_kernel(torch, map_ds, "map storm")
     time_kernel(torch, text_ds, "text fleet")
@@ -1565,10 +1815,13 @@ def main() -> int:
                   for k, v in move_inputs.items()}
     dom_times = time_dominated(torch, docs_ds, "text fleet (docs-major)")
     time_dominated(torch, docset_ds, "docset fleet (docs-major)")
+    lin_times = time_linearize(torch, docs_ds, "text fleet (docs-major)")
+    time_linearize(torch, docset_ds, "docset fleet (docs-major)")
     time_docs_round(torch, docs_ds)
     print(f"launches: rows engine {map_launches} (map storm) + "
           f"{text_launches} (text fleet); text-merge plane {span_launches}; "
-          f"move plane {move_launches}; docs-major engine {docs_launches}")
+          f"move plane {move_launches}; docs-major engine {docs_launches} "
+          f"(dominated); diff plane {lin_launches} (linearize)")
     print(json.dumps({"kernels": [
         kernel_entry("reconcile_rows_hash",
                      "automerge_tpu_torch/csrc/reconcile_rows.cu",
@@ -1588,7 +1841,12 @@ def main() -> int:
         kernel_entry("dominated",
                      "automerge_tpu_torch/csrc/dominated.cu",
                      "automerge_tpu/engine/pallas_kernels.py:578",
-                     docs_launches, report["dominated"], dom_times)]}))
+                     docs_launches, report["dominated"], dom_times),
+        kernel_entry("linearize",
+                     "automerge_tpu_torch/csrc/linearize.cu",
+                     "automerge_tpu/engine/kernels.py:102-137 (plain XLA, "
+                     "no Pallas kernel)",
+                     lin_launches, report["linearize"], lin_times)]}))
     print(f"total {time.perf_counter() - t_all:.1f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -16,15 +16,27 @@ write them to automerge_tpu_torch/testdata/reference_hashes.npz:
   apply_and_reconcile a round: the final per-doc hashes, under
   `docs_<name>`.
 
-`chip_smoke.py` holds the port to that file on a machine that has no JAX;
-`tests/test_torch_rows.py`, `test_torch_spans.py`, `test_torch_moves.py`
-and `test_torch_resident.py` check that both packages still reproduce it.
+and the diff records of the same two streams with a round of moves added
+(`workloads.reference_diff_streams`), one apply_and_reconcile(...,
+diffs=True) a round through the reference's docs-major ResidentDocSet on
+its native (C++) encoder, the port's default, to
+automerge_tpu_torch/testdata/reference_diffs.json: {name: [{doc_id:
+[records]} for each round]}. (The two encoders' records differ in one
+field: a list move in a text object is typed "list" on the native
+encoder, whose tables keep no object index, and "text" on the Python one;
+the port reproduces each.)
+
+`chip_smoke.py` holds the port to both files on a machine that has no JAX;
+`tests/test_torch_rows.py`, `test_torch_spans.py`, `test_torch_moves.py`,
+`test_torch_resident.py` and `test_torch_diffs.py` check that both packages
+still reproduce them.
 
     JAX_PLATFORMS=cpu python scripts/torch_reference_hashes.py
 """
 
 from __future__ import annotations
 
+import json
 import sys
 from pathlib import Path
 
@@ -32,6 +44,7 @@ import numpy as np
 
 REPO = Path(__file__).resolve().parent.parent
 OUT = REPO / "automerge_tpu_torch" / "testdata" / "reference_hashes.npz"
+DIFFS_OUT = REPO / "automerge_tpu_torch" / "testdata" / "reference_diffs.json"
 
 
 def reference_hashes() -> dict[str, np.ndarray]:
@@ -65,6 +78,20 @@ def reference_docs_hashes() -> dict[str, np.ndarray]:
     return out
 
 
+def reference_diff_records() -> dict[str, list]:
+    from automerge_tpu.core.change import Change
+    from automerge_tpu.engine.resident import ResidentDocSet
+    from automerge_tpu_torch.workloads import reference_diff_streams
+
+    out = {}
+    for name, ids, rounds in reference_diff_streams():
+        ds = ResidentDocSet(ids, native=True)
+        out[name] = [ds.apply_and_reconcile({
+            d: [Change.from_dict(c.to_dict()) for c in chs]
+            for d, chs in rnd.items()}, diffs=True)[1] for rnd in rounds]
+    return out
+
+
 def reference_span_outputs() -> dict[str, np.ndarray]:
     from automerge_tpu.engine.pack import pack_spans
     from automerge_tpu.engine.span_kernels import merge_spans
@@ -92,6 +119,11 @@ def main() -> int:
     np.savez(OUT, **outputs)
     print(f"wrote {OUT.relative_to(REPO)}: "
           + ", ".join(f"{k} {v.shape}" for k, v in outputs.items()))
+    diffs = reference_diff_records()
+    DIFFS_OUT.write_text(json.dumps(diffs, separators=(",", ":")) + "\n")
+    print(f"wrote {DIFFS_OUT.relative_to(REPO)}: " + ", ".join(
+        f"{k} {sum(len(r) for rnd in v for r in rnd.values())} records"
+        for k, v in diffs.items()))
     return 0
 
 

@@ -192,3 +192,20 @@ def test_out_of_range_indices_are_clamped_as_in_jax():
         got = apply_doc({k: torch.from_numpy(v) for k, v in port.items()},
                         max_fids, host_order=host_order)
         assert_outputs_equal(as_numpy(got), want, "out of range")
+
+
+@pytest.mark.parametrize("r,e", [(8, 1), (16, 8), (12, 33), (8, 257)])
+def test_linearize_plain_on_edge_rows_equals_the_reference(r, e):
+    """linearize_plain (the route kernels.linearize takes for a CPU tensor,
+    and what the linearize kernel is held to on the card) against the
+    reference's vmapped linearize on random_linearize's edge rows: RGA
+    rows, parents past the array (detached nodes, self-loops), all-masked
+    rows, equal keys."""
+    from automerge_tpu_torch.engine.kernels import linearize, linearize_plain
+    from automerge_tpu_torch.workloads import random_linearize
+    args = random_linearize(np.random.default_rng(r * e), r, e)
+    want = np.asarray(jax.vmap(ref_kernels.linearize)(
+        *(jnp.asarray(a) for a in args)))
+    got = linearize_plain(*(torch.from_numpy(a) for a in args))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert torch.equal(linearize(*(torch.from_numpy(a) for a in args)), got)

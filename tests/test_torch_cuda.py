@@ -7,8 +7,8 @@ JAX package, so it runs on a GPU machine that has neither:
 Tolerance: exact (integer outputs and hashes). The other side of each
 comparison is the plain PyTorch version, which tests/test_torch_kernels.py,
 test_torch_rows.py, test_torch_spans.py and test_torch_moves.py hold
-bit-equal to the reference (test_torch_dominated.py, test_torch_apply_doc.py
-and test_torch_resident.py for the docs-major engine)."""
+bit-equal to the reference (test_torch_dominated.py, test_torch_apply_doc.py,
+test_torch_resident.py and test_torch_diffs.py for the docs-major engine)."""
 
 from pathlib import Path
 
@@ -28,18 +28,19 @@ from automerge_tpu_torch.engine.dispatch import (merge_spans_adaptive,
 from automerge_tpu_torch.engine.pack import (pack_moves, pack_spans,
                                              rows_from_numpy)
 from automerge_tpu_torch.engine.resident_rows import ResidentRowsDocSet
-from automerge_tpu_torch.engine.kernels import apply_doc
+from automerge_tpu_torch.engine.kernels import apply_doc, linearize_plain
 from automerge_tpu_torch.engine.resident import ResidentDocSet
 from automerge_tpu_torch.workloads import (
-    RECONCILE_CASES, move_fleet, random_dominated, random_move_lanes,
-    random_span_tables, reconcile_case, reference_docs_streams,
-    reference_move_problems, reference_span_tables, reference_streams,
-    span_fleet, text_fleet)
+    LINEARIZE_CASES, RECONCILE_CASES, move_fleet, random_dominated,
+    random_linearize, random_move_lanes, random_span_tables, reconcile_case,
+    reference_diff_streams, reference_docs_streams, reference_move_problems,
+    reference_span_tables, reference_streams, span_fleet, text_fleet)
 
 from torch_port_helpers import cuda_device  # noqa: F401 (fixture)
 
 REFERENCE = (Path(__file__).resolve().parent.parent / "automerge_tpu_torch"
              / "testdata" / "reference_hashes.npz")
+REFERENCE_DIFFS = REFERENCE.with_name("reference_diffs.json")
 
 
 @pytest.mark.cuda
@@ -270,3 +271,39 @@ def test_frame_ingress_on_the_card_equals_the_cpu(cuda_device, native):
             out[str(dev)] = ds.hashes()
         np.testing.assert_array_equal(out[str(cuda_device)], out["cpu"])
         np.testing.assert_array_equal(out["cpu"], committed[f"docs_{name}"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,e", LINEARIZE_CASES)
+def test_linearize_kernel_matches_plain(cuda_device, r, e):
+    """The linearize kernel against linearize_plain, bit-equal, on
+    random_linearize's edge cases (RGA rows, parents past the array,
+    all-masked rows, equal keys) at chip_smoke's shapes, the global-scratch
+    row (E = 9,000) included; and kernels.linearize routes the CUDA tensor
+    to the kernel."""
+    from automerge_tpu_torch.engine.kernels import linearize
+    args = [torch.from_numpy(x).to(cuda_device)
+            for x in random_linearize(np.random.default_rng(r + e), r, e)]
+    got = _launched("linearize", lambda: linearize(*args))
+    assert torch.equal(got, linearize_plain(*args))
+    assert torch.equal(got.cpu(), linearize(*(x.cpu() for x in args)))
+
+
+@pytest.mark.cuda
+def test_diff_streams_on_the_card_equal_the_cpu(cuda_device):
+    """apply_and_reconcile(..., diffs=True) on the card: every round's
+    hashes and records equal the CPU's and the committed reference records,
+    and each round launches the linearize kernel once."""
+    import json
+    committed = json.loads(REFERENCE_DIFFS.read_text())
+    for name, ids, rounds in reference_diff_streams():
+        card = ResidentDocSet(ids, device=cuda_device)
+        cpu = ResidentDocSet(ids, device="cpu")
+        before = cuda_kernels.LAUNCHES["linearize"]
+        for k, rnd in enumerate(rounds):
+            h, recs = card.apply_and_reconcile(rnd, diffs=True)
+            h_cpu, recs_cpu = cpu.apply_and_reconcile(rnd, diffs=True)
+            np.testing.assert_array_equal(h, h_cpu)
+            assert recs == recs_cpu, (name, k)
+            assert json.loads(json.dumps(recs)) == committed[name][k]
+        assert cuda_kernels.LAUNCHES["linearize"] == before + len(rounds)

@@ -534,3 +534,22 @@ def test_first_actor_after_upload_refreshes_the_device_copy(native):
     assert port.rows_dev is not None
     np.testing.assert_array_equal(
         frame_hashes(port, [encode_round_frame(to_port_round(rnd))]), fresh)
+
+
+@NATIVE
+def test_rows_hashes_clean_follows_the_hash_handle(native):
+    """The rows engine's hashes_clean (the docs-major test plus the
+    flush-time hash handle): False while a frame's device hashes are
+    unread (the port's apply_round_frames returns them unread; the
+    reference's reads them back itself), True once hashes() has read them,
+    as the reference's is then."""
+    ids, initial, drounds = docset_fleet(n_docs=6, rounds=2)
+    port, ref = rows(ids, native), RefRows(ids, native=native)
+    assert not port.hashes_clean and not ref.hashes_clean
+    for rnd in [initial] + drounds:
+        port.apply_round_frames([encode_round_frame(rnd)])
+        ref.apply_round_frames([ref_encode_round_frame(
+            {d: from_port(chs) for d, chs in rnd.items()})])
+        assert port._hash_handle is not None and not port.hashes_clean
+        np.testing.assert_array_equal(port.hashes(), ref.hashes())
+        assert port.hashes_clean and ref.hashes_clean

@@ -25,7 +25,8 @@ def test_every_module_imports_with_jax_and_reference_blocked():
     for m in ("engine.resident_rows", "engine.cuda_kernels",
               "engine.span_kernels", "engine.move_kernels",
               "engine.dispatch", "core.moves", "core.textspans",
-              "workloads", "engine.resident", "engine.batchdoc",
+              "workloads", "engine.resident", "engine.diffs",
+              "engine.batchdoc",
               "engine.kernels", "engine.pack", "native.wire",
               "native.delta", "native.linearize", "sync.frames",
               "utils.gcpause", "storage"):
@@ -50,6 +51,10 @@ def test_every_module_imports_with_jax_and_reference_blocked():
         "ds.apply_and_reconcile(initial)",
         "ds.apply_changes(rounds[0])",
         "ds.hashes_for([0]); ds.materialize(ids[0])",
+        "_, recs = ResidentDocSet(ids, device='cpu').apply_and_reconcile(",
+        "    initial, diffs=True)",
+        "from automerge_tpu_torch.engine.diffs import MirrorDoc",
+        "m = MirrorDoc(); m.apply(recs[ids[0]])",
         "apply_batch([initial[i] for i in ids], device='cpu')",
         "from automerge_tpu_torch.sync.frames import (decode_frame,",
         "    encode_frame, encode_round_frame)",
