@@ -1,15 +1,18 @@
-"""Times this checkout's plane kernels against another checkout's, in turns
-on one card: the move-resolution kernel (`engine/move_kernels.py::
+"""Times this checkout's kernels against another checkout's, in turns on
+one card: the move-resolution kernel (`engine/move_kernels.py::
 resolve_moves`) and the span rank+hash kernel (`engine/span_kernels.py::
 span_rank_hash`), on the storm realm, the realm fleet, the span fleet and
-the bulk merge (`workloads.py`), as the planes hand them to the kernels.
-On each workload the two outputs are held equal first, then the two
-kernels are timed old, new, new, old, each as a CUDA-graph replay of 20
-launches (the device alone, inputs warm in L2).
+the bulk merge (`workloads.py`), as the planes hand them to the kernels;
+and the docs-major linearize kernel (`engine/cuda_kernels.py::linearize`)
+on the text fleet's and the docset fleet's rows as `apply_doc` hands them
+over (the fleets' rounds through this checkout's `ResidentDocSet` on the
+card). On each workload the two outputs are held equal first, then the
+two kernels are timed old, new, new, old, each as a CUDA-graph replay of
+20 launches (the device alone, inputs warm in L2).
 
 The other checkout's package is loaded from its own files under another
 module name, and builds its kernels from its own sources through its own
-wrappers, so any two checkouts whose wrappers keep these two contracts
+wrappers, so any two checkouts whose wrappers keep these three contracts
 compare.
 
     python3 -m automerge_tpu_torch.compare_kernels OTHER_CHECKOUT
@@ -31,22 +34,24 @@ from pathlib import Path
 
 import torch
 
-from .engine import move_kernels, span_kernels
+from .engine import cuda_kernels, move_kernels, span_kernels
 from .engine.pack import pack_moves, pack_spans
-from .workloads import move_fleet, move_storm, span_bulk_merge, span_fleet
+from .engine.resident import ResidentDocSet
+from .workloads import (docset_fleet, move_fleet, move_storm,
+                        span_bulk_merge, span_fleet, text_fleet)
 
 
 def load_other(checkout: Path, name: str = "amt_other"):
-    """(move_kernels, span_kernels) of the package in `checkout`, imported
-    as `name`."""
+    """(move_kernels, span_kernels, cuda_kernels) of the package in
+    `checkout`, imported as `name`."""
     pkg = checkout / "automerge_tpu_torch"
     spec = importlib.util.spec_from_file_location(
         name, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
     mod = importlib.util.module_from_spec(spec)
     sys.modules[name] = mod
     spec.loader.exec_module(mod)
-    return (importlib.import_module(f"{name}.engine.move_kernels"),
-            importlib.import_module(f"{name}.engine.span_kernels"))
+    return tuple(importlib.import_module(f"{name}.engine.{m}")
+                 for m in ("move_kernels", "span_kernels", "cuda_kernels"))
 
 
 def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
@@ -72,8 +77,8 @@ def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
 
 
 def workloads(dev) -> dict:
-    """{name: (kind, inputs)} on the card: move lanes (nodes, cands), or
-    span lanes and their merge order."""
+    """{name: (kind, inputs)} on the card: move lanes (nodes, cands), span
+    lanes and their merge order, or the four [R, E] columns of linearize."""
     out = {}
     for name, realms in (("storm realm", [move_storm()]),
                          ("realm fleet", move_fleet())):
@@ -85,6 +90,19 @@ def workloads(dev) -> dict:
         spans = torch.from_numpy(pack_spans(tables)).to(dev)
         order = span_kernels.merge_order(spans)[0].to(torch.int32)
         out[name] = ("spans", (spans, order))
+    docset_ids, initial, docset_rounds = docset_fleet()
+    text_ids, text_rounds = text_fleet()
+    for name, ids, rounds in (("text fleet", text_ids, text_rounds),
+                              ("docset fleet", docset_ids,
+                               [initial] + docset_rounds)):
+        ds = ResidentDocSet(ids, device=dev)
+        for rnd in rounds:
+            ds.apply_and_reconcile(rnd)
+        s = ds.state
+        d, n_lists, n_elems = s["ins_mask"].shape
+        out[name] = ("linearize", tuple(
+            s[k].reshape(d * n_lists, n_elems)
+            for k in ("ins_mask", "ins_elem", "ins_actor", "ins_parent")))
     return out
 
 
@@ -94,7 +112,7 @@ def main(argv: list[str]) -> int:
               "automerge_tpu_torch.compare_kernels OTHER_CHECKOUT",
               file=sys.stderr)
         return 1
-    old_mk, old_sk = load_other(Path(argv[0]).resolve())
+    old_mk, old_sk, old_ck = load_other(Path(argv[0]).resolve())
     dev = torch.device("cuda", 0)
     result = {}
     for name, (kind, inp) in workloads(dev).items():
@@ -104,10 +122,14 @@ def main(argv: list[str]) -> int:
             o, n = old(), new()
             same = o.keys() == n.keys() and all(torch.equal(o[k], n[k])
                                                 for k in o)
-        else:
+        elif kind == "spans":
             old = lambda: old_sk.span_rank_hash(*inp)       # noqa: E731
             new = lambda: span_kernels.span_rank_hash(*inp)  # noqa: E731
             same = all(torch.equal(a, b) for a, b in zip(old(), new()))
+        else:
+            old = lambda: old_ck.linearize(*inp)            # noqa: E731
+            new = lambda: cuda_kernels.linearize(*inp)      # noqa: E731
+            same = torch.equal(old(), new())
         if not same:
             print(f"{name}: the two kernels' outputs differ",
                   file=sys.stderr)

@@ -36,7 +36,7 @@ from pathlib import Path
 
 import torch
 
-from .kernels import _ceil_log2, _int32_bits, _mix4
+from .kernels import _int32_bits, _mix4
 from .pack import row_bases, rows_count, rows_dims_eligible, ROWS_VMEM_BUDGET
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -68,8 +68,9 @@ _SIGNATURES = {
     "dominated": {
         "amt_dominated": [_P] * 7 + [_I] * 3 + [_P]},
     "linearize": {
-        "amt_linearize": [_P] * 6 + [_I] * 4 + [_P],
-        "amt_linearize_smem_limit": []},
+        "amt_linearize": [_P] * 6 + [_I] * 3 + [_P],
+        "amt_linearize_uses_scratch": [_I],
+        "amt_linearize_work_bytes": [_I]},
 }
 
 # The reference's join block height: I and LE must be multiples of it.
@@ -418,31 +419,41 @@ def dominated_plain(clock_op, actor, fid, seq, change_idx,
 # ---------------------------------------------------------------------------
 # linearize (the docs-major engine's RGA order; plain XLA in the reference)
 
-# Ints of work a row needs per node (E + 1 nodes): csrc/linearize.cu's
-# seven arrays, in shared memory where they fit a block, else in a global
-# scratch of LINEARIZE_SCRATCH_BLOCKS_PER_SM blocks an SM.
-LINEARIZE_ARRAYS = 7
+# Rows past 4,096 slots or a block's shared memory work in a global
+# scratch of LINEARIZE_SCRATCH_BLOCKS_PER_SM blocks an SM, each looping
+# over rows.
 LINEARIZE_SCRATCH_BLOCKS_PER_SM = 2
+
+
+def linearize_work_bytes(e: int) -> int:
+    """Bytes of one row's work area in csrc/linearize.cu for rows of E
+    slots: 0 where a row runs on a warp slice (E <= 32), else the block
+    path's sort records and node arrays."""
+    b = _library("linearize").amt_linearize_work_bytes(e)
+    if b < 0:
+        raise ValueError(f"rows of {e} slots need more than 2 GiB of work")
+    return b
 
 
 def linearize_uses_scratch(e: int) -> bool:
     """Whether a row of E slots works in the global scratch on the current
-    CUDA device: its arrays need more shared memory than a block of the
-    device may opt in to."""
+    CUDA device: past 4,096 slots, or where its work area needs more
+    shared memory than a block of the device may opt in to."""
     lib = _library("linearize")
-    limit = lib.amt_linearize_smem_limit()
-    if limit < 0:
+    got = lib.amt_linearize_uses_scratch(e)
+    if got < 0:
         raise RuntimeError("cudaDeviceGetAttribute failed: "
-                           + lib.amt_cuda_error_string(-limit).decode())
-    return 4 * LINEARIZE_ARRAYS * (e + 1) > limit
+                           + lib.amt_cuda_error_string(-got).decode())
+    return bool(got)
 
 
 def linearize(ins_mask, ins_elem, ins_actor, ins_parent) -> torch.Tensor:
     """Launch the kernel of csrc/linearize.cu on CUDA tensors: the
     contract of `kernels.linearize` (ins_mask [R, E] bool, ins_elem,
     ins_actor, ins_parent [R, E] int32 -> elem_pos [R, E] int32), bit-equal
-    to `kernels.linearize_plain`. Rows whose work does not fit a block's
-    shared memory run in a global scratch this wrapper allocates."""
+    to `kernels.linearize_plain`. Rows past 4,096 slots, or whose work
+    does not fit a block's shared memory, run in a global scratch this
+    wrapper allocates."""
     shape = ins_mask.shape
     if ins_mask.dim() != 2 or ins_mask.dtype != torch.bool:
         raise ValueError(f"ins_mask must be [R, E] bool, got "
@@ -467,14 +478,14 @@ def linearize(ins_mask, ins_elem, ins_actor, ins_parent) -> torch.Tensor:
         out = torch.empty((r, e), dtype=torch.int32, device=dev)
         if not (r and e):
             return out
-        work = LINEARIZE_ARRAYS * (e + 1)
         scratch, grid = None, r
         if linearize_uses_scratch(e):
             sms = torch.cuda.get_device_properties(dev).multi_processor_count
             grid = min(r, LINEARIZE_SCRATCH_BLOCKS_PER_SM * sms)
-            scratch = torch.empty(grid * work, dtype=torch.int32, device=dev)
+            scratch = torch.empty(grid * linearize_work_bytes(e) // 4,
+                                  dtype=torch.int32, device=dev)
         launch("linearize", "amt_linearize", "linearize",
                *(t.data_ptr() for t in args), out.data_ptr(),
-               None if scratch is None else scratch.data_ptr(), r, e,
-               _ceil_log2(e + 1), grid, stream_of(ins_mask))
+               None if scratch is None else scratch.data_ptr(), r, e, grid,
+               stream_of(ins_mask))
     return out

@@ -3,8 +3,9 @@ users run: `chip_smoke.py` drives them on the card at full size, and
 `scripts/torch_reference_hashes.py` runs them small through the JAX
 reference to fix the hashes (and, for the diff plane, the records) the
 port must reproduce. Also `random_rows`, `reconcile_cases`,
-`random_dominated` and `random_linearize`, the random kernel inputs of
-the tests and of `chip_smoke.py`.
+`random_dominated`, `random_linearize`, `causal_linearize` and
+`mixed_linearize`, the random kernel inputs of the tests and of
+`chip_smoke.py`.
 
 - `map_storm`: the reference's bench config 20 (`bench.py::
   run_megabatch_config`): a 10,000-doc fleet, 8 heavy docs of 400 `set` ops
@@ -319,6 +320,70 @@ def random_linearize(rng: np.random.Generator, r: int, e: int):
     actor[kind == 3] = 1
     return (mask, elem.astype(np.int32), actor.astype(np.int32),
             parent.astype(np.int32))
+
+
+# Shapes of the linearize kernel's causal cases (causal_linearize, and
+# mixed_linearize's batches of causal and other rows in one launch): a
+# warp slice a row, a block a row, and E = 9,000 past a block's shared
+# memory (the global scratch).
+LINEARIZE_CAUSAL_CASES = ((512, 8), (256, 256), (4, 4096), (2, 9000))
+
+
+def causal_linearize(rng: np.random.Generator, r: int, e: int):
+    """Random causal inputs of `linearize` (as random_linearize's): every
+    live slot's parent is the head or a live slot earlier in (elem, actor,
+    slot) order, the rows the engine builds from change streams. A kind of
+    row by r % 4: 0 a random tree over about three quarters of the slots
+    (few distinct elements and actors: equal keys broken by the actor or
+    the slot), 1 the same with every slot live, 2 every live slot a child
+    of the head, 3 a single chain. Masked slots keep random parents. In
+    rows r % 8 >= 4 elements and actors are spread over the int32 range
+    (the same order), so the kernel sorts them by its wide record."""
+    mask = (rng.random((r, e)) < 0.75) | (np.arange(r) % 4 != 0)[:, None]
+    elem = rng.integers(0, max(2, e // 4), size=(r, e))
+    actor = rng.integers(0, 4, size=(r, e))
+    parent = rng.integers(-2, e + 3, size=(r, e))
+    key = np.where(mask, elem, 2**31 - 1)
+    order = np.lexsort((np.broadcast_to(np.arange(e), (r, e)), actor, key),
+                       axis=-1)
+    kind = np.arange(r) % 4
+    for i in range(r):
+        live = order[i, :int(mask[i].sum())]
+        if kind[i] == 2:
+            pick = np.full(live.size, -1)
+        elif kind[i] == 3:
+            pick = np.arange(live.size) - 1
+        else:
+            pick = np.floor(rng.random(live.size)
+                            * (np.arange(live.size) + 1)).astype(int) - 1
+        parent[i, live] = np.where(pick >= 0, live[np.maximum(pick, 0)], -1)
+    wide = np.arange(r) % 8 >= 4
+    elem[wide] = _spread(elem[wide], max(2, e // 4))
+    actor[wide] = _spread(actor[wide], 4)
+    return (mask, elem.astype(np.int32), actor.astype(np.int32),
+            parent.astype(np.int32))
+
+
+def _spread(x: np.ndarray, n: int) -> np.ndarray:
+    """Values in [0, n) mapped in order over the int32 range."""
+    return x.astype(np.int64) * ((2**32 - 1) // n) - 2**31
+
+
+def mixed_linearize(rng: np.random.Generator, r: int, e: int):
+    """causal_linearize's rows and random_linearize's, interleaved (even
+    rows causal), so both of the kernel's paths share one launch; the
+    elements and actors of every other random row are spread over the
+    int32 range (the kernel's wide record on the walk)."""
+    causal = causal_linearize(rng, (r + 1) // 2, e)
+    other = list(random_linearize(rng, r // 2, e))
+    for k, n in ((1, 4), (2, 3)):
+        other[k][1::2] = _spread(other[k][1::2], n)
+    out = []
+    for c, o in zip(causal, other):
+        x = np.empty((r, e), c.dtype)
+        x[0::2], x[1::2] = c, o
+        out.append(x)
+    return tuple(out)
 
 
 # Small cuts of both streams whose reference hashes are committed in

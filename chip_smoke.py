@@ -35,7 +35,11 @@ Phases:
      below 2**24 and over the whole int32 range; the linearize kernel on
      workloads.LINEARIZE_CASES (E = 1, 8, 256, 257, 4,096, 9,000 past the
      shared memory, 20,000 rows of 8) of random_linearize's edge rows (RGA
-     rows, parents past the array, all-masked rows, equal keys);
+     rows, parents past the array, all-masked rows, equal keys), and on
+     workloads.LINEARIZE_CAUSAL_CASES (E = 8, 256, 4,096, and 9,000 in the
+     global scratch) of causal_linearize's rows (its parallel path) and
+     of mixed_linearize's batches (causal rows and rows that take the
+     walk in one launch), each line with how many rows took the walk;
   2. the map storm of the reference's bench config 20: 10,000 docs, 8 heavy
      docs of 400 ops, 8 zipf(1.1) rounds of ~1K dirty docs. (a) The main
      path: the rounds pre-encoded as AMR1 round frames, applied by
@@ -82,7 +86,9 @@ Phases:
      the rows engine's; (c) apply_batch of the text fleet's change sets
      equal to (b). For (a) and (b) the domination kernel on the final
      state equals its plain version, and (b)'s last apply_doc kept
-     exactly the ops the plain flags leave undominated;
+     exactly the ops the plain flags leave undominated. Every
+     apply_and_reconcile launches the linearize kernel once: phase 9's
+     launches and phase 10's are the kernels line's count;
  10. the docs-major diff plane at full width: phase 9's docset fleet (an
      admitting round, then 12) and text fleet (4 rounds) through
      apply_and_reconcile_columns(..., diffs=True), every round's hashes
@@ -596,26 +602,56 @@ def phase_dominated_parity(torch, dev, report):
                   f"{float(got.float().mean()):.3f})")
 
 
+def linearize_where(ck, e) -> str:
+    """The launch path the linearize kernel takes for rows of E slots."""
+    from automerge_tpu_torch.linearize_schedule import SHORT_MAX
+    if e <= SHORT_MAX:
+        return "a warp slice a row"
+    return ("a block a row, global scratch" if ck.linearize_uses_scratch(e)
+            else "a block a row, shared memory")
+
+
+def walk_text(args) -> str:
+    """How many of these rows (numpy inputs) take the kernel's sequential
+    walk, are empty, or take the parallel path: its verdict, computed on
+    the host by the kernel's CPU model."""
+    from automerge_tpu_torch.linearize_schedule import causal_rows
+    live = args[0].any(1)
+    causal = causal_rows(*args)
+    return (f"{int((live & ~causal).sum())} rows take the walk, "
+            f"{int((live & causal).sum())} the parallel path, "
+            f"{int((~live).sum())} empty")
+
+
 def phase_linearize_parity(torch, dev, report):
-    """Phase 1, the linearize kernel on random_linearize's edge rows: one
-    launch a call, bit-equal to linearize_plain on the card."""
+    """Phase 1, the linearize kernel on random_linearize's edge rows, on
+    causal_linearize's rows and on mixed_linearize's batches: one launch a
+    call, bit-equal to linearize_plain on the card."""
     import numpy as np
     from automerge_tpu_torch.engine import cuda_kernels as ck
     from automerge_tpu_torch.engine.kernels import linearize_plain
-    from automerge_tpu_torch.workloads import LINEARIZE_CASES, random_linearize
+    from automerge_tpu_torch.workloads import (LINEARIZE_CASES,
+                                               LINEARIZE_CAUSAL_CASES,
+                                               causal_linearize,
+                                               mixed_linearize,
+                                               random_linearize)
 
-    for r, e in LINEARIZE_CASES:
-        args = [torch.from_numpy(x).to(dev)
-                for x in random_linearize(np.random.default_rng(r + e), r, e)]
+    cases = ([("edge rows", random_linearize, r, e, r + e)
+              for r, e in LINEARIZE_CASES]
+             + [(name, gen, r, e, r * e)
+                for r, e in LINEARIZE_CAUSAL_CASES
+                for name, gen in (("causal rows", causal_linearize),
+                                  ("mixed batch", mixed_linearize))])
+    for name, gen, r, e, seed in cases:
+        host = gen(np.random.default_rng(seed), r, e)
+        args = [torch.from_numpy(x).to(dev) for x in host]
         got, k = counted("linearize", lambda: ck.linearize(*args))
         check(k == 1, f"linearize launched {k} times")
         hold_equal({"elem_pos": got.cpu().numpy()},
                    {"elem_pos": linearize_plain(*args).cpu().numpy()},
-                   f"linearize R={r} E={e}", report["linearize"])
-        where = ("global scratch" if ck.linearize_uses_scratch(e)
-                 else "shared memory")
-        print(f"phase 1: linearize R={r} E={e} ({where}; RGA rows, parents "
-              f"past the array, all-masked rows, equal keys): one launch, "
+                   f"linearize {name} R={r} E={e}", report["linearize"])
+        print(f"phase 1: linearize {name} R={r} E={e} "
+              f"({linearize_where(ck, e)}; {walk_text(host)}): one launch, "
               f"equal to the plain version")
 
 
@@ -1301,6 +1337,7 @@ def drive_docs_major(torch, dev, report, text_final):
     lin_launches = ck.LAUNCHES["linearize"]
 
     check(launches > 0, "the docs-major path skipped the domination kernel")
+    check(lin_launches > 0, "the docs-major path skipped the linearize kernel")
     check(col_launches == len(docset_frames) + len(text_frames),
           f"the column routes launched the domination kernel "
           f"{col_launches} times, not once a round")
@@ -1375,7 +1412,7 @@ def drive_docs_major(torch, dev, report, text_final):
               "docset_hashes": c_hashes, "docset_walls": c_walls,
               "tids": tids, "text_frames": text_frames,
               "text_hashes": t_hashes, "text_walls": t_walls}
-    return ds, tds, launches, fleets
+    return ds, tds, launches, lin_launches, fleets
 
 
 # A diff round's legs beyond COLUMN_LEGS' host legs: the module functions
@@ -1554,19 +1591,19 @@ def time_docs_round(torch, ds):
           f"{n_elems}] element rows (linearize_plain {plain:.3f} ms)")
 
 
-def linearize_bound(mask):
+def linearize_bound(host, model):
     """(bound_ms, bound_by, bytes, ops) of one linearize launch on these
-    rows: the mask byte and three int32 columns read, one int32 written, a
-    slot each (17 bytes); operations, for this data: a comparison sort of
-    each row's n live slots (n log2 n), four a live slot for the walk, and
-    three a node for each of the ceil_log2(E + 1) doubling steps."""
+    rows (numpy inputs): the mask byte and three int32 columns read, one
+    int32 written, a slot each (17 bytes); operations, for this data: on
+    each row with n live slots a comparison sort (n log2 n), four a live
+    slot to build the list, and three a live node for each doubling step
+    the row needs before no pointer is left (the kernel's CPU model's
+    count, `model` its result); an empty row none."""
     import math
-
-    from automerge_tpu_torch.engine.kernels import _ceil_log2
-    r, e = mask.shape
-    live = mask.sum(1).cpu().tolist()
-    ops = sum(int(n * math.log2(n)) + 4 * n for n in live if n) \
-        + 3 * r * (e + 1) * _ceil_log2(e + 1)
+    r, e = host[0].shape
+    live, steps = model["live"], model["doublings"]
+    ops = sum(int(n * math.log2(n)) + 4 * int(n) + 3 * (int(n) + 1) * int(k)
+              for n, k in zip(live, steps) if n)
     nbytes = 17 * r * e
     return (*bound_of(nbytes, ops), nbytes, ops)
 
@@ -1575,18 +1612,24 @@ def time_linearize(torch, ds, label):
     """The linearize launch apply_doc makes on this engine's state."""
     from automerge_tpu_torch.engine import cuda_kernels as ck
     from automerge_tpu_torch.engine.kernels import linearize_plain
+    from automerge_tpu_torch.linearize_schedule import schedule_model
     s = ds.state
     d, n_lists, n_elems = s["ins_mask"].shape
     cols = [s[k].reshape(d * n_lists, n_elems)
             for k in ("ins_mask", "ins_elem", "ins_actor", "ins_parent")]
+    host = [c.cpu().numpy() for c in cols]
     t = launch_times(lambda: ck.linearize(*cols), 20)
     p_ms = cuda_ms(lambda: linearize_plain(*cols), 2)
-    b_ms, b_by, nbytes, ops = linearize_bound(cols[0])
+    model = schedule_model(*host)
+    b_ms, b_by, nbytes, ops = linearize_bound(host, model)
     print(f"timing {label}: linearize rows=[{d * n_lists}, {n_elems}] "
-          f"live slots={int(cols[0].sum())} {times_text(t)} "
-          f"plain_ms={p_ms:.3f} bound_ms={b_ms:.5f} ({b_by}; "
-          f"bytes={nbytes} ops={ops}); the walk's floor: {n_elems} "
-          f"dependent shared-memory steps a row")
+          f"({linearize_where(ck, n_elems)}) live slots="
+          f"{int(host[0].sum())} {times_text(t)} plain_ms={p_ms:.3f} "
+          f"bound_ms={b_ms:.5f} ({b_by}; bytes={nbytes} ops={ops}); "
+          f"{walk_text(host)}; CPU model: narrow records on "
+          f"{int(model['narrow'].sum())} rows, jumps max "
+          f"{int(model['jumps'].max())}, doubling steps max "
+          f"{int(model['doublings'].max())}")
     return t["graph_ms"], p_ms, b_ms, b_by
 
 
@@ -1803,9 +1846,9 @@ def main() -> int:
     span_inputs, span_launches = drive_text_plane(torch, dev, report)
     move_inputs, move_launches = drive_move_plane(torch, dev, report)
     measure_link(torch, dev)
-    docset_ds, docs_ds, docs_launches, fleets = drive_docs_major(
+    docset_ds, docs_ds, docs_launches, lin9, fleets = drive_docs_major(
         torch, dev, report, text_final)
-    lin_launches = drive_diff_plane(torch, dev, fleets)
+    lin10 = drive_diff_plane(torch, dev, fleets)
 
     rows_times = time_kernel(torch, map_ds, "map storm")
     time_kernel(torch, text_ds, "text fleet")
@@ -1821,7 +1864,8 @@ def main() -> int:
     print(f"launches: rows engine {map_launches} (map storm) + "
           f"{text_launches} (text fleet); text-merge plane {span_launches}; "
           f"move plane {move_launches}; docs-major engine {docs_launches} "
-          f"(dominated); diff plane {lin_launches} (linearize)")
+          f"(dominated); linearize {lin9} (phase 9) + {lin10} (phase 10, "
+          f"the diff plane)")
     print(json.dumps({"kernels": [
         kernel_entry("reconcile_rows_hash",
                      "automerge_tpu_torch/csrc/reconcile_rows.cu",
@@ -1846,7 +1890,7 @@ def main() -> int:
                      "automerge_tpu_torch/csrc/linearize.cu",
                      "automerge_tpu/engine/kernels.py:102-137 (plain XLA, "
                      "no Pallas kernel)",
-                     lin_launches, report["linearize"], lin_times)]}))
+                     lin9 + lin10, report["linearize"], lin_times)]}))
     print(f"total {time.perf_counter() - t_all:.1f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -31,7 +31,8 @@ from automerge_tpu_torch.engine.resident_rows import ResidentRowsDocSet
 from automerge_tpu_torch.engine.kernels import apply_doc, linearize_plain
 from automerge_tpu_torch.engine.resident import ResidentDocSet
 from automerge_tpu_torch.workloads import (
-    LINEARIZE_CASES, RECONCILE_CASES, move_fleet, random_dominated,
+    LINEARIZE_CASES, LINEARIZE_CAUSAL_CASES, RECONCILE_CASES,
+    causal_linearize, mixed_linearize, move_fleet, random_dominated,
     random_linearize, random_move_lanes, random_span_tables, reconcile_case,
     reference_diff_streams, reference_docs_streams, reference_move_problems,
     reference_span_tables, reference_streams, span_fleet, text_fleet)
@@ -287,6 +288,42 @@ def test_linearize_kernel_matches_plain(cuda_device, r, e):
     got = _launched("linearize", lambda: linearize(*args))
     assert torch.equal(got, linearize_plain(*args))
     assert torch.equal(got.cpu(), linearize(*(x.cpu() for x in args)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gen", ["causal", "mixed"])
+@pytest.mark.parametrize("r,e", LINEARIZE_CAUSAL_CASES)
+def test_linearize_kernel_matches_plain_on_causal_rows(cuda_device, gen, r,
+                                                       e):
+    """The linearize kernel's parallel path against linearize_plain,
+    bit-equal: causal_linearize's rows (random trees with equal keys, all
+    children of the head, one chain), and mixed_linearize's batches where
+    causal rows and rows that take the walk share one launch, on a warp
+    slice a row (E = 8), a block a row, and the global scratch (E =
+    9,000)."""
+    from automerge_tpu_torch.engine.kernels import linearize
+    make = causal_linearize if gen == "causal" else mixed_linearize
+    args = [torch.from_numpy(x).to(cuda_device)
+            for x in make(np.random.default_rng(r * e), r, e)]
+    got = _launched("linearize", lambda: linearize(*args))
+    assert torch.equal(got, linearize_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e", [2, 3, 5, 16, 17, 31, 32, 33, 63, 64, 65,
+                               127, 128, 129, 511, 512, 1000, 1024, 2048,
+                               4097])
+def test_linearize_kernel_at_odd_widths(cuda_device, e):
+    """The linearize kernel on mixed_linearize's batches at every warp
+    slice width (E <= 32, padded lanes where E is not a power of two), at
+    and around each block instance's P (64 to 2,048) and just past 4,096
+    (the global scratch), bit-equal to linearize_plain; R not a multiple
+    of a block's rows."""
+    from automerge_tpu_torch.engine.kernels import linearize
+    args = [torch.from_numpy(x).to(cuda_device)
+            for x in mixed_linearize(np.random.default_rng(e), 77, e)]
+    got = _launched("linearize", lambda: linearize(*args))
+    assert torch.equal(got, linearize_plain(*args))
 
 
 @pytest.mark.cuda

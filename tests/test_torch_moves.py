@@ -433,8 +433,10 @@ def test_compare_kernels_loads_another_checkout():
     from automerge_tpu_torch.engine import span_kernels as sk
     from automerge_tpu_torch.engine.pack import pack_spans
     from automerge_tpu_torch.workloads import random_span_tables
-    other_mk, other_sk = compare_kernels.load_other(REPO, "amt_other_test")
+    other_mk, other_sk, other_ck = compare_kernels.load_other(
+        REPO, "amt_other_test")
     assert other_mk.__name__ == "amt_other_test.engine.move_kernels"
+    assert other_ck.__name__ == "amt_other_test.engine.cuda_kernels"
     assert other_mk is not mk
     rng = np.random.default_rng(5)
     nodes, cands, _ = (torch.from_numpy(a) for a in
