@@ -1,6 +1,5 @@
-"""Adaptive routing of the batched planes: host numpy or the device, by a
-measured cost model (the span and move part of `automerge_tpu/engine/
-dispatch.py`).
+"""Adaptive routing by a measured cost model (the span, move and megabatch
+part of `automerge_tpu/engine/dispatch.py`).
 
 A batch of span tables or move realms can be merged on the host (the
 numpy oracles, no fixed cost) or on the device (microseconds of kernel
@@ -8,22 +7,35 @@ time behind a fixed cost per dispatch, transfer and readback). The router
 prices both and takes the cheaper; its result dict has the same keys and
 shapes on both routes (numpy arrays on the host route, tensors on the
 device route; `result_to_numpy` gives the numpy schema).
+
+The rows engine's planner (`plan_round`, `apply_round_adaptive`) prices
+the megabatch route, the dirty lanes of a minority hash read reconciled in
+a few fused launches at smaller bucket dims, against the narrow gather the
+engine does otherwise, and runs the route where it is not dearer.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import functools
+import os
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..utils import metrics
+from . import dispatchledger
+from .cuda_kernels import hashes_to_numpy, reconcile_rows_hash
+from .pack import mega_row_map, pad_to_lanes, plan_megabuckets, rows_count
 
 # Cost model (seconds), measured by `chip_smoke.py` (phase 8, its "link"
 # line) on an NVIDIA H100 80GB HBM3 with a 700.00 W power limit and the
 # host of that machine, to five digits: the link legs through torch from
 # pageable numpy memory, as the router ships; the host legs on the port's
-# numpy oracles. Override with calibrate() for another deployment.
+# numpy oracles; the megabatch planner's terms (launch_s on) on the map
+# storm's engine after phase 2 (chip_smoke.measure_route_constants).
+# Override with calibrate() for another deployment.
 _LINK = {
     "dispatch_fixed_s": 5.1166e-05,  # tiny launch + readback, less d2h
     "h2d_call_s": 3.1743e-05,        # per host->device copy (1 KiB)
@@ -34,6 +46,13 @@ _LINK = {
     "move_lane_s": 4.7201e-07,       # resolve_moves_host per node +
                                      # candidate lane (all rounds)
     "move_fixed_s": 9.1590e-04,      # resolve_moves_host per batch
+    "launch_s": 2.0496e-05,          # reconcile wrapper, host enqueue
+    "dev_bytes_per_s": 1.7563e12,    # reconcile over a resident row
+                                     # buffer, its bytes a second (L2 cold)
+    "host_gather_bytes_per_s": 1.5639e8,  # numpy gather of 128 scattered
+                                     # lanes of the host mirror, bytes out
+    "mega_fixed_s": 4.4542e-04,      # megabatch route's host work (bucket
+    "mega_doc_s": 6.5875e-07,        # planning, bookkeeping) and a doc's
 }
 
 
@@ -125,3 +144,224 @@ def resolve_moves_adaptive(packed: dict, device="cuda"):
         torch.from_numpy(np.ascontiguousarray(nodes, np.int32)).to(dev),
         torch.from_numpy(np.ascontiguousarray(packed["cands"], np.int32))
         .to(dev))
+
+
+# ---------------------------------------------------------------------------
+# Megabatch round planning: the dirty lanes of a rows-engine hash read
+# reconciled in at most pack.MEGA_MAX_BUCKETS fused launches, each at its
+# bucket's dims (pack.plan_megabuckets). plan_round prices the route
+# against the narrow gather the engine does otherwise, with this card's
+# constants; apply_round_adaptive runs it. The reference also routes
+# round frames (its megabatch intent); the port does not: on this card
+# one reconcile of the whole resident buffer (0.12 ms for the map
+# storm's 209 MB on an H100) costs less than the route's host work.
+#
+# The port keeps the device copy of the row buffer resident: where it is
+# current, a bucket is gathered from it on the device (one index upload for
+# every bucket, a gather and a reconcile launch per bucket); only where it
+# is stale (after growth, under lazy dispatch) does a bucket come from the
+# host mirror, uploaded, as the reference gathers every bucket. Either way
+# all buckets' hashes come back in one readback.
+
+_megabatch: bool | None = None
+_megabatch_min: int | None = None
+
+
+def megabatch_enabled() -> bool:
+    """AMTPU_MEGABATCH != "0" (default on). Read once and cached;
+    `_reload_for_tests` drops the cache."""
+    global _megabatch
+    if _megabatch is None:
+        _megabatch = os.environ.get("AMTPU_MEGABATCH", "1") != "0"
+    return _megabatch
+
+
+def megabatch_min_docs() -> int:
+    """Routing threshold (AMTPU_MEGABATCH_MIN_DOCS, default 2): rounds
+    dirtying fewer docs stay on the per-doc path."""
+    global _megabatch_min
+    if _megabatch_min is None:
+        try:
+            _megabatch_min = max(
+                int(os.environ.get("AMTPU_MEGABATCH_MIN_DOCS", "2")), 1)
+        except ValueError:
+            _megabatch_min = 2
+    return _megabatch_min
+
+
+def _reload_for_tests() -> None:
+    global _megabatch, _megabatch_min
+    _megabatch = None
+    _megabatch_min = None
+
+
+@dataclass
+class RoundPlan:
+    route: str                      # "megabatch" | "per_doc"
+    docs: np.ndarray = field(       # doc indices, sorted (unique on the
+        default_factory=lambda: np.zeros(0, np.int64))  # megabatch route)
+    buckets: list = field(default_factory=list)  # pack.plan_megabuckets
+    est_mega_s: float = 0.0
+    est_alt_s: float = 0.0
+
+
+def _upload_s(nbytes: int) -> float:
+    return _LINK["h2d_call_s"] + nbytes / _LINK["h2d_bytes_per_s"]
+
+
+def _reconcile_s(nbytes: int) -> float:
+    """One reconcile launch over a row buffer of nbytes on the device."""
+    return _LINK["launch_s"] + nbytes / _LINK["dev_bytes_per_s"]
+
+
+def _resident(rset) -> bool:
+    return rset.rows_dev is not None and not rset._dirty
+
+
+def plan_round(rset, idxs) -> RoundPlan:
+    """Route the dirty docs `idxs` of a ResidentRowsDocSet's hash read
+    (a minority of the fleet): bucket their used sizes and price the fused
+    bucketed launches against the narrow gather. Returns a RoundPlan whose
+    buckets apply_round_adaptive runs. Never plans with AMTPU_MEGABATCH=0
+    or below the doc floor.
+
+    Estimates, from _LINK:
+    - the route: its host work (mega_fixed_s, and mega_doc_s a doc: the
+      bucket planning and the bookkeeping around the launches); per
+      bucket, a gather and a reconcile at the bucket's dims (from the
+      resident copy: two launches, the bucket's bytes read and written,
+      then read; from a stale copy: the host gather and its upload, one
+      launch); one upload of every bucket's indices when the copy is
+      resident; one readback;
+    - the alternative: the narrow lane gather at full dims from the host
+      mirror, its upload, one reconcile and one readback
+      (_reconcile_lanes).
+
+    The route's legs that need no buckets are priced first, from the doc
+    count alone: where they cost more than the alternative, the plan is
+    per-doc with no buckets and est_mega_s is that lower bound (the docs
+    are neither sorted nor sized)."""
+    idxs = np.asarray(idxs, np.int64)
+    if not megabatch_enabled() or len(idxs) < megabatch_min_docs():
+        return RoundPlan("per_doc", idxs)
+    dims_i, a, dims_le = rset.dims()[:3]
+    resident = _resident(rset)
+    nbytes = rows_count(dims_i, a, dims_le) * 4 * pad_to_lanes(len(idxs))
+    est_alt = (nbytes / _LINK["host_gather_bytes_per_s"]
+               + _upload_s(nbytes) + _reconcile_s(nbytes)
+               + _LINK["d2h_call_s"])
+    # the legs every bucketing shares: host work and the readback
+    est_mega = (_LINK["mega_fixed_s"] + len(idxs) * _LINK["mega_doc_s"]
+                + _LINK["d2h_call_s"])
+    bound = (est_mega + _LINK["h2d_call_s"]
+             + _LINK["launch_s"] * (2 if resident else 1))
+    if bound > est_alt:
+        metrics.bump("engine_megabatch_fallbacks")
+        return RoundPlan("per_doc", idxs, [], bound, est_alt)
+    idxs = np.unique(idxs)
+    i_used, l_used = rset._mega_doc_sizes(idxs)
+    buckets = plan_megabuckets(i_used, l_used, (dims_i, a, dims_le),
+                               rset.cap_elems)
+    index_bytes = 0
+    for b in buckets:
+        k_pad = pad_to_lanes(len(b["docs"]))
+        rows_b = rows_count(b["dims"][0], a, b["dims"][1])
+        nbytes = rows_b * k_pad * 4
+        if resident:
+            est_mega += (_LINK["launch_s"]
+                         + 2 * nbytes / _LINK["dev_bytes_per_s"]
+                         + _reconcile_s(nbytes))
+            index_bytes += (rows_b + k_pad) * 8
+        else:
+            est_mega += (nbytes / _LINK["host_gather_bytes_per_s"]
+                         + _upload_s(nbytes) + _reconcile_s(nbytes))
+    if index_bytes:
+        est_mega += _upload_s(index_bytes)
+    if est_mega <= est_alt:
+        return RoundPlan("megabatch", idxs, buckets, est_mega, est_alt)
+    metrics.bump("engine_megabatch_fallbacks")
+    return RoundPlan("per_doc", idxs, buckets, est_mega, est_alt)
+
+
+@functools.lru_cache(maxsize=64)
+def _row_map(dims_i: int, a: int, dims_le: int, i_b: int,
+             le_b: int) -> np.ndarray:
+    """mega_row_map, computed once per shape (read-only)."""
+    rmap = mega_row_map(dims_i, a, dims_le, i_b, le_b)
+    rmap.setflags(write=False)
+    return rmap
+
+
+def apply_round_adaptive(rset, plan: RoundPlan):
+    """Run a megabatch-routed RoundPlan on a ResidentRowsDocSet: per bucket,
+    ONE reconcile launch over a [rows(bucket dims), k_pad] sub-buffer of the
+    same lanes (pack.mega_row_map's subset property makes the hashes
+    bit-identical to the full buffer's), gathered from the resident device
+    copy when it is current, else from the host mirror. Padding lanes
+    repeat the bucket's last doc (a zero column is not a valid doc). All
+    buckets' hashes come back in one readback into the host hash mirror,
+    and their docs leave the dirty set. The device copy is never dropped.
+
+    Returns the round's occupancy summary, or None when the plan routed
+    per-doc (the caller takes its classic path)."""
+    if plan is None or plan.route != "megabatch" or not plan.buckets:
+        return None
+    dims_i, a, dims_le, a_set, a_del = rset.dims()
+    mirror = rset._ensure_hash_mirror()
+    idxs = plan.docs
+    resident = _resident(rset)
+    parts = []
+    for b in plan.buckets:
+        docs = idxs[b["docs"]]
+        k = len(docs)
+        k_pad = pad_to_lanes(k)
+        i_b, le_b = b["dims"]
+        rmap = _row_map(dims_i, a, dims_le, i_b, le_b)
+        sel = np.concatenate([docs, np.full(k_pad - k, docs[-1], np.int64)])
+        parts.append((docs, k_pad, (i_b, a, le_b, a_set, a_del), rmap, sel))
+    if resident:
+        # every bucket's row map and lane selection in one upload
+        flat = rset._to_dev(np.concatenate(
+            [x for p in parts for x in (p[3], p[4])]))
+    outs = []
+    logical = padded = docs_cap = off = 0
+    for docs, k_pad, dims, rmap, sel in parts:
+        k, rows_b = len(docs), len(rmap)
+        if resident:
+            rows_t = flat[off:off + rows_b]
+            lanes_t = flat[off + rows_b:off + rows_b + k_pad]
+            off += rows_b + k_pad
+            # one gather kernel, no [rows_b, n_pad] or [ROWS, k_pad]
+            # intermediate
+            sub = rset.rows_dev[rows_t[:, None], lanes_t]
+        else:
+            sub = rset._to_dev(rset.rows_host[np.ix_(rmap, sel)])
+        with dispatchledger.call_scope(
+                "rows_mega", backend="device", docs=k,
+                axes={"docs": (k, k_pad), "rows": (rows_b, rows_b)}):
+            outs.append(reconcile_rows_hash(sub, dims)[:k])
+        logical += rows_b * k
+        padded += rows_b * k_pad
+        docs_cap += k_pad
+    vals = hashes_to_numpy(outs[0] if len(outs) == 1 else torch.cat(outs))
+    done = (parts[0][0] if len(parts) == 1
+            else np.concatenate([p[0] for p in parts]))
+    mirror[done] = vals
+    rset._doc_dirty.difference_update(done.tolist())
+    nb = len(parts)
+    n_docs = len(idxs)
+    summary = {
+        "buckets": nb,
+        "docs": n_docs,
+        "dispatches": nb,
+        "docs_cap": docs_cap,
+        "logical": logical,
+        "padded": padded,
+        "docs_per_dispatch": round(n_docs / nb, 4),
+        "fill_pct": round(100.0 * n_docs / docs_cap, 3),
+        "pad_waste_pct": round(100.0 * (1.0 - logical / padded), 3),
+    }
+    metrics.bump("engine_megabatch_rounds")
+    metrics.bump("engine_megabatch_docs", n_docs)
+    dispatchledger.note_megabatch(summary)
+    return summary

@@ -209,6 +209,131 @@ def apply_rows_hash(rows: torch.Tensor, dims: tuple,
 
 
 # ---------------------------------------------------------------------------
+# Megabatch buckets: a round's dirty documents reconciled at smaller dims
+#
+# Documents share lanes in the docs-minor buffer but not shape: one 16-op
+# doc in a fleet grown to I = 1,024 pays the whole 1,024-row band. A
+# smaller-dims (I', A, L'*E) layout is a pure ROW-INDEX SUBSET of the full
+# (I, A, L*E) layout for the same lanes, provided the elem-slot stride E is
+# kept (whole lists only):
+#
+#   op bands        rows g + [0, I')           per op group g
+#   clock band      rows co + a*I + [0, I')    per actor a (strided)
+#   elem bands      rows g + [0, L'*E)         per elem group g
+#   ah band         all A rows
+#
+# Every band is lane-independent in the kernel (cuda_kernels.
+# reconcile_rows_hash: one output per lane), op and elem rows join only
+# within their own band ranges, and unused rows (op_mask = 0, ins_mask = 0)
+# add nothing to the hash. So hashing the subset buffer at dims
+# (I', A, L'*E) is BIT-IDENTICAL to hashing the full buffer, for any
+# I' >= ops used and L' >= lists used of every selected lane. Ragged
+# per-doc sizes are bucketed onto a power-of-two ladder, so a round runs at
+# most MEGA_MAX_BUCKETS kernel shapes; each bucket carries its doc-position
+# table, so unpacking the per-doc hashes is exact.
+
+#: distinct bucket shapes a megabatched round may have (the cap on its
+#: launches)
+MEGA_MAX_BUCKETS = 4
+#: smallest quantized op / list band (the kernel's join block height)
+MEGA_MIN_DIM = 8
+
+
+def mega_quantize(n: int, cap: int) -> int:
+    """Power-of-two ladder from MEGA_MIN_DIM up to (and clamped at) cap.
+    cap need not be a power of two: the top rung is the fleet dimension."""
+    q = MEGA_MIN_DIM
+    while q < n:
+        q *= 2
+    return min(q, cap)
+
+
+def mega_bucket_dims(i_used: int, l_used: int, caps: tuple,
+                     e: int) -> tuple:
+    """Quantized (i_b, le_b) bucket dims of one doc's used sizes under the
+    fleet caps (I, A, LE). Elem slots subset at LIST granularity only
+    (le_b = l_b * e keeps the slot stride), and both dims stay multiples of
+    the join block height; where that cannot be met the dimension is the
+    fleet's."""
+    i_cap, _a, le_cap = caps
+    i_b = mega_quantize(max(int(i_used), 1), i_cap)
+    if i_b % 8:
+        i_b = i_cap
+    if le_cap == 0 or e == 0:
+        return i_b, 0
+    l_cap = le_cap // e
+    l_b = mega_quantize(max(int(l_used), 1), l_cap) if l_used else 0
+    while l_b < l_cap and (l_b * e) % 8:
+        l_b *= 2
+    le_b = min(l_b * e, le_cap)
+    if le_b % 8:
+        le_b = le_cap
+    return i_b, le_b
+
+
+def mega_row_map(i: int, a: int, le: int, i_b: int,
+                 le_b: int) -> np.ndarray:
+    """Row indices into the full (i, a, le) docs-minor buffer that gather a
+    valid (i_b, a, le_b) buffer of the SAME doc lanes (the subset property
+    above). Its length is rows_count(i_b, a, le_b); row_bases is the one
+    layout definition on both sides."""
+    src = row_bases(i, a, le)
+    ops = np.arange(i_b, dtype=np.int64)
+    elems = np.arange(le_b, dtype=np.int64)
+    parts = [src[g] + ops
+             for g in ("om", "ac", "fid", "act", "seq", "chg", "fh", "vh")]
+    parts.extend(src["co"] + aa * i + ops for aa in range(a))
+    parts.extend(src[g] + elems for g in ("im", "if", "ip", "io", "il"))
+    parts.append(src["ah"] + np.arange(a, dtype=np.int64))
+    out = np.concatenate(parts)
+    assert len(out) == rows_count(i_b, a, le_b)
+    return out
+
+
+def plan_megabuckets(i_used, l_used, caps: tuple, e: int) -> list[dict]:
+    """Bucket a round's docs by quantized shape: positions p group under
+    mega_bucket_dims(i_used[p], l_used[p]). Past MEGA_MAX_BUCKETS distinct
+    shapes, the smallest padded volume merges into its cheapest superset
+    (a doc hashes identically at any dims >= its used sizes, so merging
+    adds padding, never error).
+
+    Returns [{"dims": (i_b, le_b), "docs": int64 positions}], largest
+    bucket first. The shapes are keyed in the order of their first doc, as
+    the reference's per-doc loop keys them (ties in size keep that order);
+    the dims are computed once per distinct (i_used, l_used) pair."""
+    i_used = np.asarray(i_used, np.int64)
+    l_used = np.asarray(l_used, np.int64)
+    groups: dict[tuple, np.ndarray] = {}
+    if len(i_used):
+        uniq, first, inv = np.unique((i_used << 32) | l_used,
+                                     return_index=True, return_inverse=True)
+        key_of = [mega_bucket_dims(int(u >> 32), int(u & 0xFFFFFFFF), caps,
+                                   e) for u in uniq]
+        key_id: dict[tuple, int] = {}
+        pos_key = np.asarray([key_id.setdefault(k, len(key_id))
+                              for k in key_of])[inv.reshape(-1)]
+        for u in np.argsort(first, kind="stable"):
+            key = key_of[u]
+            if key not in groups:
+                groups[key] = np.flatnonzero(pos_key == key_id[key])
+    a_rows = caps[1]
+    while len(groups) > MEGA_MAX_BUCKETS:
+        small = min(groups, key=lambda k: (rows_count(k[0], a_rows, k[1])
+                                           * len(groups[k])))
+        members = groups.pop(small)
+        best = min(groups,
+                   key=lambda k: rows_count(max(k[0], small[0]), a_rows,
+                                            max(k[1], small[1])))
+        merged = (max(best[0], small[0]), max(best[1], small[1]))
+        members = np.concatenate([members, groups.pop(best)])
+        groups[merged] = (np.concatenate([groups[merged], members])
+                          if merged in groups else members)
+    out = [{"dims": k, "docs": np.sort(v)} for k, v in groups.items()]
+    out.sort(key=lambda b: -len(b["docs"]))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Span-table lane layout (the batched text-merge plane's wire shape)
 #
 # Per document, one int32 [len(SPAN_FIELDS), S_pad] block with the span

@@ -24,17 +24,30 @@ Ingress, on a native instance (the default):
   (`_encode_round_frame`, counted in `ROUNDS["rows_rounds_fallback"]`).
   The micro-batch is applied with one scatter and one kernel launch, and
   the device hash tensor is returned unread; with `lazy_dispatch` set the
-  device work waits for the next hash read.
+  device work waits for the next hash read. A device copy left stale
+  (growth, a failed dispatch, lazy rounds) is replaced by the post-batch
+  host mirror, which already holds the batch, and nothing is scattered.
+- A minority-dirty hash read (`hashes_for`, or `hashes()` after lazy
+  rounds) of at least `AMTPU_MEGABATCH_MIN_DOCS` documents (default 2;
+  `AMTPU_MEGABATCH=0` turns it off) may take the megabatch route
+  (`dispatch.plan_round` / `apply_round_adaptive`): the dirty lanes
+  reconciled in a few launches at smaller bucket dims, gathered from the
+  device copy (which stays resident) or, where that is stale, from the
+  host mirror, and read back into the host hash mirror. The card's cost
+  model picks the route; the hashes are the same bit for bit. A round
+  frame does not take it (the reference's megabatch intent): on the card
+  the whole resident buffer's reconcile costs less than the route's host
+  work at every fleet size the repo runs (PERF.md, ROADMAP.md).
 - `apply_rounds_cols` ({doc_id: WireColumns} rounds) and `apply_rounds`
   (Change rounds, converted to columns): one native encode per round and
   a scatter + launch per round, the hashes read back.
 With `native=False` every route runs the pure-Python encoder.
 
-Left out (later slices): the megabatch route (`mega` is never taken here),
-compaction with its ghost-anchor reject (`ghost_eids`,
-`CompactionAnchorError`), the log archive and snapshots, rebuild-from-log,
-`materialize`, and the telemetry planes (`metrics`, `flightrec`,
-`perfscope`).
+Left out (later slices): compaction with its ghost-anchor reject
+(`ghost_eids`, `CompactionAnchorError`), the log archive and snapshots,
+rebuild-from-log, `materialize`, and the telemetry planes' spans
+(`metrics.trace`, `flightrec`, `perfscope`); the dispatch ledger
+(`dispatchledger.call_scope`) is ported.
 """
 
 from __future__ import annotations
@@ -49,7 +62,10 @@ from ..native.linearize import linearize_host
 from ..native.wire import changes_to_columns
 from ..storage import _ACTION_IDX
 from ..sync.frames import RoundColumns, decode_round_frame
+from ..utils import metrics
 from ..utils.gcpause import gc_paused
+from . import dispatch as round_dispatch
+from . import dispatchledger
 from .cuda_kernels import hashes_to_numpy, reconcile_rows_hash
 from .encode import A_DEL, A_SET, _pad_to
 from .pack import pad_to_lanes, row_bases, rows_dims_eligible
@@ -594,6 +610,7 @@ class ResidentRowsDocSet(ResidentDocSet):
             self.rows_dev = None
             self._dirty = True
             self._hash_handle = None
+            metrics.bump("rows_dispatch_failed")
             raise DeviceDispatchError(str(e), admission_complete=True) from e
 
     @contextlib.contextmanager
@@ -698,21 +715,31 @@ class ResidentRowsDocSet(ResidentDocSet):
             parts + [np.zeros((0, 3), np.int32)]).astype(np.int64))
         return list(torch.split(flat, [len(t) for t in parts]))
 
-    def _mark_trips_dirty(self, trip_list) -> None:
+    def _mark_trips_dirty(self, trip_list) -> np.ndarray:
         """Hash invalidation for the lanes a batch touches, BEFORE the
-        dispatch (a failed dispatch leaves host truth updated)."""
-        touched = {int(d) for t in trip_list for d in np.unique(t[:, 1])}
-        if touched:
-            self._mark_hash_dirty(touched)
+        dispatch (a failed dispatch leaves host truth updated). Returns the
+        touched doc indices, sorted (int64)."""
+        touched = np.unique(np.concatenate(
+            [t[:, 1] for t in trip_list] + [np.zeros(0, np.int32)])
+            ).astype(np.int64)
+        if len(touched):
+            self._mark_hash_dirty(touched.tolist())
+        return touched
 
     def _dispatch_rounds(self, trip_list, pre_rows) -> np.ndarray:
         n = len(self.doc_ids)
-        self._mark_trips_dirty(trip_list)
+        touched = self._mark_trips_dirty(trip_list)
         if pre_rows is not None:
             self.rows_dev = self._to_dev(pre_rows)
             self._dirty = False
-        self.rows_dev, hashes = _scan_rounds(
-            self.rows_dev, self._upload_trips(trip_list), self.dims())
+        p = max((len(t) for t in trip_list), default=1)
+        with dispatchledger.call_scope(
+                "rows_scan", backend="device", docs=len(touched),
+                axes={"docs": (n, self.n_pad),
+                      "rounds": (len(trip_list), len(trip_list)),
+                      "trips": (p, p)}):
+            self.rows_dev, hashes = _scan_rounds(
+                self.rows_dev, self._upload_trips(trip_list), self.dims())
         self._hash_handle = None
         vals = hashes_to_numpy(hashes)
         if len(trip_list):
@@ -936,12 +963,9 @@ class ResidentRowsDocSet(ResidentDocSet):
                     ROUNDS["rows_rounds_fallback"] += len(rounds)
                 encoded = [self._encode_round_frame(rc) for rc in rounds]
             self._grow_for_rounds(encoded)
-            need_pre = (not self.lazy_dispatch
-                        and (self._dirty or self.rows_dev is None))
-            pre_rows = self.rows_host.copy() if need_pre else None
             trip_list = [self._cols_triplets(e) for e in encoded]
             with self._dispatch_guard():
-                return self._dispatch_final(trip_list, pre_rows)
+                return self._dispatch_final(trip_list)
 
     def _apply_rounds_final(self, rounds) -> torch.Tensor | None:
         """Change rounds through the pure-Python encoder, then the merged
@@ -950,12 +974,9 @@ class ResidentRowsDocSet(ResidentDocSet):
             self._register_actors(r)
         self._reserve_for(rounds)
         with self._admission_guard():
-            need_pre = (not self.lazy_dispatch
-                        and (self._dirty or self.rows_dev is None))
-            pre_rows = self.rows_host.copy() if need_pre else None
             trip_list = [self._round_triplets(r) for r in rounds]
             with self._dispatch_guard():
-                return self._dispatch_final(trip_list, pre_rows)
+                return self._dispatch_final(trip_list)
 
     def _register_round_actors(self, rc) -> None:
         cols = rc.cols
@@ -1349,13 +1370,15 @@ class ResidentRowsDocSet(ResidentDocSet):
         return {"bd": bd, "clock_mat": m_clock, "adm_doc": m_doc,
                 "adm_cidx": m_cidx}
 
-    def _dispatch_final(self, trip_list, pre_rows) -> torch.Tensor | None:
+    def _dispatch_final(self, trip_list) -> torch.Tensor | None:
         """One scatter + one reconcile for a whole batch: triplets merged
         in round order with last-wins dedup (rounds overwrite each other
-        only on re-linearized position rows). Returns the device hash
-        tensor without reading it back; the next hashes() read consumes
-        it. Under lazy_dispatch it returns None and launches nothing."""
-        self._mark_trips_dirty(trip_list)
+        only on re-linearized position rows). A stale device copy is
+        replaced by the host mirror, which already holds the batch, and
+        nothing is scattered. Returns the device hash tensor without
+        reading it back; the next hashes() read consumes it. Under
+        lazy_dispatch it returns None and launches nothing."""
+        touched = self._mark_trips_dirty(trip_list)
         if self.lazy_dispatch:
             # the triplets are already in the host mirror; the next hash
             # read uploads and reconciles only the lanes just marked
@@ -1363,14 +1386,19 @@ class ResidentRowsDocSet(ResidentDocSet):
             self._dirty = True
             self._hash_handle = None
             return None
-        if pre_rows is not None:
-            self.rows_dev = self._to_dev(pre_rows)
+        trips = None
+        if self.rows_dev is None or self._dirty:
+            self.rows_dev = self._to_dev(self.rows_host)
             self._dirty = False
-        merged = [t for t in trip_list if len(t)]
-        trips = self._upload_trips(
-            [np.concatenate(merged)] if merged else [])
-        self.rows_dev, h = _apply_final(
-            self.rows_dev, trips[0] if trips else None, self.dims())
+        else:
+            merged = [t for t in trip_list if len(t)]
+            if merged:
+                trips = self._upload_trips([np.concatenate(merged)])[0]
+        with dispatchledger.call_scope(
+                "rows_apply", backend="device", docs=len(touched),
+                axes={"docs": (len(self.doc_ids), self.n_pad)}):
+            self.rows_dev, h = _apply_final(self.rows_dev, trips,
+                                            self.dims())
         self._hash_handle = h
         return h
 
@@ -1380,10 +1408,12 @@ class ResidentRowsDocSet(ResidentDocSet):
 
         - an unconsumed device handle covers every lane: ONE readback
           refreshes the whole mirror, no launch;
-        - otherwise only dirty lanes in `want` reconcile, through a narrow
-          gathered sub-buffer (_reconcile_lanes), UNLESS a majority of the
-          fleet is dirty; then the full-buffer reconcile is cheaper (and
-          re-primes the device copy).
+        - otherwise only dirty lanes in `want` reconcile: with a minority
+          of the fleet dirty, through the megabatch route where
+          dispatch.plan_round prices it no dearer, else through a narrow
+          gathered sub-buffer (_reconcile_lanes); with a majority dirty,
+          through the full-buffer reconcile (which re-primes the device
+          copy).
         """
         n = len(self.doc_ids)
         mirror = self._ensure_hash_mirror()
@@ -1402,17 +1432,44 @@ class ResidentRowsDocSet(ResidentDocSet):
                        and (want is None or i in want))
         if not dirty:
             return
+        if 2 * len(dirty) < n and round_dispatch.apply_round_adaptive(
+                self, round_dispatch.plan_round(self, dirty)) is not None:
+            return
         if 2 * len(dirty) >= n:
             if self.rows_dev is None or self._dirty:
                 self.rows_dev = self._to_dev(self.rows_host)
                 self._dirty = False
-            vals = hashes_to_numpy(reconcile_rows_hash(self.rows_dev,
-                                                       self.dims()))
+            with dispatchledger.call_scope(
+                    "rows_hash", backend="device", docs=len(dirty),
+                    axes={"docs": (n, self.n_pad)}):
+                h = reconcile_rows_hash(self.rows_dev, self.dims())
+            vals = hashes_to_numpy(h)
             mirror[:n] = vals[:n]
             self._hash_handle = None
             self._doc_dirty.clear()
             return
         self._reconcile_lanes(dirty)
+
+    def _mega_doc_sizes(self, idxs):
+        """Exact per-doc used sizes for megabatch bucket planning: the ops
+        used (op rows fill slots [0, op_count) with op_mask set, since the
+        port has no compaction, so this equals the reference's scan of the
+        op_mask band) and the lists used, from a scan of the selected lanes'
+        ins_mask band: the highest occupied elem slot rounded up to whole
+        lists (elem bands subset only at list granularity,
+        pack.mega_row_map). Returns (i_used, l_used) int64 arrays."""
+        sel = np.asarray(idxs, np.int64)
+        i_used = self.op_count[sel].astype(np.int64)
+        le = self.cap_lists * self.cap_elems
+        if le:
+            b = self._bases()
+            im = self.rows_host[b["im"]:b["im"] + le][:, sel] > 0
+            slot = np.where(im.any(axis=0),
+                            le - np.argmax(im[::-1], axis=0), 0)
+            l_used = -(-slot // self.cap_elems)
+        else:
+            l_used = np.zeros(len(sel), np.int64)
+        return i_used, l_used.astype(np.int64)
 
     def _reconcile_lanes(self, idxs: list[int]) -> None:
         """Reconcile ONLY the given doc lanes: gather their columns from the
@@ -1425,8 +1482,10 @@ class ResidentRowsDocSet(ResidentDocSet):
         # dirty lane, whose extra hashes are discarded below
         sel = np.asarray(idxs + [idxs[-1]] * (k_pad - k), np.int64)
         sub = np.ascontiguousarray(self.rows_host[:, sel])
-        vals = hashes_to_numpy(reconcile_rows_hash(self._to_dev(sub),
-                                                   self.dims()))
+        with dispatchledger.call_scope("rows_hash", backend="device", docs=k,
+                                       axes={"docs": (k, k_pad)}):
+            h = reconcile_rows_hash(self._to_dev(sub), self.dims())
+        vals = hashes_to_numpy(h)
         self._hash_mirror[np.asarray(idxs, np.int64)] = vals[:k]
         self._doc_dirty.difference_update(idxs)
 

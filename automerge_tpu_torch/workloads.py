@@ -223,6 +223,13 @@ RECONCILE_CASES = {
     "max_dims": (1024, 9, 1024, 256),     # I = LE = 1,024
     "tiled": (1024, 64, 1024, 128),       # a lane past the shared memory
     "long_list": (64, 4, 16384, 8),       # a lane that needs a whole block
+    # the megabatch route's bucket dims (engine/dispatch.py
+    # apply_round_adaptive): small op bands, LE = 0 in a fleet whose LE is
+    # 8, lane counts from 128
+    "bucket_one_op": (8, 2, 0, 1024),     # the map storm's one-op docs
+    "bucket_small": (8, 2, 8, 128),       # one small list a doc
+    "bucket_mid": (16, 4, 256, 256),      # a short op band, long lists
+    "bucket_wide_ops": (64, 2, 8, 1024),  # a mid op band, XL-capable
 }
 
 
@@ -235,7 +242,8 @@ def reconcile_case(name: str, seed: int = 0):
     three lanes in four hold no op. "tiled": enough actors that a lane's
     live ops and their clock rows do not fit one block's shared memory.
     "long_list": enough elements that a lane's per-slot state does not fit
-    a quarter of a block's shared memory, so a block holds one lane."""
+    a quarter of a block's shared memory, so a block holds one lane.
+    "bucket_*": random lanes at the megabatch route's bucket dims."""
     i, a, le, d = RECONCILE_CASES[name]
     rng = np.random.default_rng(seed)
     x, dims = random_rows(rng, i, a, le, d, n_fids=16, n_lists=4)

@@ -19,8 +19,10 @@ Phases:
      parity on random inputs: the reconcile kernel on every case of
      workloads.RECONCILE_CASES (the base and XL-only shapes, a heavy lane
      among near-empty ones, every slot live, lanes with no op, LE = 0,
-     A = 1, I = LE = 1,024, a lane past the shared memory and a lane
-     whose state needs a whole block), with and without force_xl; the
+     A = 1, I = LE = 1,024, a lane past the shared memory, a lane whose
+     state needs a whole block, and the megabatch route's bucket dims,
+     each of these timed), with and without force_xl (with it where
+     I % 32 == 0); the
      span rank+hash kernel (pre-sorted and through an order) on both of
      its paths: a warp per document at S_pad 128 and 131 (scalar loads),
      a block per document at 2,176, 4,096 and 9,000 (two chunks), D = 1
@@ -47,16 +49,22 @@ Phases:
      round's host legs (decode, actor registration + precheck, admission
      + native encode, triplets, dispatch, readback) timed by wrapping the
      engine's methods; every round after the first call on the batched
-     admission path. (b) The 8 frames as one micro-batch. (c)
-     apply_rounds (native), then late docs and a minority-dirty
-     hashes_for read. (d) apply_rounds with native=False. One final hash
-     set;
+     admission path; no frame round plans a megabatch route. (b) The 8
+     frames as one micro-batch. (c) apply_rounds (native), then late docs
+     and a minority-dirty hashes_for read, MINORITY_REPS times each way in
+     turns (the same lanes marked dirty again before each): the megabatch
+     route on (the default; its plan, est_mega_s against est_alt_s,
+     printed) and off (AMTPU_MEGABATCH=0), hashes equal, the planner's
+     pick held to be no slower than the route off (10% of its p50 + 0.05
+     ms), with the route's buckets, fill and padding waste. (d)
+     apply_rounds with native=False. One final hash set;
   3. a text fleet of 2,048 docs, 4 concurrent typists each, so the list
      half of the kernel runs; its startup read takes the full-buffer path;
      the main path through apply_round_frames (a frame a call, read back,
      legs split), then apply_rounds native and native=False, all equal;
-  4. both paths' final hashes recomputed from the device buffer by the plain
-     version, and the launch counts of both paths;
+  4. both paths' final hashes (and those of 2(c)'s engine, after the
+     megabatch route's reads) recomputed from the device buffer by the
+     plain version, and the launch counts of both paths;
   5. small fixed-seed workloads against outputs the JAX reference computed
      (automerge_tpu_torch/testdata/reference_hashes.npz): the rows streams'
      hashes (through apply_rounds and apply_round_frames), span-table
@@ -74,8 +82,11 @@ Phases:
      model (move_schedule.schedule_model, whose rounds, doubling steps and
      gathers the timing line prints beside the plain schedule's) and (one
      realm) the host walk;
-  8. the router's cost constants measured on this machine (the "link"
-     line: launch + readback, host<->device copies, the numpy oracles);
+  8. the routers' cost constants measured on this machine (the "link"
+     line: launch + readback, host<->device copies, the numpy oracles;
+     the megabatch planner's: a launch's enqueue, the reconcile's rate
+     over phase 2's resident buffer, the host mirror's gather, the route's
+     host work);
   9. the docs-major engine: (a) bench config 5's docset fleet (10,000
      docs, 12 rounds of 2,000 one-op changes) through ResidentDocSet, then
      apply_changes and a minority hashes_for read, held to apply_batch
@@ -108,8 +119,11 @@ Then the kernel timings (each kernel's launches timed three ways:
 same launches captured in one CUDA graph, the device alone; the reconcile
 kernel also `graph_cold_ms`, the graph with the L2 flushed before each
 launch, as the main path finds it), a `kernels` JSON line (its `ms` the
-graph figure, cold for the reconcile kernel), the card's name and power
-limit, and the last line {"ok": true, "device": {...}}. Any failure exits
+graph figure, cold for the reconcile kernel; the reconcile kernel's
+launches count the megabatch buckets, and its "mega" key the route's
+rounds, buckets, docs, fill and padding waste on the main path), the
+card's name and power limit, and the last line {"ok": true, "device":
+{...}}. Any failure exits
 non-zero; without a CUDA device, or outside a checkout, it prints no result.
 """
 
@@ -117,6 +131,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -136,8 +151,26 @@ L2_FLUSH_BYTES = 256 << 20
 # node does ~12 for its winner gather and ~8 per doubling step (two label
 # loads, three compares, three selects).
 SPAN_LANE_OPS = 40
+# Minority reads each way (the megabatch route on, off) in phase 2(c), in
+# turns: the p50s its check compares are over all of them.
+MINORITY_REPS = 8
 MOVE_GATHER_OPS = 12
 MOVE_STEP_OPS = 8
+
+
+_CARD: list = []
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them (read
+    once), to print beside every number."""
+    if not _CARD:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60, check=True)
+        _CARD.append(smi.stdout.strip().splitlines()[0])
+    return _CARD[0]
 
 
 def check(cond, msg: str) -> None:
@@ -438,7 +471,9 @@ def phase_kernel_parity(torch, dev, report):
         i, a, le = dims[:3]
         rows = torch.from_numpy(rows_np).to(dev)
         want = ck.hashes_to_numpy(ck.reconcile_rows_hash_plain(rows, dims))
-        for force_xl in (False, True):
+        # the XL form blocks the op band by _XL_BI
+        xl_forms = (False, True) if i % ck._XL_BI == 0 else (False,)
+        for force_xl in xl_forms:
             got, launches = counted("reconcile_rows_hash",
                                     lambda: ck.reconcile_rows_hash(
                                         rows, dims, force_xl))
@@ -452,14 +487,16 @@ def phase_kernel_parity(torch, dev, report):
                 f"D={rows.shape[1]} base_envelope="
                 f"{rows_dims_eligible(i, a, le)} xl_envelope="
                 f"{ck.rows_dims_eligible_xl(i, a, le)}: one launch a call, "
-                f"equal to the plain version, with and without force_xl")
-        if name in ("base", "xl_only"):
+                f"equal to the plain version, "
+                + ("with and without force_xl" if len(xl_forms) == 2
+                   else f"without force_xl (I % {ck._XL_BI} != 0)"))
+        if name in ("base", "xl_only") or name.startswith("bucket_"):
             t = launch_times(lambda: ck.reconcile_rows_hash(rows, dims), 10,
                              cold=True)
             p_ms = cuda_ms(lambda: ck.reconcile_rows_hash_plain(rows, dims), 2)
             b_ms, b_by = bound(rows, dims)[:2]
             line += (f"; {times_text(t)} plain_ms={p_ms:.3f} "
-                     f"bound_ms={b_ms:.5f} ({b_by})")
+                     f"bound_ms={b_ms:.5f} ({b_by}) [{card()}]")
         print(line)
     check(not rows_dims_eligible(512, 8, 512)
           and ck.rows_dims_eligible_xl(512, 8, 512),
@@ -765,15 +802,116 @@ def legs_text(per_round) -> str:
         for k in per_round[0])
 
 
+@contextlib.contextmanager
+def megabatch_off():
+    """AMTPU_MEGABATCH=0 for the port: set in os.environ and the planner's
+    cached reading dropped; both restored after."""
+    from automerge_tpu_torch.engine import dispatch
+    old = os.environ.get("AMTPU_MEGABATCH")
+    os.environ["AMTPU_MEGABATCH"] = "0"
+    dispatch._reload_for_tests()
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("AMTPU_MEGABATCH", None)
+        else:
+            os.environ["AMTPU_MEGABATCH"] = old
+        dispatch._reload_for_tests()
+
+
+@contextlib.contextmanager
+def recorded_plans():
+    """Every RoundPlan the engine's planner returns, in order:
+    dispatch.plan_round wrapped, put back after."""
+    from automerge_tpu_torch.engine import dispatch
+    plans = []
+    real = dispatch.plan_round
+
+    def rec(rset, idxs):
+        t0 = time.perf_counter()
+        plan = real(rset, idxs)
+        plan.plan_s = time.perf_counter() - t0
+        plans.append(plan)
+        return plan
+    dispatch.plan_round = rec
+    try:
+        yield plans
+    finally:
+        dispatch.plan_round = real
+
+
+def plans_text(plans) -> str:
+    return "; ".join(
+        f"{p.route} buckets "
+        f"{[(b['dims'], len(b['docs'])) for b in p.buckets]} est_mega_s="
+        f"{p.est_mega_s:.3e} est_alt_s={p.est_alt_s:.3e} (planned in "
+        f"{p.plan_s:.2e} s)"
+        for p in plans) or "no plan"
+
+
+def last_mega():
+    """The megabatch summary of the ledger's newest folded round, or None."""
+    from automerge_tpu_torch.engine import dispatchledger
+    sec = dispatchledger.ledger().section()
+    return sec["ring"][-1].get("mega") if sec and sec["ring"] else None
+
+
+class MegaAccount:
+    """The megabatch occupancy of the rounds a run folds: rounds routed
+    megabatch, buckets (fused launches), docs, and fill and padding waste
+    over them (the ledger's definitions)."""
+
+    def __init__(self):
+        self.rounds = self.dispatches = self.docs = 0
+        self.docs_cap = self.logical = self.padded = 0
+
+    def add(self, m) -> None:
+        if m:
+            self.rounds += 1
+            for k in ("dispatches", "docs", "docs_cap", "logical",
+                      "padded"):
+                setattr(self, k, getattr(self, k) + m[k])
+
+    def as_dict(self) -> dict:
+        return {"rounds": self.rounds, "dispatches": self.dispatches,
+                "docs": self.docs,
+                "fill_pct": (round(100.0 * self.docs / self.docs_cap, 3)
+                             if self.docs_cap else None),
+                "pad_waste_pct": (
+                    round(100.0 * (1 - self.logical / self.padded), 3)
+                    if self.padded else None)}
+
+    def text(self) -> str:
+        d = self.as_dict()
+        return (f"rounds routed megabatch {d['rounds']}, buckets (fused "
+                f"launches) {d['dispatches']}, docs {d['docs']}, fill_pct "
+                f"{d['fill_pct']}, pad_waste_pct {d['pad_waste_pct']}")
+
+
+def check_routes(name, on, off) -> None:
+    """The planner's pick (route on) no slower than the route off, by more
+    than 10% of the latter's p50 plus 0.05 ms (on and off: seconds of the
+    same work). Prints the comparison before it checks it."""
+    a, b = p50(on), p50(off)
+    print(f"{name}: p50 {a:.6f} s (route on) against {b:.6f} s (off), "
+          f"margin {1.1 * b + 5e-5 - a:.6f} s [{card()}]")
+    check(a <= 1.1 * b + 5e-5,
+          f"{name}: the planner's pick took {a:.6f} s (p50) against "
+          f"{b:.6f} s with the route off")
+
+
 def drive_map_storm(torch, dev):
     """Phase 2: the main path at bench config 20's scale, the storm's AMR1
     round frames through apply_round_frames one a call, each read back;
     then the same rounds as one 8-frame micro-batch, through apply_rounds
-    (native) with the late docs and the minority read, and through
-    apply_rounds with native=False. Returns the main path's engine, its
-    final hashes and its launches, and the apply_rounds engine with its
-    final hashes."""
+    (native) with the late docs and a minority read (the megabatch route
+    on and off, in turns), and through apply_rounds with native=False.
+    Returns the main path's engine, its final hashes and its launches
+    with the route's, the apply_rounds engine with its final hashes, and
+    the route's megabatch account."""
     from automerge_tpu_torch.engine import cuda_kernels as ck
+    from automerge_tpu_torch.engine import dispatchledger
     from automerge_tpu_torch.engine import resident_rows as rr
     from automerge_tpu_torch.engine.resident_rows import ResidentRowsDocSet
     from automerge_tpu_torch.sync.frames import encode_round_frame
@@ -786,20 +924,22 @@ def drive_map_storm(torch, dev):
     frames = [encode_round_frame(r) for r in storm]
     encode_s = time.perf_counter() - t0
 
-    # (a) the main path
+    # (a) the main path; round frames never plan the megabatch route
     ds = ResidentRowsDocSet(ids, device=dev)
     ck.LAUNCHES["reconcile_rows_hash"] = 0
-    t0 = time.perf_counter()
-    ds.apply_round_frames([heavy_frame])
-    ds.hashes()
-    heavy_s = time.perf_counter() - t0
-    before = dict(rr.ROUNDS)
-    final, walls, per_round = frame_rounds(ds, frames)
+    with recorded_plans() as frame_plans:
+        t0 = time.perf_counter()
+        ds.apply_round_frames([heavy_frame])
+        ds.hashes()
+        heavy_s = time.perf_counter() - t0
+        before = dict(rr.ROUNDS)
+        final, walls, per_round = frame_rounds(ds, frames)
     launches = ck.LAUNCHES["reconcile_rows_hash"]
     moved = {k: rr.ROUNDS[k] - before[k] for k in before}
     check(moved == {"rows_rounds_batched": len(frames),
                     "rows_rounds_fallback": 0},
           f"map storm frames: rounds not all batched: {moved}")
+    check(not frame_plans, "map storm frames: a frame round was planned")
 
     # (b) the same rounds as one micro-batch
     mb = ResidentRowsDocSet(ids, device=dev)
@@ -822,13 +962,48 @@ def drive_map_storm(torch, dev):
     _, r_walls, r_legs = timed_calls(
         rd, ROUNDS_LEGS,
         [lambda e, rnd=rnd: e.apply_rounds([rnd]) for rnd in storm])
-    # late docs fill padding lanes: a minority-dirty read gathers them
+    # late docs fill padding lanes (the device copy stays current): a
+    # minority-dirty read gathers them, through the route and (the same
+    # lanes marked dirty again) with the route off, in turns
     fresh = [f"late{k:03d}"
              for k in range(min(100, rd.n_pad - len(rd.doc_ids)))]
     rd.add_docs(fresh)
-    t = time.perf_counter()
-    rd.hashes_for([rd.doc_index[d] for d in fresh] + [0, 9, 500])
-    minority_s = time.perf_counter() - t
+    want = [rd.doc_index[d] for d in fresh] + [0, 9, 500]
+    c_mega = MegaAccount()
+    on_s, off_s = [], []
+    minority_launches = 0
+    minority_plans = first = None
+    for rep in range(MINORITY_REPS):
+        for route in ((True, False) if rep % 2 == 0 else (False, True)):
+            if first is not None:
+                rd._mark_hash_dirty(want)
+            check(rd.rows_dev is not None and not rd._dirty,
+                  "minority read: the device copy is not current")
+            ctx = contextlib.nullcontext() if route else megabatch_off()
+            with ctx, recorded_plans() as plans, \
+                    dispatchledger.round_scope(len(want)):
+                ck.LAUNCHES["reconcile_rows_hash"] = 0
+                t = time.perf_counter()
+                got = rd.hashes_for(want)
+                (on_s if route else off_s).append(time.perf_counter() - t)
+                launched = ck.LAUNCHES["reconcile_rows_hash"]
+            if route:
+                check(plans and plans[0].route == "megabatch",
+                      f"minority read: the route was not taken "
+                      f"({plans_text(plans)})")
+                c_mega.add(last_mega())
+                minority_launches += launched
+                minority_plans = minority_plans or plans
+            else:
+                check(all(p.route == "per_doc" and not p.buckets
+                          for p in plans),
+                      "AMTPU_MEGABATCH=0 still planned a read")
+            first = got if first is None else first
+            check((got == first).all(),
+                  "minority hashes_for: route on != route off")
+    check(c_mega.dispatches == minority_launches,
+          f"minority read: {minority_launches} launches for "
+          f"{c_mega.dispatches} buckets")
     rd_final = rd.hashes()
 
     # (d) apply_rounds on the pure-Python encoder
@@ -848,25 +1023,30 @@ def drive_map_storm(torch, dev):
     print(f"phase 2: {n} docs n_pad={ds.n_pad} dims={ds.dims()} "
           f"buffer_bytes={ds.rows_host.nbytes} "
           f"dirty_per_round={[len(r) for r in storm]}; frames encoded "
-          f"outside the timed window in {encode_s:.4f} s")
-    print(f"phase 2: (a) apply_round_frames, one frame a call + hashes(): "
-          f"heavy round + read {heavy_s:.4f} s; storm round walls s "
-          f"{walls_text(walls)}; rounds batched {moved['rows_rounds_batched']}"
-          f", fallback {moved['rows_rounds_fallback']}; launches {launches}")
+          f"outside the timed window in {encode_s:.4f} s [{card()}]")
+    print(f"phase 2: (a) heavy round + read {heavy_s:.4f} s; "
+          f"apply_round_frames, one frame a call + hashes(): storm round "
+          f"walls s {walls_text(walls)}; rounds batched "
+          f"{moved['rows_rounds_batched']}, fallback "
+          f"{moved['rows_rounds_fallback']}; launches {launches}; no frame "
+          f"round planned [{card()}]")
     print(f"phase 2: (a) host legs a round: {legs_text(per_round)}")
-    for k, r in enumerate(per_round):
-        print(f"phase 2: (a) round {k} legs s " + " ".join(
-            f"{leg}={v:.5f}" for leg, v in r.items()))
     print(f"phase 2: (b) one {len(frames)}-frame micro-batch {mb_s:.4f} s "
           f"({mb_s / len(frames):.4f} s a round) + readback {mb_read_s:.4f}"
           f" s; rounds batched {mb_moved['rows_rounds_batched']}, fallback "
           f"{mb_moved['rows_rounds_fallback']}")
     print(f"phase 2: (c) apply_rounds (native) storm round walls s "
-          f"{walls_text(r_walls)}; minority hashes_for {minority_s:.4f} s")
+          f"{walls_text(r_walls)}")
     print(f"phase 2: (c) host legs a round: {legs_text(r_legs)}")
+    print(f"phase 2: (c) minority hashes_for of {len(want)} docs, "
+          f"{MINORITY_REPS} reads each way in turns: route on s "
+          f"{walls_text(on_s)} ({plans_text(minority_plans)}; "
+          f"{c_mega.text()}; launches {minority_launches}), off s "
+          f"{walls_text(off_s)}; equal [{card()}]")
+    check_routes("phase 2: (c) minority read", on_s, off_s)
     print(f"phase 2: (d) apply_rounds native=False storm round walls s "
           f"{walls_text(py_walls)}; final hashes of (a)-(d) equal")
-    return ds, final, launches, rd, rd_final
+    return (ds, final, launches + minority_launches, rd, rd_final, c_mega)
 
 
 def drive_text_fleet(torch, dev):
@@ -888,10 +1068,12 @@ def drive_text_fleet(torch, dev):
     ds.hashes()                      # startup read: full-buffer branch
     t1 = time.perf_counter()
     before = dict(rr.ROUNDS)
-    final, walls, per_round = frame_rounds(ds, frames)
+    with recorded_plans() as frame_plans:
+        final, walls, per_round = frame_rounds(ds, frames)
     launches = ck.LAUNCHES["reconcile_rows_hash"]
     moved = {k: rr.ROUNDS[k] - before[k] for k in before}
     check(rows_dims_eligible(*ds.dims()[:3]), "text dims off the envelope")
+    check(not frame_plans, "text fleet frames: a frame round was planned")
 
     walls_by = {}
     for native in (True, False):
@@ -910,7 +1092,8 @@ def drive_text_fleet(torch, dev):
           f"{t1 - t0:.4f} s; apply_round_frames, a frame a call + hashes(),"
           f" round walls s {walls_text(walls)}, all {sum(walls):.4f} s; "
           f"rounds batched {moved['rows_rounds_batched']}, fallback "
-          f"{moved['rows_rounds_fallback']}; launches {launches}")
+          f"{moved['rows_rounds_fallback']}; launches {launches} "
+          f"[{card()}]")
     print(f"phase 3: host legs a round: {legs_text(per_round)}")
     print(f"phase 3: apply_rounds of {len(rounds)} rounds: native "
           f"{walls_by[True]:.4f} s, native=False {walls_by[False]:.4f} s; "
@@ -1682,10 +1865,84 @@ def host_s(fn, reps: int) -> float:
     return statistics.median(walls)
 
 
-def measure_link(torch, dev) -> dict:
-    """Phase 8: the router's cost constants on this machine. Link legs
+def route_host_s(ds, idxs, reps: int = 15) -> float:
+    """Median host seconds of the megabatch route on `idxs` (refresh path:
+    the lanes marked dirty, plan_round, apply_round_adaptive) beyond what
+    the plan prices for its link, launch and device legs. Run with the
+    route's host terms at zero, so that est_mega_s is those legs alone."""
+    import statistics
+
+    from automerge_tpu_torch.engine import dispatch
+    extra = []
+    for _ in range(reps):
+        ds._mark_hash_dirty(idxs.tolist())
+        t0 = time.perf_counter()
+        plan = dispatch.plan_round(ds, idxs)
+        check(plan.route == "megabatch", "the route was not taken")
+        dispatch.apply_round_adaptive(ds, plan)
+        extra.append(time.perf_counter() - t0 - plan.est_mega_s)
+    check(ds.hashes_clean, "the route left dirty lanes")
+    return statistics.median(extra)
+
+
+def measure_route_constants(torch, ds) -> dict:
+    """The megabatch planner's constants on phase 2's map storm engine
+    (route on, its device copy resident): a launch (the reconcile wrapper
+    on a bucket-shaped buffer, host enqueue only), the reconcile's rate
+    over the resident buffer (buffer bytes over its L2-cold graph time),
+    the host mirror's narrow gather (128 lanes at full dims, bytes
+    gathered a second), and the route's host work at 128 and 1,024 docs
+    of the storm (one-op docs, one bucket), a fixed part and a part a
+    doc."""
+    import numpy as np
+    from automerge_tpu_torch.engine import cuda_kernels as ck
+    from automerge_tpu_torch.engine import dispatch
+    from automerge_tpu_torch.workloads import reconcile_case
+
+    rows_np, dims = reconcile_case("bucket_small", seed=1)
+    small = torch.from_numpy(rows_np).to(ds.rows_dev.device)
+    ck.reconcile_rows_hash(small, dims)
+    enq = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(100):
+            ck.reconcile_rows_hash(small, dims)
+        enq.append((time.perf_counter() - t0) / 100)
+        torch.cuda.synchronize()
+    rows, rdims = ds.rows_dev, ds.dims()
+    cold_ms = graph_cold_ms(lambda: ck.reconcile_rows_hash(rows, rdims), 10)
+    rng = np.random.default_rng(8)
+    sel = np.sort(rng.choice(len(ds.doc_ids), 128, replace=False))
+    gather_s = host_s(lambda: np.ascontiguousarray(ds.rows_host[:, sel]),
+                      20)
+    out = {"launch_s": sorted(enq)[2],
+           "dev_bytes_per_s": rows.numel() * 4 / (cold_ms / 1e3),
+           "host_gather_bytes_per_s": ds.rows_host.shape[0] * 128 * 4
+           / gather_s}
+    saved = dict(dispatch._LINK)
+    dispatch.calibrate(**out, mega_fixed_s=0.0, mega_doc_s=0.0)
+    try:
+        small_docs = np.flatnonzero(ds.op_count[:len(ds.doc_ids)] <= 8)
+        e1 = route_host_s(ds, small_docs[:128])
+        e2 = route_host_s(ds, small_docs[:1024])
+    finally:
+        dispatch._LINK.update(saved)
+    out["mega_doc_s"] = max((e2 - e1) / (1024 - 128), 1e-9)
+    out["mega_fixed_s"] = max(e1 - 128 * out["mega_doc_s"], 1e-9)
+    print(f"phase 8: route legs: reconcile enqueue {out['launch_s']:.3e} s; "
+          f"reconcile of the map storm's {rows.numel() * 4} B buffer "
+          f"{cold_ms:.4f} ms (L2 cold); host gather of 128 lanes at full "
+          f"dims {gather_s:.3e} s; the route's host work beyond its priced "
+          f"legs {e1:.3e} s at 128 docs, {e2:.3e} s at 1,024 [{card()}]")
+    return out
+
+
+def measure_link(torch, dev, map_ds) -> dict:
+    """Phase 8: the routers' cost constants on this machine. Link legs
     through torch from pageable numpy memory, as the router ships; host
-    legs on the port's numpy oracles."""
+    legs on the port's numpy oracles; the megabatch planner's constants
+    on phase 2's engine (measure_route_constants)."""
     import random
 
     import numpy as np
@@ -1731,13 +1988,15 @@ def measure_link(torch, dev) -> dict:
         "span_fixed_s": span_fixed,
         "move_lane_s": (move_big - move_fixed) / (rd * (n + k)),
         "move_fixed_s": move_fixed,
+        **measure_route_constants(torch, map_ds),
     }
     print(f"phase 8: link legs: tiny launch + readback {tiny_total:.3e} s, "
           f"512 B readback {d2h:.3e} s, 1 KiB copy {h2d_small:.3e} s, "
           f"1 MiB {t1:.3e} s, 64 MiB {t64:.3e} s; host legs: "
           f"merge_spans_host 1x128 {span_fixed:.3e} s, {d}x{s} "
           f"{span_big:.3e} s; resolve_moves_host 1x(128+128) "
-          f"{move_fixed:.3e} s, {rd}x({n}+{k}) {move_big:.3e} s")
+          f"{move_fixed:.3e} s, {rd}x({n}+{k}) {move_big:.3e} s "
+          f"[{card()}]")
     print("link " + json.dumps(link))
     return link
 
@@ -1833,7 +2092,7 @@ def main() -> int:
     phase_dominated_parity(torch, dev, report)
     phase_linearize_parity(torch, dev, report)
     (map_ds, map_final, map_launches,
-     rounds_ds, rounds_final) = drive_map_storm(torch, dev)
+     rounds_ds, rounds_final, mega) = drive_map_storm(torch, dev)
     text_ds, text_final, text_launches = drive_text_fleet(torch, dev)
     check(map_launches > 0 and text_launches > 0, "a path skipped the kernel")
     hold_to_plain(map_ds, map_final, "map storm", report)
@@ -1845,7 +2104,7 @@ def main() -> int:
     phase_docs_reference(dev)
     span_inputs, span_launches = drive_text_plane(torch, dev, report)
     move_inputs, move_launches = drive_move_plane(torch, dev, report)
-    measure_link(torch, dev)
+    measure_link(torch, dev, map_ds)
     docset_ds, docs_ds, docs_launches, lin9, fleets = drive_docs_major(
         torch, dev, report, text_final)
     lin10 = drive_diff_plane(torch, dev, fleets)
@@ -1861,8 +2120,10 @@ def main() -> int:
     lin_times = time_linearize(torch, docs_ds, "text fleet (docs-major)")
     time_linearize(torch, docset_ds, "docset fleet (docs-major)")
     time_docs_round(torch, docs_ds)
-    print(f"launches: rows engine {map_launches} (map storm) + "
-          f"{text_launches} (text fleet); text-merge plane {span_launches}; "
+    print(f"launches: rows engine {map_launches} (map storm frames and "
+          f"minority reads) + {text_launches} (text fleet), of them "
+          f"{mega.dispatches} megabatch buckets ({mega.text()}); text-merge "
+          f"plane {span_launches}; "
           f"move plane {move_launches}; docs-major engine {docs_launches} "
           f"(dominated); linearize {lin9} (phase 9) + {lin10} (phase 10, "
           f"the diff plane)")
@@ -1890,13 +2151,10 @@ def main() -> int:
                      "automerge_tpu_torch/csrc/linearize.cu",
                      "automerge_tpu/engine/kernels.py:102-137 (plain XLA, "
                      "no Pallas kernel)",
-                     lin9 + lin10, report["linearize"], lin_times)]}))
+                     lin9 + lin10, report["linearize"], lin_times)],
+        "mega": mega.as_dict()}))
     print(f"total {time.perf_counter() - t_all:.1f} s")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    print(card())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

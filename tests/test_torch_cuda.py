@@ -21,7 +21,7 @@ from automerge_tpu_torch.engine import cuda_kernels
 from automerge_tpu_torch.engine import move_kernels as mk
 from automerge_tpu_torch.engine import span_kernels as sk
 from automerge_tpu_torch.engine.cuda_kernels import (
-    hashes_to_numpy, reconcile_rows_hash, reconcile_rows_hash_plain)
+    _XL_BI, hashes_to_numpy, reconcile_rows_hash, reconcile_rows_hash_plain)
 from automerge_tpu_torch.engine.dispatch import (merge_spans_adaptive,
                                                  resolve_moves_adaptive,
                                                  result_to_numpy)
@@ -62,14 +62,19 @@ def test_kernel_matches_plain_on_a_text_fleet_buffer(cuda_device, force_xl):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("force_xl", [False, True])
-@pytest.mark.parametrize("name", list(RECONCILE_CASES))
+@pytest.mark.parametrize(
+    "name,force_xl",
+    [(n, xl) for n in RECONCILE_CASES for xl in (False, True)
+     if not xl or RECONCILE_CASES[n][0] % _XL_BI == 0],
+    ids=lambda v: v if isinstance(v, str) else str(v))
 def test_kernel_matches_plain_on_the_named_cases(cuda_device, name,
                                                  force_xl):
     """The reconcile kernel at the shapes its design could get wrong (a
     heavy lane among near-empty ones, every slot live, lanes with no op,
     LE = 0, A = 1, I = LE = 1,024, the XL-only shape, a lane past the
-    shared memory), bit-equal to the plain version, one launch a call."""
+    shared memory, the megabatch route's bucket dims), bit-equal to the
+    plain version, one launch a call; with force_xl wherever the XL form
+    takes the op band (I a multiple of 32)."""
     rows_np, dims = reconcile_case(name, seed=7)
     rows = torch.from_numpy(rows_np).to(cuda_device)
     got = _launched("reconcile_rows_hash",
@@ -272,6 +277,75 @@ def test_frame_ingress_on_the_card_equals_the_cpu(cuda_device, native):
             out[str(dev)] = ds.hashes()
         np.testing.assert_array_equal(out[str(cuda_device)], out["cpu"])
         np.testing.assert_array_equal(out["cpu"], committed[f"docs_{name}"])
+
+
+@pytest.mark.cuda
+def test_megabatch_route_on_the_card_equals_the_cpu(cuda_device,
+                                                    monkeypatch):
+    """The megabatch route on the card, on both of its sources: a small
+    map storm's frame rounds (classic), then late docs and a minority read
+    (index upload, device gather from the resident copy, the reconcile
+    kernel at bucket dims, one readback), then a lazy round and a minority
+    read of its docs (the stale copy: buckets gathered from the host
+    mirror). Each read gives the CPU's hashes and launches one kernel per
+    bucket; the resident copy is left equal to the host mirror. Bytes are
+    priced (the constants' CPU-test values) so that the route is taken at
+    this size."""
+    from automerge_tpu_torch.engine import dispatch, dispatchledger
+    from automerge_tpu_torch.sync.frames import encode_round_frame
+    from automerge_tpu_torch.workloads import map_storm
+    monkeypatch.delenv("AMTPU_MEGABATCH", raising=False)
+    monkeypatch.delenv("AMTPU_MEGABATCH_MIN_DOCS", raising=False)
+    monkeypatch.setitem(dispatch._LINK, "dev_bytes_per_s", 1e3)
+    monkeypatch.setitem(dispatch._LINK, "host_gather_bytes_per_s", 1e6)
+    dispatch._reload_for_tests()
+    try:
+        ids, heavy, storm = map_storm(n_docs=600, n_heavy=2,
+                                      heavy_ops=100, rounds=3,
+                                      draws_per_round=300)
+        frames = [encode_round_frame(r) for r in [heavy] + storm]
+        gpu = ResidentRowsDocSet(ids, device=cuda_device)
+        cpu = ResidentRowsDocSet(ids, device="cpu")
+        n = len(ids)
+
+        def totals():
+            sec = dispatchledger.ledger().section() or {}
+            return (sec.get("mega_rounds_total", 0),
+                    sec.get("mega_dispatches_total", 0))
+
+        def routed_read(want_idx):
+            (r0, d0), before = totals(), \
+                cuda_kernels.LAUNCHES["reconcile_rows_hash"]
+            got = gpu.hashes_for(want_idx)
+            (r1, d1), launched = totals(), \
+                cuda_kernels.LAUNCHES["reconcile_rows_hash"] - before
+            assert r1 == r0 + 1 and launched == d1 - d0 >= 1
+            np.testing.assert_array_equal(got, cpu.hashes_for(want_idx))
+
+        for f in frames[:-1]:
+            h = gpu.apply_round_frames([f])
+            assert h.device.type == "cuda" and h.shape == (gpu.n_pad,)
+            want = hashes_to_numpy(cpu.apply_round_frames([f]))
+            np.testing.assert_array_equal(hashes_to_numpy(h)[:n], want[:n])
+        late = [f"late{i}" for i in range(20)]
+        for e in (gpu, cpu):
+            e.hashes()                  # consumes the last frame's handle
+            e.add_docs(late)
+        assert gpu.rows_dev is not None and not gpu._dirty
+        routed_read([gpu.doc_index[d] for d in late] + [0, 5, 9])
+        assert gpu.rows_dev is not None and not gpu._dirty
+        np.testing.assert_array_equal(gpu.rows_dev.cpu().numpy(),
+                                      gpu.rows_host)
+        for e in (gpu, cpu):
+            e.hashes()
+            e.lazy_dispatch = True
+            assert e.apply_round_frames(frames[-1:]) is None
+        touched = sorted(gpu.doc_index[d] for d in storm[-1])
+        routed_read(touched[:len(touched) // 4])
+        np.testing.assert_array_equal(gpu.hashes(), cpu.hashes())
+    finally:
+        monkeypatch.undo()
+        dispatch._reload_for_tests()
 
 
 @pytest.mark.cuda

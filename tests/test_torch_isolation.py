@@ -30,7 +30,8 @@ def test_every_module_imports_with_jax_and_reference_blocked():
               "engine.kernels", "engine.pack", "native.wire",
               "native.delta", "native.linearize", "sync.frames",
               "utils.gcpause", "storage", "linearize_schedule",
-              "move_schedule", "compare_kernels"):
+              "move_schedule", "compare_kernels", "engine.dispatchledger",
+              "utils.metrics"):
         assert f"automerge_tpu_torch.{m}" in mods, m
     code = "\n".join([
         "import importlib, sys",

@@ -185,7 +185,9 @@ def test_envelopes_match_the_reference():
 
 
 @pytest.mark.parametrize("name", ["base", "all_live", "zero_ops",
-                                  "no_elements", "one_actor"])
+                                  "no_elements", "one_actor",
+                                  "bucket_one_op", "bucket_small",
+                                  "bucket_mid", "bucket_wide_ops"])
 def test_plain_matches_reference_on_the_kernel_cases(name):
     """The named cases chip_smoke.py and tests/test_torch_cuda.py hold the
     CUDA kernel to, cut to their first 128 lanes: the plain version they

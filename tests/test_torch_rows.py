@@ -15,7 +15,7 @@ from automerge_tpu.core.ids import ROOT_ID
 from automerge_tpu.engine.resident_rows import (
     ResidentRowsDocSet as RefRows, RowsBudgetError as RefBudgetError)
 
-from automerge_tpu_torch.engine import cuda_kernels, resident_rows
+from automerge_tpu_torch.engine import cuda_kernels, dispatch, resident_rows
 from automerge_tpu_torch.engine.resident_rows import (
     DeviceDispatchError, ResidentRowsDocSet, RowsBudgetError)
 
@@ -188,6 +188,8 @@ def _two_batches(ids):
 
 
 def _record_widths(monkeypatch):
+    """The lane width of every reconcile launch, from the engine's classic
+    paths and from the megabatch route's buckets."""
     widths = []
     real = resident_rows.reconcile_rows_hash
 
@@ -195,6 +197,7 @@ def _record_widths(monkeypatch):
         widths.append(rows.shape[1])
         return real(rows, dims, force_xl)
     monkeypatch.setattr(resident_rows, "reconcile_rows_hash", spy)
+    monkeypatch.setattr(dispatch, "reconcile_rows_hash", spy)
     return widths
 
 
@@ -207,7 +210,8 @@ def test_hashes_for_minority_dirty_gathers_lanes(monkeypatch):
     want = ref.hashes_for([3, 7, 150])
     got = port.hashes_for([3, 7, 150])
     np.testing.assert_array_equal(got, want)
-    assert widths == [128]                      # narrow gather, not n_pad
+    # a narrow gather or one megabatch bucket, not n_pad
+    assert widths == [128]
     assert not port._doc_dirty
     assert_same_state(ref, port)
 
@@ -239,8 +243,10 @@ def test_add_docs_grows_lanes_and_reads_fresh_docs():
 
 
 def test_merged_batch_apply_and_handle_readback():
-    """_dispatch_final (one scatter + one launch for a whole batch) leaves
-    a device handle that the next hashes() consumes without a launch."""
+    """_dispatch_final (one scatter + one launch for a whole batch; on a
+    fresh instance, whose device copy is stale, the upload of the mirror
+    that already holds the batch) leaves a device handle that the next
+    hashes() consumes without a launch."""
     ids = ["f0", "f1", "f2"]
     per_doc = {d: history(90 + i, steps=8) for i, d in enumerate(ids)}
     ref, port = engines(ids)
@@ -250,9 +256,8 @@ def test_merged_batch_apply_and_handle_readback():
     for r in port_rounds:
         port._register_actors(r)
     port._reserve_for(port_rounds)
-    pre = port.rows_host.copy()
     trips = [port._round_triplets(r) for r in port_rounds]
-    port._dispatch_final(trips, pre)
+    port._dispatch_final(trips)
     assert port._hash_handle is not None
     before = cuda_kernels.LAUNCHES["reconcile_rows_hash"]
     np.testing.assert_array_equal(port.hashes(), want)
