@@ -34,6 +34,17 @@ class Op:
         self.actor = actor
         self.seq = seq
 
+    def stamped(self, actor: str, seq: int | None) -> "Op":
+        """Copy of this op carrying the applying change's (actor, seq)."""
+        return Op(self.action, self.obj, self.key, self.value, self.elem,
+                  actor, seq)
+
+    def stripped(self) -> "Op":
+        """Copy without actor/seq (the form stored in undo histories)."""
+        if self.actor is None and self.seq is None:
+            return self
+        return Op(self.action, self.obj, self.key, self.value, self.elem)
+
     def _key_tuple(self):
         value = self.value
         if isinstance(value, (dict, list)):  # unhashable payloads: compare by repr
@@ -117,3 +128,9 @@ class Change:
                       [Op.from_dict(o) for o in d.get("ops", [])],
                       d.get("message"))
 
+
+def coerce_change(c) -> Change:
+    """Accept either a Change or a plain dict (the JSON wire form)."""
+    if isinstance(c, Change):
+        return c
+    return Change.from_dict(c)

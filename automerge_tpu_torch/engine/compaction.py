@@ -1,0 +1,342 @@
+"""Causally-stable compaction for the resident rows engine (a copy of
+`automerge_tpu/engine/compaction.py`: host numpy over the `rows_host`
+mirror, and the compacted mirror equals the reference's byte for byte).
+
+The rows engine has a hard admission wall: `pack.rows_dims_eligible`
+bounds the per-doc dims, so a single long-lived document (a year of
+keystrokes) marches into `RowsBudgetError`. Compaction reclaims row slots
+whose ops can no longer influence ANY future state, so the working set
+tracks the *visible* document size, not the length of its history.
+
+What makes a slot reclaimable, and why the state hash cannot move:
+
+- the state hash is a pure function of the visible state: it sums
+  contributions from CANDIDATE ops only (survivors of the domination join
+  that carry a value), keyed by (field content hash | owning-list object
+  hash + visible rank, actor, value content hash). Nothing about dropped
+  rows enters it.
+- **Dominated assigns** are dead forever: domination is monotone (the
+  dominator's change-clock covers them; no later change can revive them).
+  Dropped unconditionally.
+- **Non-assign rows** (make*/ins) are inert in the join (`action >= A_SET`
+  excludes them from survivor/candidate/present); their effect lives in
+  the list bands and object tables. Dropped unconditionally.
+- **Surviving DEL ops** pin a field absent. Below the peer-clock floor they
+  can go too: every future change's clock covers them, so the first write
+  to that field dominates them in an uncompacted replica and simply wins
+  in the compacted one, the same visible outcome. Above the floor they
+  stay.
+- **Tombstoned elements** can vacate their slot once (a) every op on the
+  element's field is below the floor (every known peer has seen the
+  tombstone, so no conforming peer will anchor an insert at it) and (b) no
+  retained element anchors at it (anchor chains stay closed, so RGA
+  sibling keys of retained elements keep their comparison basis). Visible
+  ranks of the remaining elements are unchanged, so list hash
+  contributions are unchanged.
+
+The *clock floor* comes from the caller: the sync service takes each
+doc's `causal_floor` lowered by every registered peer's advertised clock;
+with no peers the floor is `causal_floor` alone, and a standalone node
+compacts freely, like a single-user editor.
+
+Admission after compaction is untouched: causal admission is clock-based
+((actor, seq) against per-doc clock dicts, which compaction never
+shrinks). The change log is NOT touched here; bounding its host-RAM
+growth is the log-horizon layer (`sync/logarchive.py` +
+`ResidentRowsDocSet.archive_log_prefix`).
+
+The caller owns the device copy: `compact` drops `rows_dev`, and the next
+dispatch uploads the compacted host mirror.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..core.ids import make_elem_id
+from ..utils import metrics
+from .encode import A_DEL, A_SET
+
+
+def causal_floor(rset, i: int) -> dict[str, int]:
+    """The causal-stability floor for doc i (Wuu-Bernstein stability): per
+    actor b, the min over every actor a of F_a(b), where F_a is the
+    transitive clock of a's newest admitted change plus a's own seq. Any
+    conforming in-flight or future change from actor a carries a clock
+    covering F_a (each change includes its predecessor), so everything at
+    or below this floor is causally covered by ALL future ingress — a
+    tombstone below it can never be anchored at, a DEL below it is
+    dominated by any future assign to its field."""
+    t = rset.tables[i]
+    rset._sync_stale_table(t)
+    clock = dict(t.clock)
+    if not clock:
+        return {}
+    floor: dict[str, int] | None = None
+    for a, s in clock.items():
+        T = t.state_clocks.get((a, s))
+        if T is None:
+            return {}   # no frontier memo: stay conservative
+        if not isinstance(T, dict):
+            arr, ridx = T   # lazy dense-row memo from the fast path
+            T = {rset.actors[r]: int(v)
+                 for r, v in enumerate(arr[ridx]) if v}
+            t.state_clocks[(a, s)] = T
+        F = dict(T)
+        F[a] = max(F.get(a, 0), s)
+        floor = F if floor is None else {
+            b: min(floor.get(b, 0), F.get(b, 0)) for b in clock}
+    return {b: v for b, v in floor.items() if v > 0}
+
+
+def _floor_ranks(rset, floor: dict[str, int]) -> np.ndarray:
+    """Per-actor-rank floor seqs (0 for actors the floor doesn't cover)."""
+    out = np.zeros(rset.cap_actors, np.int64)
+    for a, s in (floor or {}).items():
+        r = rset.actor_rank.get(a)
+        if r is not None:
+            out[r] = int(s)
+    return out
+
+
+def _op_keep_mask(om, ac, fid, act, seq, chg, co, floor_r) -> np.ndarray:
+    """Keep mask over op slots: candidates, plus above-floor DEL survivors.
+
+    Mirrors the reconcile kernel's domination join on the host: op j
+    dominates op i iff both assigns on the same field, j's change-clock at
+    i's actor >= i's seq, and they come from different changes.
+    """
+    amask = om.astype(bool) & (ac >= A_SET)
+    dominated = np.zeros(len(om), bool)
+    idx = np.nonzero(amask)[0]
+    if len(idx):
+        f = fid[idx]
+        order = np.argsort(f, kind="stable")
+        sidx = idx[order]
+        fs = fid[sidx]
+        starts = np.r_[0, np.nonzero(fs[1:] != fs[:-1])[0] + 1, len(fs)]
+        for g0, g1 in zip(starts[:-1], starts[1:]):
+            grp = sidx[g0:g1]
+            if len(grp) < 2:
+                continue
+            # clock of op j's change evaluated at op i's actor: [j, i]
+            cj_at_i = co[np.ix_(act[grp], grp)].T
+            dom = (cj_at_i >= seq[grp][None, :]) \
+                & (chg[grp][:, None] != chg[grp][None, :])
+            dominated[grp] = dom.any(axis=0)
+    survivor = amask & ~dominated
+    below = seq <= floor_r[np.clip(act, 0, len(floor_r) - 1)]
+    return survivor & ~((ac == A_DEL) & below)
+
+
+def compact_doc(rset, i: int, floor: dict[str, int],
+                pins: set | None = None) -> dict:
+    """Compact one document's row state in place. Returns reclaim stats.
+
+    `pins` is a set of element ids that must keep their slots regardless of
+    the floor: anchors referenced by known-but-not-yet-admitted changes (a
+    coalesced pending round, the un-replayed tail of a rebuild) — the floor
+    argument covers only changes *generated after* their sender saw the
+    tombstone, not ones already in flight.
+
+    The caller owns invalidation (`_dirty`, hash handle) and native-encoder
+    sync; use ResidentRowsDocSet.compact() rather than calling this
+    directly.
+    """
+    b = rset._bases()
+    I, A, E = rset.cap_ops, rset.cap_actors, rset.cap_elems
+    col = rset.rows_host[:, i]
+    om = col[b["om"]:b["om"] + I].copy()
+    ac = col[b["ac"]:b["ac"] + I].copy()
+    fid = col[b["fid"]:b["fid"] + I].copy()
+    act = col[b["act"]:b["act"] + I].copy()
+    seq = col[b["seq"]:b["seq"] + I].copy()
+    chg = col[b["chg"]:b["chg"] + I].copy()
+    fh = col[b["fh"]:b["fh"] + I].copy()
+    vh = col[b["vh"]:b["vh"] + I].copy()
+    co = col[b["co"]:b["co"] + A * I].reshape(A, I).copy()
+    floor_r = _floor_ranks(rset, floor)
+
+    keep = _op_keep_mask(om, ac, fid, act, seq, chg, co, floor_r)
+    n_ops0 = int(rset.op_count[i])
+    kidx = np.nonzero(keep)[0]
+    n_keep = len(kidx)
+
+    # ---- rewrite the op bands: survivors packed to the front ----
+    def pack_band(base, src, fill):
+        col[base:base + I] = fill
+        col[base:base + n_keep] = src[kidx]
+
+    pack_band(b["om"], om, 0)
+    pack_band(b["ac"], ac, -1)
+    pack_band(b["fid"], fid, -1)
+    pack_band(b["act"], act, 0)
+    pack_band(b["seq"], seq, 0)
+    pack_band(b["chg"], chg, 0)
+    pack_band(b["fh"], fh, 0)
+    pack_band(b["vh"], vh, 0)
+    co_new = np.zeros_like(co)
+    co_new[:, :n_keep] = co[:, kidx]
+    col[b["co"]:b["co"] + A * I] = co_new.reshape(-1)
+    rset.op_count[i] = n_keep
+
+    # ---- element reclaim ----
+    # Host truth for elements is ins_log (slot, elem-counter, actor-rank,
+    # parent-slot per list row) plus the rows bands themselves; the eid is
+    # reconstructible as "actor:counter" (core/ids.make_elem_id — the same
+    # format both encoders intern) and the element's field id is read from
+    # the `if` band, so this pass works identically over the native and
+    # pure-Python encoders.
+    t = rset.tables[i]
+    n_elems0 = sum(1 for e in rset.ins_log[i].values()
+                   for (s, _, _, _) in e if s >= 0)
+    n_elems1 = n_elems0
+    # fid sets that gate element visibility / reclaim, from the ORIGINAL ops
+    amask = om.astype(bool) & (ac >= A_SET)
+    cand_fids = set(fid[kidx[(ac[kidx] != A_DEL)]].tolist())
+    above = amask & (seq > floor_r[np.clip(act, 0, len(floor_r) - 1)])
+    fids_above = set(fid[above].tolist())
+
+    if not t.queue:  # queued changes may anchor anywhere: skip elem GC
+        n_elems0 = n_elems1 = 0
+        for lrow, entries in list(rset.ins_log[i].items()):
+            base = lrow * E
+            fid_band = col[b["if"] + base:b["if"] + base + E]
+            n = len(entries)
+            n_slotted = sum(1 for (s, _, _, _) in entries if s >= 0)
+            n_elems0 += n_slotted
+            # keep_slot: the element keeps its device band slot — visible,
+            # or some op on its field is still above the floor. A slotted
+            # entry losing this becomes a GHOST: it keeps its RGA ordering
+            # key in this host tree (its retained descendants and future
+            # siblings of its parent still compare against that key) but
+            # frees the band slot. Ghost entries with no tree-retained
+            # child drop from the host tree entirely.
+            keep_slot = np.zeros(n, bool)
+            keep_tree = np.zeros(n, bool)
+            has_kept_child: set[int] = set()
+            for k in range(n - 1, -1, -1):
+                slot, elem_c, arank_c, parent = entries[k]
+                if slot >= 0:
+                    efid = int(fid_band[slot])
+                    keep_slot[k] = (efid in cand_fids
+                                    or efid in fids_above
+                                    or (bool(pins) and make_elem_id(
+                                        rset.actors[arank_c], elem_c)
+                                        in pins))
+                if keep_slot[k] or k in has_kept_child:
+                    keep_tree[k] = True
+                    if parent >= 0:
+                        has_kept_child.add(parent)
+            n_keep_slots = int(keep_slot.sum())
+            n_elems1 += n_keep_slots
+            if n_keep_slots == n_slotted and keep_tree.all():
+                continue
+            # rebuild the entry list: tree-retained entries in arrival
+            # order; slots renumber densely over the slot-keeping ones so
+            # the encoders' next-slot rule (len(elem_slots[obj])) keeps
+            # assigning fresh slots past the compacted set
+            idx_map: dict[int, int] = {}
+            slot_remap: dict[int, int] = {}
+            new_entries: list[tuple] = []
+            for k in np.nonzero(keep_tree)[0]:
+                slot, elem, arank, parent = entries[k]
+                ns = -1
+                if keep_slot[k]:
+                    ns = len(slot_remap)
+                    slot_remap[slot] = ns
+                idx_map[k] = len(new_entries)
+                new_entries.append(
+                    (ns, elem, arank,
+                     idx_map[parent] if parent >= 0 else -1))
+            # every slotted entry that lost its slot (ghosted or fully
+            # dropped) is a forbidden future anchor
+            for k in np.nonzero(~keep_slot)[0]:
+                slot, elem, arank, _parent = entries[k]
+                if slot >= 0:
+                    rset.ghost_eids[i].add(
+                        make_elem_id(rset.actors[arank], elem))
+            rset.ins_log[i][lrow] = new_entries
+            rset.ins_idx[i][lrow] = {
+                s: k for k, (s, _, _, _) in enumerate(new_entries)
+                if s >= 0}
+            oi = rset.list_obj[i].get(lrow)
+            if oi is not None and t.elem_slots.get(oi):
+                # pure-Python encoder path: its eid->slot map lives here
+                eid_by_slot = {s: eid
+                               for eid, s in t.elem_slots[oi].items()}
+                t.elem_slots[oi] = {eid_by_slot[s]: ns
+                                    for s, ns in slot_remap.items()}
+            # rewrite this list's element bands
+            for g, fill in (("im", 0), ("if", -1), ("ip", 0), ("io", -1)):
+                band = col[b[g] + base:b[g] + base + E]
+                old = band.copy()
+                band[:] = fill
+                for s, ns in slot_remap.items():
+                    band[ns] = old[s]
+        # fresh RGA positions for every compacted list (ghosts included in
+        # the linearization, rank-compressed over the slotted entries)
+        for lrow in rset.ins_log[i]:
+            prow, pval = rset._linearized_pos_rows(i, lrow)
+            col[prow] = pval
+        t.max_elems = max(
+            (sum(1 for (s, _, _, _) in e if s >= 0)
+             for e in rset.ins_log[i].values()), default=0)
+
+    return {"ops_before": n_ops0, "ops_after": n_keep,
+            "elems_before": n_elems0, "elems_after": n_elems1}
+
+
+def compact(rset, floors: dict[str, dict[str, int]],
+            pins: dict[str, set] | None = None) -> dict[str, dict]:
+    """Compact every doc in `floors` (doc_id -> clock floor) in place.
+    `pins` maps doc_id -> element ids that must keep their slots (anchors
+    of known-but-unadmitted changes; see compact_doc).
+
+    Engine-level invalidation and native-encoder slot sync happen here;
+    the device buffer re-uploads lazily from the compacted host mirror.
+    """
+    rset._check_poisoned()
+    rset.sync_tables()
+    stats: dict[str, dict] = {}
+    touched = False
+    for doc_id, floor in floors.items():
+        rset.compaction_floors[doc_id] = dict(floor)
+        i = rset.doc_index.get(doc_id)
+        if i is None:
+            continue
+        s = compact_doc(rset, i, floor,
+                        (pins or {}).get(doc_id))
+        stats[doc_id] = s
+        if s["ops_after"] < s["ops_before"] \
+                or s["elems_after"] < s["elems_before"]:
+            touched = True
+            if rset._native is not None:
+                _sync_native_elem_slots(rset, i)
+    if touched:
+        rset._dirty = True
+        rset._hash_handle = None
+        rset.rows_dev = None
+        rset._elems_hi = max((t.max_elems for t in rset.tables), default=0)
+        metrics.bump("rows_docs_compacted")
+    return stats
+
+
+def _sync_native_elem_slots(rset, i: int) -> None:
+    """Mirror doc i's renumbered element slots into the native encoder
+    (DocState.elem_slots / max_elems in native/deltaenc.cpp): the C++ side
+    assigns the next slot as len(elem_slots[obj]) and resolves insert
+    anchors through that map, so it must see exactly the compacted view.
+    The eid is rebuilt from the ins_log entry (core/ids.make_elem_id
+    format, identical to the C++ interning key in deltaenc.cpp A_INS)."""
+    objs, slots, eids = [], [], []
+    for lrow, entries in rset.ins_log[i].items():
+        oi = rset.list_obj[i][lrow]
+        for (slot, elem, arank, _parent) in entries:
+            if slot < 0:   # ghosts stay out of the encoder's maps
+                continue
+            objs.append(oi)
+            slots.append(slot)
+            eids.append(make_elem_id(rset.actors[arank], elem))
+    rset._native.reset_elem_slots(i, objs, slots, eids,
+                                  rset.tables[i].max_elems)

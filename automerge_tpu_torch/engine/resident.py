@@ -90,6 +90,13 @@ class DocTables:
         self.n_changes = 0
         self.n_lists = 0
         self.max_elems = 0
+        # snapshot-bootstrap floor (ResidentRowsDocSet.seed_clock): the
+        # covered clock of the snapshot this doc was booted from, in
+        # ORIGINAL seq numbering. Post-seed clock rows clamp to it: every
+        # conforming suffix change covers the snapshot floor, and the
+        # clamp restores the transitive coverage whose prefix memos the
+        # compacted history no longer holds. None = never seeded.
+        self.snap_floor: dict[str, int] | None = None
 
     # arrival-ordered value interning (ValueTable sorts; we can't)
     def value_id(self, value) -> int:
@@ -453,6 +460,13 @@ class ResidentDocSet:
                     if s2 > full.get(a2, 0):
                         full[a2] = s2
             full[a] = s
+        if t.snap_floor:
+            # snapshot-booted doc: memos for the compacted-away prefix do
+            # not exist, but every conforming post-seed change covers the
+            # snapshot floor (sync/snapshots.py)
+            for a, s in t.snap_floor.items():
+                if s > full.get(a, 0):
+                    full[a] = s
         t.state_clocks[(actor, seq)] = full
         row = np.zeros(self.cap_actors, dtype=np.int32)
         for a, s in full.items():

@@ -43,9 +43,31 @@ Ingress, on a native instance (the default):
   a scatter + launch per round, the hashes read back.
 With `native=False` every route runs the pure-Python encoder.
 
-Left out (later slices): compaction with its ghost-anchor reject
-(`ghost_eids`, `CompactionAnchorError`), the log archive and snapshots,
-rebuild-from-log, `materialize`, and the telemetry planes' spans
+Durability (a long-lived document on a bounded row buffer):
+- `compact(floors, pins)` (`engine/compaction.py`, host numpy over the
+  mirror) reclaims dominated op slots and below-floor tombstoned element
+  slots, preserving every hash; the docs whose slots moved re-read through
+  the kernel, and the device copy re-uploads from the compacted mirror.
+  A reclaimed element's id goes to `ghost_eids`, and an insert anchored at
+  one is rejected before admission (`CompactionAnchorError`) by every
+  ingress route. The sync service's rule on `RowsBudgetError`: compact to
+  the floors and retry the round once.
+- `archive_log_prefix(doc, floor)` moves the causally-stable prefix of a
+  doc's change log into `log_archive` (`sync/logarchive.LogArchive`),
+  advancing `log_horizon`.
+- `seed_clock(doc, clock, heads)` raises a snapshot-booted doc's clock to
+  the image's covered clock (`sync/snapshots.py`); post-seed clock rows
+  clamp to it (`resident.DocTables.snap_floor`).
+- A failure after part of a batch was admitted rebuilds the whole
+  instance from its log (`_rebuild_from_log`: the archived prefix, or the
+  snapshot image, then the RAM log and the queues; replayed in chunks with
+  compaction between them when the history exceeds the envelope) on the
+  instance's own device, and raises `DeviceDispatchError(
+  admission_complete=False)`. The instance is poisoned only when the
+  rebuild itself fails or a failure happens inside a rebuild.
+
+Left out (later slices): `materialize` (it replays through the
+interpretive frontend, ROADMAP item 5), and the telemetry planes' spans
 (`metrics.trace`, `flightrec`, `perfscope`); the dispatch ledger
 (`dispatchledger.call_scope`) is ported.
 """
@@ -57,6 +79,7 @@ import contextlib
 import numpy as np
 import torch
 
+from ..core.ids import HEAD
 from ..native.delta import frame_bytes_of
 from ..native.linearize import linearize_host
 from ..native.wire import changes_to_columns
@@ -64,6 +87,7 @@ from ..storage import _ACTION_IDX
 from ..sync.frames import RoundColumns, decode_round_frame
 from ..utils import metrics
 from ..utils.gcpause import gc_paused
+from . import compaction
 from . import dispatch as round_dispatch
 from . import dispatchledger
 from .cuda_kernels import hashes_to_numpy, reconcile_rows_hash
@@ -78,13 +102,18 @@ ROUNDS = {"rows_rounds_batched": 0, "rows_rounds_fallback": 0}
 
 
 class DeviceDispatchError(RuntimeError):
-    """The device dispatch of an already-admitted batch failed. Host truth
+    """The device dispatch of an already-admitted batch failed, or the
+    admission failed partway and the instance was rebuilt from its log.
+
+    ``admission_complete`` True (the dispatch guard): host truth
     (change_log, per-doc clocks, and the rows_host mirror, all updated
-    BEFORE the dispatch) is consistent; only the device buffer is suspect,
-    and the engine has marked itself dirty so the next dispatch re-uploads
-    the mirror. ``admission_complete`` is True when every change of the
-    batch was admitted, queued, or dropped as a duplicate: nothing to
-    retry."""
+    BEFORE the dispatch) is consistent and every change of the batch was
+    admitted, queued, or dropped as a duplicate; only the device buffer is
+    suspect, and the engine has marked itself dirty so the next dispatch
+    re-uploads the mirror. Nothing to retry. False (a mid-admission
+    rebuild): the unprocessed suffix of the batch is in neither the rebuilt
+    log nor the queue; the caller replays the batch, and the (actor, seq)
+    admission dedup drops the already-admitted prefix."""
 
     def __init__(self, msg: str, *, admission_complete: bool = False):
         super().__init__(msg)
@@ -94,8 +123,8 @@ class DeviceDispatchError(RuntimeError):
 class RowsBudgetError(RuntimeError):
     """The batch would grow the resident rows state past the kernel's dims
     envelope (pack.rows_dims_eligible). Recoverable: the instance is
-    untouched. Shard the DocSet, or compact long-lived docs once compaction
-    is ported."""
+    untouched. Compact the long-lived docs (`compact`) and retry, or shard
+    the DocSet."""
 
 
 def _budget_error(cap_ops: int, actors: int,
@@ -103,8 +132,29 @@ def _budget_error(cap_ops: int, actors: int,
     return RowsBudgetError(
         f"this batch could grow the resident rows state past the "
         f"megakernel dims envelope (ops<={cap_ops}, actors={actors}, "
-        f"elem slots<={elem_slots}); shard this DocSet across more rows "
-        f"instances")
+        f"elem slots<={elem_slots}); compact the long-lived docs "
+        f"(ResidentRowsDocSet.compact) or shard this DocSet across more "
+        f"rows instances")
+
+
+class CompactionAnchorError(RuntimeError):
+    """An ingress inserts after an element that compaction reclaimed. The
+    clock floor guarantees every known peer saw that element's tombstone,
+    so a conforming frontend never emits this anchor; the sender is below
+    the compaction horizon (it needs a full resync) or nonconforming.
+    Raised BEFORE admission: the instance is untouched. `doc_id` names the
+    offending doc, whose round the sync service drops."""
+
+    def __init__(self, msg: str, *, doc_id: str | None = None):
+        super().__init__(msg)
+        self.doc_id = doc_id
+
+
+def _anchor_error(anchor: str, doc_id: str) -> CompactionAnchorError:
+    return CompactionAnchorError(
+        f"insert anchored at compacted element {anchor!r} in doc "
+        f"{doc_id!r}; the sender is below the compaction horizon — full "
+        f"resync required", doc_id=doc_id)
 
 
 class ResidentRowsDocSet(ResidentDocSet):
@@ -119,13 +169,43 @@ class ResidentRowsDocSet(ResidentDocSet):
                  device: str | torch.device = "cuda", native: bool = True):
         super().__init__(doc_ids, device=device, native=native)
         self.n_pad = pad_to_lanes(max(len(self.doc_ids), 1))
-        # per-doc: list_row -> [(slot, elem, arank, parent_slot), ...]
+        # per-doc: list_row -> [(slot, elem, arank, parent), ...]. `parent`
+        # is the ENTRY INDEX of the anchor in the same list's entries.
+        # Before any compaction it equals the anchor's slot (slots assign
+        # densely in arrival order); after one, ghost entries (slot -1)
+        # keep their RGA ordering key here while their band slot is freed,
+        # so only entry indices stay stable. ins_idx maps slot -> entry
+        # index per list, for appends.
         self.ins_log: list[dict[int, list[tuple]]] = [
+            {} for _ in self.doc_ids]
+        self.ins_idx: list[dict[int, dict[int, int]]] = [
             {} for _ in self.doc_ids]
         # per-doc: list_row -> owning-object content hash
         self.list_hash: list[dict[int, int]] = [{} for _ in self.doc_ids]
+        # per-doc: list_row -> object interning index (compaction addresses
+        # the encoders' per-object element-slot maps with it)
+        self.list_obj: list[dict[int, int]] = [{} for _ in self.doc_ids]
+        # per-doc: ids of elements compaction reclaimed; an insert anchored
+        # at one is rejected before admission (CompactionAnchorError)
+        self.ghost_eids: list[set] = [set() for _ in self.doc_ids]
+        # last compaction floor per doc_id (a rebuild from the log
+        # re-compacts with these, so a long-lived doc fits again)
+        self.compaction_floors: dict[str, dict[str, int]] = {}
         # per-doc admitted change log
         self.change_log: list[list] = [[] for _ in self.doc_ids]
+        # log-horizon layer: per-doc clock below which the admitted prefix
+        # was moved to log_archive (sync/logarchive.LogArchive); the RAM
+        # change_log holds only the tail above it. {} = no horizon.
+        self.log_horizon: list[dict] = [{} for _ in self.doc_ids]
+        self.log_archive = None
+        # sync/snapshots.SnapshotStore: a rebuild replays a snapshot-booted
+        # doc from its image when the archive does not hold its prefix
+        self.snapshot_store = None
+        # bumped by each _rebuild_from_log (which restores the archived
+        # prefix into the RAM log, so log lengths stop comparing)
+        self._rebuild_gen = 0
+        # True while this instance is a rebuild's replay target
+        self._rebuilding = False
         if actors:
             # pre-registering the expected actor set avoids a remap and
             # re-upload when they first appear in deltas
@@ -208,8 +288,12 @@ class ResidentRowsDocSet(ResidentDocSet):
             self._hseq = np.pad(self._hseq, (0, k))
         for _ in fresh:
             self.ins_log.append({})
+            self.ins_idx.append({})
             self.list_hash.append({})
+            self.list_obj.append({})
+            self.ghost_eids.append(set())
             self.change_log.append([])
+            self.log_horizon.append({})
         new_pad = pad_to_lanes(len(self.doc_ids))
         if new_pad > self.n_pad:
             b = self._bases()
@@ -476,10 +560,12 @@ class ResidentRowsDocSet(ResidentDocSet):
             for op in c.ops:
                 if op.action == "ins":
                     n_elems[i] = n_elems.get(i, 0) + 1
+                    if op.key in self.ghost_eids[i]:
+                        raise _anchor_error(op.key, self.doc_ids[i])
                 elif op.action in ("makeList", "makeText"):
                     n_lists[i] = n_lists.get(i, 0) + 1
 
-        for i in self._queued_docs:
+        for i in sorted(self._queued_docs):
             for p in self.tables[i].queue:
                 count(i, p.payload)
         for r in rounds:
@@ -516,9 +602,11 @@ class ResidentRowsDocSet(ResidentDocSet):
 
     def _linearized_pos_rows(self, doc_idx: int, lrow: int):
         """Fresh RGA positions for one touched list from its ins log:
-        (ip-band row indices, positions), both int64 arrays. Without
-        compaction an entry's index in the log is its slot, so a parent
-        slot is also the parent's entry index."""
+        (ip-band row indices, positions), both int64 arrays. Ghost entries
+        (compacted-away tombstones, slot -1) take part in the linearization
+        (they order their retained descendants) but ship no row; positions
+        are rank-compressed over the slotted entries, so they stay dense in
+        [0, cap_elems)."""
         entries = self.ins_log[doc_idx][lrow]
         n = len(entries)
         elem = np.fromiter((e for (_, e, _, _) in entries), np.int32, n)
@@ -528,8 +616,26 @@ class ResidentRowsDocSet(ResidentDocSet):
         pos = np.asarray(
             linearize_host(np.ones(n, dtype=bool), elem, arank, parent),
             np.int64)
+        slotted = slots >= 0
+        if not slotted.all():
+            k = int(slotted.sum())
+            order = np.argsort(pos[slotted], kind="stable")
+            dense = np.empty(k, np.int64)
+            dense[order] = np.arange(k)
+            pos, slots = dense, slots[slotted]
         rows = self._bases()["ip"] + lrow * self.cap_elems + slots
         return rows, pos
+
+    def _log_insert(self, i: int, lrow: int, slot: int, elem: int,
+                    arank: int, parent_slot: int) -> None:
+        """Append one admitted insert to doc i's ins log, its parent slot
+        resolved to the parent's entry index."""
+        entries = self.ins_log[i].setdefault(lrow, [])
+        s2i = self.ins_idx[i].setdefault(lrow, {})
+        parent = (s2i.get(parent_slot, parent_slot)
+                  if parent_slot >= 0 else -1)
+        s2i[slot] = len(entries)
+        entries.append((slot, elem, arank, parent))
 
     def _round_triplets(self, changes_by_doc) -> np.ndarray:
         """Encode one round into (P, 3) int32 scatter triplets
@@ -565,12 +671,12 @@ class ResidentRowsDocSet(ResidentDocSet):
                 row = delta.clocks[chg - c0]
                 for a in np.nonzero(row)[0]:
                     put(b["co"] + int(a) * I + s, i, row[a])
-            for (lrow, _oi, objhash) in delta.new_lists:
+            for (lrow, oi, objhash) in delta.new_lists:
                 self.list_hash[i][lrow] = objhash
+                self.list_obj[i][lrow] = oi
             touched_lists = set()
             for (lrow, slot, elem, arank, parent_slot, fid) in delta.ins:
-                self.ins_log[i].setdefault(lrow, []).append(
-                    (slot, elem, arank, parent_slot))
+                self._log_insert(i, lrow, slot, elem, arank, parent_slot)
                 le = lrow * E + slot
                 put(b["im"] + le, i, 1)
                 put(b["if"] + le, i, fid)
@@ -615,12 +721,15 @@ class ResidentRowsDocSet(ResidentDocSet):
 
     @contextlib.contextmanager
     def _admission_guard(self):
-        """Wrap admission + mirror scatter. A failure after some change was
-        admitted leaves change_log/clocks ahead of the rows mirror; the
-        reference rebuilds from the log there, which is not ported yet, so
-        the instance is poisoned (every later apply or read raises) and the
-        error propagates. A failure before any admission propagates and
-        leaves the instance usable."""
+        """Wrap admission + mirror scatter. A failure midway (encoder
+        error, a grow's MemoryError) can leave change_log/clocks ahead of
+        the rows mirror AND an unprocessed suffix of the batch in neither
+        the log nor the queue. If anything was admitted, rebuild the
+        instance from its log and raise DeviceDispatchError with
+        admission_complete=False: the caller replays the whole batch, and
+        the (actor, seq) dedup drops the admitted prefix. If nothing was
+        admitted, the error propagates and the caller may retry. Inside a
+        rebuild's replay the failure is deterministic: poison and raise."""
         log_lens = [len(log) for log in self.change_log]
         try:
             yield
@@ -629,17 +738,249 @@ class ResidentRowsDocSet(ResidentDocSet):
         except Exception as e:
             if any(len(log) != n
                    for log, n in zip(self.change_log, log_lens)):
-                self._poison(e)
+                if self._rebuilding:
+                    self._poison(e)
+                    raise
+                metrics.bump("rows_log_rebuilt")
+                self._rebuild_from_log()
+                raise DeviceDispatchError(
+                    str(e), admission_complete=False) from e
             raise
 
     def _poison(self, cause) -> None:
         self._poisoned = (f"resident row state no longer reflects the "
                           f"admitted change log ({cause!r}); rebuild the "
                           f"node from its durable log")
+        metrics.bump("rows_engine_poisoned")
 
     def _check_poisoned(self) -> None:
         if self._poisoned:
             raise RuntimeError(self._poisoned)
+
+    # ------------------------------------------------------------------
+    # durability: the log horizon, snapshot seeding, rebuild from the log
+
+    def archive_log_prefix(self, doc_id: str,
+                           floor: dict[str, int]) -> int:
+        """Move the causally-stable prefix of one doc's admitted log (every
+        change with seq <= floor[actor]) out of RAM into log_archive,
+        advancing log_horizon. The floor must be a causal-stability floor
+        (compaction.causal_floor, lowered by peer clocks): such floors are
+        transitive clocks, so the prefix is causally closed and archive-
+        then-tail replay order is valid. Returns the number of changes
+        archived (0 with no archive attached or nothing below the
+        floor)."""
+        if self.log_archive is None or not floor:
+            return 0
+        i = self.doc_index[doc_id]
+        hz = self.log_horizon[i]
+        if not any(s > hz.get(a, 0) for a, s in floor.items()):
+            # the floor has not passed the horizon: nothing below it is
+            # still in RAM, so skip the O(log) scan
+            return 0
+        keep, move = [], []
+        for c in self.change_log[i]:
+            (move if c.seq <= floor.get(c.actor, 0) else keep).append(c)
+        if not move:
+            return 0
+        self.log_archive.append(
+            doc_id, [c.change() if isinstance(c, AdmittedRef) else c
+                     for c in move])
+        self.change_log[i] = keep
+        for a, s in floor.items():
+            if s > hz.get(a, 0):
+                hz[a] = int(s)
+        metrics.bump("rows_horizon_truncated")
+        return len(move)
+
+    @staticmethod
+    def _archive_covers_floor(archived, floor: dict[str, int]) -> bool:
+        """True when the archived changes hold each floor actor's history
+        FROM SEQ 1, i.e. the doc's full prefix and not just a post-boot
+        tail (per-actor seqs are dense from 1 and archive_log_prefix moves
+        contiguous prefixes, so min seq == 1 is the witness)."""
+        if not floor:
+            return True
+        mins: dict[str, int] = {}
+        for c in archived:
+            if c.actor in floor and c.seq < mins.get(c.actor, 1 << 62):
+                mins[c.actor] = c.seq
+        return all(mins.get(a) == 1 for a in floor)
+
+    def seed_clock(self, doc_id: str, clock: dict[str, int],
+                   head_closures: dict | None = None) -> None:
+        """Snapshot boot (sync/snapshots.py): after a doc's compacted,
+        renumbered image admitted through the ordinary ingress, raise the
+        doc's clock to the ORIGINAL covered clock, so the suffix admits
+        with its original seqs and redeliveries below the clock drop.
+        `head_closures` (per-actor transitive clocks of the covered heads,
+        without their own coordinate) are memoized for causal_floor and
+        later clock rows; `snap_floor` arms the post-seed clamp."""
+        i = self.doc_index[doc_id]
+        t = self.tables[i]
+        self._sync_stale_table(t)
+        self._register_actor_names(set(clock))
+        heads = head_closures or {}
+        for a, s in clock.items():
+            if s > t.clock.get(a, 0):
+                t.clock[a] = int(s)
+            t.state_clocks[(a, int(s))] = dict(heads.get(a) or {})
+        # frontier := the seeded heads no other head's closure covers
+        t.frontier = {
+            a: int(s) for a, s in clock.items()
+            if not any(o != a and (heads.get(o) or {}).get(a, 0) >= s
+                       for o in clock)}
+        t.snap_floor = {a: int(s) for a, s in clock.items()}
+        self._cache_dirty.add(i)
+        metrics.bump("sync_bootstrap_docs")
+
+    def _rebuild_from_log(self) -> None:
+        """Reconstruct the whole instance from its admitted change log (the
+        authoritative record) plus the causal queues' payloads, then adopt
+        the fresh state in place, on this instance's device. A device
+        failure during the rebuild leaves the fresh instance host-
+        consistent and dirty (its dispatch guard), and the next read
+        re-uploads. Any OTHER failure poisons the instance: serving reads
+        would silently drop admitted changes.
+
+        With a log horizon the RAM log is only the tail: the archived
+        prefix is read back and replayed first (it is causally closed
+        below the floor), or, for a snapshot-booted doc whose archive
+        lacks the prefix, the snapshot image (re-seeded). The rebuilt
+        instance holds the full log in RAM with an empty horizon; the
+        archive's (actor, seq) read dedup makes a later re-archive
+        harmless."""
+        docs = list(self.doc_ids)
+        round_: dict[str, list] = {}
+        snap_replay: dict[str, object] = {}
+        for i, d in enumerate(docs):
+            chs = []
+            snap_floor = self.tables[i].snap_floor
+            if self.log_archive is not None and self.log_horizon[i]:
+                archived = self.log_archive.read(d)
+                if snap_floor and not self._archive_covers_floor(
+                        archived, snap_floor):
+                    # the archive holds only the post-boot tail; the
+                    # prefix lives in the image
+                    chs.extend(c for c in archived
+                               if c.seq > snap_floor.get(c.actor, 0))
+                else:
+                    chs.extend(archived)
+                    snap_floor = None   # the full prefix is on disk
+            if snap_floor:
+                img = (self.snapshot_store.load(d)
+                       if self.snapshot_store is not None else None)
+                if img is None:
+                    e = RuntimeError(
+                        f"rebuild of snapshot-booted doc {d!r}: no "
+                        "archived prefix and no local snapshot image")
+                    self._poison(e)
+                    raise e
+                snap_replay[d] = img
+            chs.extend(c.change() if isinstance(c, AdmittedRef) else c
+                       for c in self.change_log[i])
+            for p in self.tables[i].queue:
+                pay = p.payload
+                chs.append(AdmittedRef(*pay).change()
+                           if isinstance(pay, tuple) else pay)
+            if chs:
+                round_[d] = chs
+        fresh = ResidentRowsDocSet(docs, actors=list(self.actors),
+                                   device=self.device,
+                                   native=self._native is not None)
+        fresh.log_archive = self.log_archive
+        fresh.snapshot_store = self.snapshot_store
+        fresh.compaction_floors = dict(self.compaction_floors)
+        fresh.lazy_dispatch = self.lazy_dispatch
+        fresh._rebuilding = True
+        try:
+            for d, img in snap_replay.items():
+                fresh.apply_rounds([{d: img.columns().to_changes()}])
+                fresh.seed_clock(d, img.clock, img.heads)
+                i2 = fresh.doc_index[d]
+                # the image is the doc's below-horizon truth, not a
+                # re-servable log prefix (its seqs are renumbered)
+                fresh.change_log[i2] = []
+                fresh.log_horizon[i2] = dict(img.clock)
+            if round_:
+                try:
+                    fresh.apply_rounds([round_])
+                except RowsBudgetError:
+                    # a compacted long-lived doc's full log exceeds the
+                    # envelope by design: replay in chunks
+                    self._replay_chunked(fresh, round_)
+        except DeviceDispatchError:
+            pass
+        except Exception as e:
+            self._poison(e)
+            raise
+        fresh._rebuilding = False
+        gen = self._rebuild_gen
+        # the hash epoch stays monotonic across the rebuild: a holder of a
+        # pre-rebuild epoch must see every later read as changed
+        epoch = max(self.hash_epoch, fresh.hash_epoch) + 1
+        self.__dict__.clear()
+        self.__dict__.update(fresh.__dict__)
+        self._rebuild_gen = gen + 1
+        self.hash_epoch = epoch
+
+    def _replay_chunked(self, fresh: "ResidentRowsDocSet", round_: dict,
+                        chunk: int = 256) -> None:
+        """Envelope-safe rebuild replay: admit the log in per-doc chunks,
+        compacting to the last-known floors when a chunk does not fit, so
+        the rebuilt rows converge to the compacted footprint the original
+        carried. Anchors of the not-yet-replayed tail are pinned: the log
+        legitimately inserts after elements whose tombstones are below
+        the stored floor (they were ghosted only AFTER those inserts
+        admitted in the original)."""
+        pos = {d: 0 for d in round_}
+        while True:
+            part = {d: chs[pos[d]:pos[d] + chunk]
+                    for d, chs in round_.items() if pos[d] < len(chs)}
+            if not part:
+                return
+            try:
+                fresh.apply_rounds([part])
+            except RowsBudgetError:
+                # a stored empty floor ({}) means "nothing reclaimable" and
+                # is honored as is; only docs with NO stored floor fall
+                # back to their own replayed clock
+                floors = {d: (self.compaction_floors[d]
+                              if d in self.compaction_floors
+                              else dict(
+                                  fresh.tables[fresh.doc_index[d]].clock))
+                          for d in fresh.doc_ids}
+                pins: dict[str, set] = {}
+                for d, chs in round_.items():
+                    p = {op.key for c in chs[pos[d]:] for op in c.ops
+                         if op.action == "ins" and op.key
+                         and op.key != HEAD}
+                    if p:
+                        pins[d] = p
+                fresh.compact(floors, pins)
+                fresh.apply_rounds([part])
+            for d, chs in part.items():
+                pos[d] += len(chs)
+
+    def compact(self, floors: dict[str, dict[str, int]],
+                pins: dict[str, set] | None = None) -> dict[str, dict]:
+        """Causally-stable compaction (engine/compaction.py): reclaim
+        dominated op slots and below-floor tombstoned element slots per doc,
+        in place on the host mirror, preserving every hash. `floors` maps
+        doc_id -> that doc's clock floor; `pins` maps doc_id -> anchor
+        element ids of known-but-unadmitted changes that keep their slots.
+        Returns per-doc reclaim stats. The device copy is dropped (the next
+        dispatch uploads the compacted mirror), and every doc whose slots
+        moved re-reads through the kernel at the next hash read, so the
+        hash mirror cannot hide a compaction bug."""
+        stats = compaction.compact(self, floors, pins)
+        moved = [self.doc_index[d] for d, st in stats.items()
+                 if d in self.doc_index
+                 and (st["ops_after"] < st["ops_before"]
+                      or st["elems_after"] < st["elems_before"])]
+        if moved:
+            self._mark_hash_dirty(moved)
+        return stats
 
     # ------------------------------------------------------------------
     # device path
@@ -751,37 +1092,51 @@ class ResidentRowsDocSet(ResidentDocSet):
     # ------------------------------------------------------------------
     # native column ingress
 
+    def _check_ghost_anchors_cols(self, i: int, cols, op_lo: int,
+                                  op_hi: int) -> None:
+        """Reject ins ops anchored at compacted-away elements BEFORE
+        admission (CompactionAnchorError)."""
+        ghosts = self.ghost_eids[i]
+        if not ghosts:
+            return
+        acts = np.asarray(cols.op_action[op_lo:op_hi])
+        for j in np.nonzero(acts == _ACTION_IDX["ins"])[0].tolist():
+            k = int(cols.op_key[op_lo + j])
+            if k >= 0 and cols.keys[k] in ghosts:
+                raise _anchor_error(cols.keys[k], self.doc_ids[i])
+
     def _precheck_rows_budget_cols(self, rounds) -> None:
         """Upper-bound budget check from the submitted columns plus the
-        causal queues, BEFORE any admission runs. Conservative: duplicates
-        and changes that stay queued count as applied; the exact check in
-        _grow_for_rounds still runs after the encode."""
+        causal queues, BEFORE any admission runs, with the ghost-anchor
+        reject. Conservative: duplicates and changes that stay queued
+        count as applied; the exact check in _grow_for_rounds still runs
+        after the encode. A doc's columns are counted in one numpy pass
+        (the reference slices them change by change; the counts, and the
+        first ghost anchor in op order, are the same)."""
         ins_idx = _ACTION_IDX["ins"]
-        list_idxs = (_ACTION_IDX["makeList"], _ACTION_IDX["makeText"])
+        l1, l2 = _ACTION_IDX["makeList"], _ACTION_IDX["makeText"]
 
         need_ops = self.op_count.copy()
-        n_elems: dict[int, int] = {}
-        n_lists: dict[int, int] = {}
+        n_elems = np.zeros(self.cap_docs, np.int64)
+        n_lists = np.zeros(self.cap_docs, np.int64)
 
-        def count(i, cols, j):
-            o0, o1 = int(cols.op_off[j]), int(cols.op_off[j + 1])
+        def count(i, cols, j0, j1):
+            o0, o1 = int(cols.op_off[j0]), int(cols.op_off[j1])
             need_ops[i] += o1 - o0
             acts = np.asarray(cols.op_action[o0:o1])
-            n_elems[i] = n_elems.get(i, 0) + int((acts == ins_idx).sum())
-            n_lists[i] = n_lists.get(i, 0) + int(
-                np.isin(acts, list_idxs).sum())
+            n_elems[i] += int((acts == ins_idx).sum())
+            n_lists[i] += int(((acts == l1) | (acts == l2)).sum())
+            self._check_ghost_anchors_cols(i, cols, o0, o1)
 
-        for i in self._queued_docs:
+        for i in sorted(self._queued_docs):
             for p in self.tables[i].queue:  # native payloads: (cols, j)
-                count(i, *p.payload)
+                cols, j = p.payload
+                count(i, cols, j, j + 1)
         for r in rounds:
             for doc_id, cols in r.items():
-                i = self.doc_index[doc_id]
-                for j in range(cols.n_changes):
-                    count(i, cols, j)
-        self._check_prospective_caps(need_ops,
-                                     max(n_elems.values(), default=0),
-                                     max(n_lists.values(), default=0))
+                count(self.doc_index[doc_id], cols, 0, cols.n_changes)
+        self._check_prospective_caps(need_ops, int(n_elems.max(initial=0)),
+                                     int(n_lists.max(initial=0)))
 
     def _check_prospective_caps(self, need_ops: np.ndarray, add_elems: int,
                                 add_lists: int) -> None:
@@ -883,8 +1238,9 @@ class ResidentRowsDocSet(ResidentDocSet):
         ids, cnts = np.unique(enc["adm_doc"], return_counts=True)
         self.change_count[ids] += cnts
 
-        for (d, lrow, _oi, objhash) in bd.newlist_rows.tolist():
+        for (d, lrow, oi, objhash) in bd.newlist_rows.tolist():
             self.list_hash[d][lrow] = objhash
+            self.list_obj[d][lrow] = oi
 
         ins = bd.ins_rows
         if len(ins):
@@ -892,10 +1248,7 @@ class ResidentRowsDocSet(ResidentDocSet):
             ir, idd, iv = [], [], []
             for (d, lrow, slot_, elem, arank, parent_slot, fid) in \
                     ins.tolist():
-                # without compaction an entry's index in the log is its
-                # slot (as in _round_triplets)
-                self.ins_log[d].setdefault(lrow, []).append(
-                    (slot_, elem, arank, parent_slot))
+                self._log_insert(d, lrow, slot_, elem, arank, parent_slot)
                 le = lrow * E + slot_
                 ir += [b["im"] + le, b["if"] + le, b["io"] + le]
                 idd += [d, d, d]
@@ -985,7 +1338,16 @@ class ResidentRowsDocSet(ResidentDocSet):
 
     def _precheck_round_frames(self, rounds) -> None:
         """Vectorized budget precheck for round frames (one numpy pass a
-        round instead of per-change slicing)."""
+        round instead of per-change slicing), after the ghost-anchor reject
+        for compacted docs."""
+        for rc in rounds:
+            if any(self.ghost_eids[self.doc_index[d]] for d in rc.doc_ids):
+                off = np.asarray(rc.change_off, np.int64)
+                op_off = np.asarray(rc.cols.op_off, np.int64)
+                for k, d in enumerate(rc.doc_ids):
+                    self._check_ghost_anchors_cols(
+                        self.doc_index[d], rc.cols,
+                        int(op_off[off[k]]), int(op_off[off[k + 1]]))
         ins_idx = _ACTION_IDX["ins"]
         l1, l2 = _ACTION_IDX["makeList"], _ACTION_IDX["makeText"]
 
@@ -1452,9 +1814,9 @@ class ResidentRowsDocSet(ResidentDocSet):
 
     def _mega_doc_sizes(self, idxs):
         """Exact per-doc used sizes for megabatch bucket planning: the ops
-        used (op rows fill slots [0, op_count) with op_mask set, since the
-        port has no compaction, so this equals the reference's scan of the
-        op_mask band) and the lists used, from a scan of the selected lanes'
+        used (op rows fill slots [0, op_count) with op_mask set, and
+        compaction packs its survivors to the front, so this equals the
+        reference's scan of the op_mask band) and the lists used, from a scan of the selected lanes'
         ins_mask band: the highest occupied elem slot rounded up to whole
         lists (elem bands subset only at list granularity,
         pack.mega_row_map). Returns (i_used, l_used) int64 arrays."""

@@ -15,7 +15,16 @@ port must reproduce. Also `random_rows`, `reconcile_cases`,
   the list half of the kernel (visibility, ranks, the op -> element map)
   runs: every actor types `chars` characters after its own cursor, deletes
   about one in four of them, and the changes arrive interleaved over a few
-  rounds.
+  rounds. `text_fleet_acks` is a round in which every typist acknowledges
+  the others, after which compaction can reclaim the tombstones.
+
+- `long_lived_frame` / `long_lived_changes`: the corpus of the reference's
+  bench config 15 (`bench.py::run_bootstrap_config`): 1,024 documents, doc
+  j written by one of 4 writers (`w{j % 4:02d}`), its change s a `set` of
+  root key `k{(s * 7) % 64}` to s, so a doc's history overwrites 64 fields
+  again and again. `long_lived_frame(s)` is the AMR1 round frame of every
+  doc's change s, built straight from numpy columns (byte-equal to
+  `encode_round_frame` of the same changes).
 
 The docs-major engine's workload:
 
@@ -52,6 +61,7 @@ from __future__ import annotations
 
 import bisect
 import random
+import struct
 
 import numpy as np
 
@@ -104,6 +114,50 @@ def map_storm(n_docs: int = 10_000, n_heavy: int = 8, heavy_ops: int = 400,
     return doc_ids, heavy_round, storm
 
 
+LONG_LIVED_WRITERS = 4
+LONG_LIVED_FIELDS = 64
+
+
+def long_lived_changes(j: int, lo: int, hi: int) -> list:
+    """Doc j's changes with seqs lo..hi (inclusive) of the long-lived
+    fleet, as Change objects."""
+    a = f"w{j % LONG_LIVED_WRITERS:02d}"
+    return [Change(a, s, {}, [Op("set", ROOT_ID,
+                                 key=f"k{(s * 7) % LONG_LIVED_FIELDS}",
+                                 value=s)])
+            for s in range(lo, hi + 1)]
+
+
+def long_lived_frame(doc_ids: list, s: int) -> bytes:
+    """The AMR1 round frame of change s of every doc of the long-lived
+    fleet (doc_ids[j] is doc j), one change a doc."""
+    from .native.wire import V_INT, WireColumns
+    from .storage import _ACTION_IDX
+    from .sync.frames import ROUND_MAGIC, _blob, columns_to_bytes
+
+    n = len(doc_ids)
+    w = min(n, LONG_LIVED_WRITERS)
+    cols = WireColumns(
+        change_actor=(np.arange(n) % LONG_LIVED_WRITERS).astype(np.int32),
+        change_seq=np.full(n, s, np.int32),
+        change_msg=np.full(n, -1, np.int32),
+        deps_off=np.zeros(n + 1, np.int32),
+        deps_actor=np.zeros(0, np.int32), deps_seq=np.zeros(0, np.int32),
+        op_off=np.arange(n + 1, dtype=np.int32),
+        op_action=np.full(n, _ACTION_IDX["set"], np.int8),
+        op_obj=np.zeros(n, np.int32), op_key=np.zeros(n, np.int32),
+        op_elem=np.full(n, -1, np.int32),
+        op_vtag=np.full(n, V_INT, np.int8),
+        op_vint=np.full(n, s, np.int64),
+        op_vdbl=np.zeros(n, np.float64), op_vstr=np.full(n, -1, np.int32),
+        actors=[f"w{k:02d}" for k in range(w)], objects=[ROOT_ID],
+        keys=[f"k{(s * 7) % LONG_LIVED_FIELDS}"], messages=[], strings=[])
+    id_off, id_blob = _blob(list(doc_ids))
+    return b"".join([ROUND_MAGIC, struct.pack("<I", n),
+                     np.arange(n + 1, dtype=np.int32).tobytes(),
+                     id_off.tobytes(), id_blob, columns_to_bytes(cols)])
+
+
 def text_fleet(n_docs: int = 2048,
                actors: tuple = ("alice", "bob", "carol", "dave"),
                chars: int = 48, chars_per_change: int = 4, rounds: int = 4,
@@ -151,6 +205,23 @@ def text_fleet(n_docs: int = 2048,
                 rnd.extend(chs[bounds[r]:bounds[r + 1]])
             out[r][doc] = rnd
     return doc_ids, out
+
+
+def text_fleet_acks(rounds) -> dict:
+    """One change per actor per doc of a text fleet's rounds that
+    acknowledges every other actor's last change (its deps: their heads),
+    so that each doc's causal floor passes the typing and its tombstones
+    (compaction can then reclaim them)."""
+    heads: dict = {}
+    for rnd in rounds:
+        for d, chs in rnd.items():
+            h = heads.setdefault(d, {})
+            for c in chs:
+                h[c.actor] = max(h.get(c.actor, 0), c.seq)
+    return {d: [Change(a, s + 1, {b: t for b, t in h.items() if b != a},
+                       [Op("set", ROOT_ID, key=f"seen-{a}", value=s)])
+                for a, s in sorted(h.items())]
+            for d, h in heads.items()}
 
 
 def docset_fleet(n_docs: int = 10_000, rounds: int = 12,

@@ -112,7 +112,26 @@ Phases:
      workloads.reference_diff_streams (with a map move and a list move)
      against the records the JAX reference computed
      (testdata/reference_diffs.json). Each diff round launches the
-     linearize kernel once.
+     linearize kernel once;
+ 11. rows-engine durability on the long-lived fleet of the reference's
+     bench config 15 (1,024 docs, 4 writers, 64 overwritten fields; the
+     depth cut from 10,000 changes a doc to 2,560): 10 micro-batches of
+     256 round frames through apply_round_frames under the sync service's
+     rule (on RowsBudgetError compact every doc to its causal floor and
+     retry once), each followed by the horizon pass (archive_log_prefix
+     into a LogArchive); the round walls with and without a compaction,
+     the compaction wall, ops and resident bytes before and after, the
+     archive's walls and the RAM log; then _rebuild_from_log (archive
+     read, chunked replay), its wall and launches, hashes equal to the
+     engine's before; then a snapshot boot (SnapshotStore images of all
+     but the last 50 changes a doc, apply_rounds of every image,
+     seed_clock, the tail as one frame) equal to the long-lived engine;
+     then phase 3's text fleet after a round in which every typist
+     acknowledges the others: compaction at the causal floors (elements
+     and ghosts), an insert after a ghost rejected before admission with
+     CompactionAnchorError, and an ordinary round admitted. Every engine
+     state is held to the plain version (hold_to_plain); the kernels
+     line counts the phase's launches.
 Then the kernel timings (each kernel's launches timed three ways:
 `kernel_ms` from CUDA events around a host loop of launches, the host's
 `enqueue_ms` per launch in that loop, and `graph_ms` from a replay of the
@@ -1103,7 +1122,7 @@ def drive_text_fleet(torch, dev):
     return ds, final, launches
 
 
-def hold_to_plain(ds, final, name, report):
+def hold_to_plain(ds, final, name, report, phase="4"):
     """Phase 4 for one path: the device buffer equals the host mirror, and
     on that buffer the kernel's wrapper, its plain version and the engine's
     final hashes agree bit for bit."""
@@ -1119,8 +1138,8 @@ def hold_to_plain(ds, final, name, report):
     err = max(max_abs_err(final, plain), max_abs_err(kernel, plain))
     report["reconcile_rows_hash"].append(err)
     check(err == 0, f"{name}: engine or kernel hashes != plain version")
-    print(f"phase 4: {name}: {n} engine and kernel hashes equal to the plain "
-          f"version")
+    print(f"phase {phase}: {name}: {n} engine and kernel hashes equal to "
+          f"the plain version")
 
 
 def phase_reference(dev):
@@ -1757,6 +1776,262 @@ def drive_diff_plane(torch, dev, fleets):
     return d_launch["linearize"] + t_launch["linearize"]
 
 
+# Phase 11's long-lived fleet: bench config 15's corpus (1,024 docs, 4
+# writers, 64 fields) with its depth cut from 10,000 changes a doc to
+# LONG_ROUNDS x LONG_PER_ROUND, delivered as micro-batches of round frames
+# (one change a doc a frame); the snapshot covers all but the last
+# LONG_TAIL changes of each doc.
+LONG_DOCS = 1024
+LONG_ROUNDS = 10
+LONG_PER_ROUND = 256
+LONG_TAIL = 50
+
+
+def b1_launches(torch, dev, fn):
+    """fn() and the reconcile kernel's launches in it: the counter set to
+    0 just before, read just after."""
+    from automerge_tpu_torch.engine import cuda_kernels as ck
+    ck.LAUNCHES["reconcile_rows_hash"] = 0
+    out = fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return out, ck.LAUNCHES["reconcile_rows_hash"]
+
+
+def long_lived_rounds(torch, ds, ids, per_round: int, rounds: int,
+                      archive_floor):
+    """Phase 11 (a) and (b): each round a micro-batch of `per_round` round
+    frames through apply_round_frames and a hashes() read, under the sync
+    service's rule (on RowsBudgetError: compact every doc to its causal
+    floor, retry once); after each round, the horizon pass
+    (archive_log_prefix of every doc at its floor). Returns the walls,
+    the compaction stats and the launches."""
+    from automerge_tpu_torch.engine.compaction import causal_floor
+    from automerge_tpu_torch.engine.resident_rows import RowsBudgetError
+    from automerge_tpu_torch.sync.frames import decode_round_frame
+    from automerge_tpu_torch.workloads import long_lived_frame
+
+    out = {"walls": [], "compacted": [], "compact_s": [], "ops": [],
+           "bytes": [], "archive_s": [], "ram_log": [], "launches": 0,
+           "final": None}
+    for r in range(rounds):
+        frames = [decode_round_frame(long_lived_frame(ids, s))
+                  for s in range(r * per_round + 1, (r + 1) * per_round + 1)]
+
+        def one_round():
+            compacted = False
+            t0 = time.perf_counter()
+            try:
+                ds.apply_round_frames(frames)
+            except RowsBudgetError:
+                ops0 = int(ds.op_count[:len(ids)].sum())
+                bytes0 = ds.resident_bytes()
+                tc = time.perf_counter()
+                floors = {d: causal_floor(ds, i) for i, d in enumerate(ids)}
+                stats = ds.compact(floors)
+                out["compact_s"].append(time.perf_counter() - tc)
+                check(any(st["ops_after"] < st["ops_before"]
+                          for st in stats.values()),
+                      "long-lived fleet: compaction reclaimed nothing")
+                out["ops"].append((ops0, int(ds.op_count[:len(ids)].sum())))
+                out["bytes"].append((bytes0, ds.resident_bytes()))
+                compacted = True
+                ds.apply_round_frames(frames)
+            final = ds.hashes()
+            return final, compacted, time.perf_counter() - t0
+        (final, compacted, wall), n = b1_launches(torch, ds.device,
+                                                  one_round)
+        out["launches"] += n
+        out["walls"].append(wall)
+        out["compacted"].append(compacted)
+        out["final"] = final
+        t0 = time.perf_counter()
+        for i, d in enumerate(ids):
+            ds.archive_log_prefix(d, archive_floor(ds, i))
+        out["archive_s"].append(time.perf_counter() - t0)
+        out["ram_log"].append(sum(len(log) for log in ds.change_log))
+    return out
+
+
+def drive_long_lived(torch, dev, report, n_docs=LONG_DOCS,
+                     rounds=LONG_ROUNDS, per_round=LONG_PER_ROUND,
+                     tail=LONG_TAIL, text_docs=2048):
+    """Phase 11: rows-engine durability on the card. Returns the reconcile
+    kernel's launches on the phase's main path (hold_to_plain's own
+    launches are not counted)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from automerge_tpu_torch.engine.compaction import causal_floor
+    from automerge_tpu_torch.engine.resident_rows import (
+        CompactionAnchorError, ResidentRowsDocSet)
+    from automerge_tpu_torch.sync.frames import encode_round_frame
+    from automerge_tpu_torch.sync.logarchive import LogArchive
+    from automerge_tpu_torch.sync.snapshots import (SnapshotStore,
+                                                    compact_prefix)
+    from automerge_tpu_torch.workloads import (LONG_LIVED_WRITERS,
+                                               long_lived_changes, text_fleet,
+                                               text_fleet_acks)
+
+    t_phase = time.perf_counter()
+    ids = [f"doc{j:04d}" for j in range(n_docs)]
+    writers = [f"w{k:02d}" for k in range(LONG_LIVED_WRITERS)]
+    depth = rounds * per_round
+    root = tempfile.mkdtemp(prefix="amtpu-smoke-long-")
+    launches = 0
+    try:
+        archive = LogArchive(os.path.join(root, "arch"))
+        store = SnapshotStore(os.path.join(root, "snap"))
+        ds = ResidentRowsDocSet(ids, actors=writers, device=dev)
+        ds.log_archive = archive
+        # (a) + (b)
+        run = long_lived_rounds(torch, ds, ids, per_round, rounds,
+                                causal_floor)
+        launches += run["launches"]
+        final = run["final"]
+        hold_to_plain(ds, final, "(a) long-lived fleet after its rounds",
+                      report, "11")
+        w_c = [w for w, c in zip(run["walls"], run["compacted"]) if c]
+        w_n = [w for w, c in zip(run["walls"], run["compacted"]) if not c]
+        check(w_c, "long-lived fleet: no round compacted")
+        print(f"phase 11: (a) {n_docs} docs x {depth} changes ({rounds} "
+              f"micro-batches of {per_round} round frames, "
+              f"{n_docs * per_round} changes each) dims={ds.dims()}; "
+              f"round walls s {walls_text(run['walls'])}; p50 with a "
+              f"compaction {p50(w_c):.4f} s ({len(w_c)} rounds), without "
+              f"{p50(w_n) if w_n else float('nan'):.4f} s ({len(w_n)}); "
+              f"compaction walls s {walls_text(run['compact_s'])}, "
+              f"{1e3 * p50(run['compact_s']) / n_docs:.4f} ms a doc; ops "
+              f"before/after {run['ops']}; resident bytes before/after "
+              f"{run['bytes']}; launches {run['launches']} [{card()}]")
+        print(f"phase 11: (b) archive_log_prefix of every doc a round: "
+              f"append walls s {walls_text(run['archive_s'])}; RAM log "
+              f"length after each round {run['ram_log']}; archive "
+              f"{sum(archive.stats(d)['bytes'] for d in ids)} B")
+
+        # (c) rebuild from the log (archive + RAM tail), chunked
+        t0 = time.perf_counter()
+        _, n = b1_launches(torch, dev, ds._rebuild_from_log)
+        rebuilt = ds.hashes()
+        rebuild_s = time.perf_counter() - t0
+        launches += n
+        check(ds.device == dev and ds.rows_dev is not None
+              and ds.rows_dev.device.type == dev.type,
+              "long-lived fleet: the rebuild left the card")
+        check((rebuilt == final).all(),
+              "long-lived fleet: hashes after the rebuild != before")
+        hold_to_plain(ds, rebuilt, "(c) long-lived fleet after the rebuild",
+                      report, "11")
+        print(f"phase 11: (c) _rebuild_from_log (archive read + chunked "
+              f"replay of {n_docs * depth} changes) {rebuild_s:.3f} s, "
+              f"launches {n}; hashes equal to the long-lived engine's "
+              f"[{card()}]")
+
+        # (d) snapshot boot
+        cut = depth - tail
+        t0 = time.perf_counter()
+        per_writer = [long_lived_changes(k, 1, cut)
+                      for k in range(LONG_LIVED_WRITERS)]
+        for j, d in enumerate(ids):
+            store.write(d, compact_prefix(per_writer[j % len(per_writer)]))
+        write_s = time.perf_counter() - t0
+        tail_frame = encode_round_frame(
+            {d: long_lived_changes(j, cut + 1, depth)
+             for j, d in enumerate(ids)})
+        boot = ResidentRowsDocSet(ids, actors=writers, device=dev)
+
+        def do_boot():
+            images = {d: store.load(d) for d in ids}
+            boot.apply_rounds([{d: img.columns().to_changes()
+                                for d, img in images.items()}])
+            for d, img in images.items():
+                boot.seed_clock(d, img.clock, img.heads)
+            boot.apply_round_frames([tail_frame])
+            return boot.hashes()
+        t0 = time.perf_counter()
+        booted, n = b1_launches(torch, dev, do_boot)
+        boot_s = time.perf_counter() - t0
+        launches += n
+        check((booted == final).all(),
+              "long-lived fleet: snapshot boot != long-lived engine")
+        hold_to_plain(boot, booted, "(d) long-lived fleet after a snapshot "
+                      "boot", report, "11")
+        snap_b = sum(len(store.payload(d)) for d in ids)
+        arch_b = sum(archive.stats(d)["bytes"] for d in ids)
+        check(snap_b < arch_b, "snapshot bytes not below the archive's")
+        print(f"phase 11: (d) snapshot writes of {cut} changes a doc "
+              f"{write_s:.3f} s; boot (apply_rounds of every image, "
+              f"seed_clock, the {tail}-change tail as one frame) "
+              f"{boot_s:.3f} s, {1e3 * boot_s / n_docs:.4f} ms a doc, "
+              f"launches {n}; snapshot {snap_b} B against archive "
+              f"{arch_b} B ({snap_b / arch_b:.5f}); hashes equal to the "
+              f"long-lived engine's [{card()}]")
+        del ds, boot
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # (e) the text fleet: compaction, the ghost-anchor reject, admission
+    tids, trounds = text_fleet(n_docs=text_docs)
+    acks = text_fleet_acks(trounds)
+    tds = ResidentRowsDocSet(tids, device=dev)
+    frames = [encode_round_frame(r) for r in trounds + [acks]]
+    (h0, n) = b1_launches(torch, dev, lambda: (
+        tds.apply_round_frames(frames), tds.hashes())[1])
+    launches += n
+    floors = {d: causal_floor(tds, i) for i, d in enumerate(tids)}
+    t0 = time.perf_counter()
+    stats = tds.compact(floors)
+    compact_s = time.perf_counter() - t0
+    h1, n = b1_launches(torch, dev, tds.hashes)
+    launches += n
+    check(n > 0, "text fleet: the compaction re-read launched nothing")
+    check((h1 == h0).all(), "text fleet: compaction moved a hash")
+    ghosts = sum(len(g) for g in tds.ghost_eids)
+    e0 = sum(st["elems_before"] for st in stats.values())
+    e1 = sum(st["elems_after"] for st in stats.values())
+    check(ghosts > 0 and e1 < e0, "text fleet: no element reclaimed")
+    hold_to_plain(tds, h1, "(e) text fleet after compaction", report, "11")
+    k = next(i for i, g in enumerate(tds.ghost_eids) if g)
+    d = tids[k]
+    clock = dict(tds.tables[k].clock)
+    from automerge_tpu_torch.core.change import Change, Op
+    bad = Change("alice", clock["alice"] + 1, clock, [
+        Op("ins", f"{d}/text", key=sorted(tds.ghost_eids[k])[0], elem=999)])
+    logs = [len(log) for log in tds.change_log]
+    try:
+        tds.apply_round_frames([encode_round_frame({d: [bad]})])
+        check(False, "text fleet: an insert at a ghost admitted")
+    except CompactionAnchorError as e:
+        check(e.doc_id == d, "text fleet: the reject named another doc")
+    check([len(log) for log in tds.change_log] == logs,
+          "text fleet: the rejected frame grew a change log")
+    h2, n = b1_launches(torch, dev, tds.hashes)
+    launches += n
+    check((h2 == h1).all(), "text fleet: the reject moved a hash")
+    ok_round = {d: [Change("alice", clock["alice"] + 1, clock, [
+        Op("set", "00000000-0000-0000-0000-000000000000", key="after",
+           value=1)])]}
+    h3, n = b1_launches(torch, dev, lambda: (
+        tds.apply_round_frames([encode_round_frame(ok_round)]),
+        tds.hashes())[1])
+    launches += n
+    check(len(tds.change_log[k]) == logs[k] + 1 and (h3 != h2).sum() == 1,
+          "text fleet: the ordinary round did not admit")
+    hold_to_plain(tds, h3, "(e) text fleet after the ordinary round",
+                  report, "11")
+    print(f"phase 11: (e) text fleet {len(tids)} docs: compaction "
+          f"{compact_s:.3f} s, elements {e0} -> {e1}, ops "
+          f"{sum(st['ops_before'] for st in stats.values())} -> "
+          f"{sum(st['ops_after'] for st in stats.values())}, ghosts "
+          f"{ghosts}; hashes unchanged; an insert after a ghost raised "
+          f"CompactionAnchorError before admission (no change log grew, "
+          f"hashes unchanged); the next round admitted [{card()}]")
+    print(f"phase 11: launches {launches}; phase 11 took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def time_docs_round(torch, ds):
     """Device milliseconds of one full apply_doc over the text fleet's
     state, of its linearize step (the kernel) and of linearize_plain."""
@@ -2108,6 +2383,7 @@ def main() -> int:
     docset_ds, docs_ds, docs_launches, lin9, fleets = drive_docs_major(
         torch, dev, report, text_final)
     lin10 = drive_diff_plane(torch, dev, fleets)
+    long_launches = drive_long_lived(torch, dev, report)
 
     rows_times = time_kernel(torch, map_ds, "map storm")
     time_kernel(torch, text_ds, "text fleet")
@@ -2126,12 +2402,13 @@ def main() -> int:
           f"plane {span_launches}; "
           f"move plane {move_launches}; docs-major engine {docs_launches} "
           f"(dominated); linearize {lin9} (phase 9) + {lin10} (phase 10, "
-          f"the diff plane)")
+          f"the diff plane); rows engine durability {long_launches} "
+          f"(phase 11)")
     print(json.dumps({"kernels": [
         kernel_entry("reconcile_rows_hash",
                      "automerge_tpu_torch/csrc/reconcile_rows.cu",
                      "automerge_tpu/engine/pallas_kernels.py:499",
-                     map_launches + text_launches,
+                     map_launches + text_launches + long_launches,
                      report["reconcile_rows_hash"], rows_times),
         kernel_entry("span_rank_hash",
                      "automerge_tpu_torch/csrc/span_rank_hash.cu",

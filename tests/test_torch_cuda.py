@@ -418,3 +418,79 @@ def test_diff_streams_on_the_card_equal_the_cpu(cuda_device):
             assert recs == recs_cpu, (name, k)
             assert json.loads(json.dumps(recs)) == committed[name][k]
         assert cuda_kernels.LAUNCHES["linearize"] == before + len(rounds)
+
+
+@pytest.mark.cuda
+def test_compaction_on_the_card_rereads_through_the_kernel(cuda_device):
+    """compact on a card engine (a text fleet after every typist
+    acknowledged the others): the docs whose slots moved re-read through
+    the reconcile kernel, the hashes stay as they were, and the compacted
+    mirror, stats, ghosts and hashes equal a CPU instance's."""
+    from automerge_tpu_torch.engine.compaction import causal_floor
+    from automerge_tpu_torch.sync.frames import encode_round_frame
+    from automerge_tpu_torch.workloads import text_fleet_acks
+    ids, rounds = text_fleet(n_docs=64)
+    frames = [encode_round_frame(r)
+              for r in rounds + [text_fleet_acks(rounds)]]
+    out = {}
+    for dev in (cuda_device, "cpu"):
+        ds = ResidentRowsDocSet(ids, device=dev)
+        ds.apply_round_frames(frames)
+        h0 = ds.hashes()
+        stats = ds.compact({d: causal_floor(ds, i)
+                            for i, d in enumerate(ids)})
+        assert ds.rows_dev is None and ds._doc_dirty
+        before = cuda_kernels.LAUNCHES["reconcile_rows_hash"]
+        h1 = ds.hashes()
+        if dev != "cpu":
+            assert cuda_kernels.LAUNCHES["reconcile_rows_hash"] > before
+        np.testing.assert_array_equal(h1, h0)
+        assert sum(len(g) for g in ds.ghost_eids) > 0
+        out[str(dev)] = (h1, ds.rows_host.copy(), stats, ds.ghost_eids)
+    card, cpu = out[str(cuda_device)], out["cpu"]
+    np.testing.assert_array_equal(card[0], cpu[0])
+    np.testing.assert_array_equal(card[1], cpu[1])
+    assert card[2] == cpu[2] and card[3] == cpu[3]
+
+
+@pytest.mark.cuda
+def test_rebuild_on_the_card_stays_on_the_card(cuda_device, monkeypatch):
+    """A mid-admission failure on a long-lived fleet kept inside the
+    envelope by compaction rebuilds from the log through the chunked
+    replay, on the card (the reconcile kernel launches, the rebuilt device
+    copy lives there), with the hashes of a CPU instance under the same
+    fault."""
+    from automerge_tpu_torch.engine.compaction import causal_floor
+    from automerge_tpu_torch.engine.resident_rows import (
+        DeviceDispatchError, RowsBudgetError)
+    from automerge_tpu_torch.sync.frames import encode_round_frame
+    from automerge_tpu_torch.workloads import long_lived_changes
+
+    def boom(*a, **k):
+        raise MemoryError("grow failed mid-scatter")
+    ids = [f"doc{j}" for j in range(8)]
+    out = {}
+    for dev in (cuda_device, "cpu"):
+        ds = ResidentRowsDocSet(ids, device=dev)
+        for lo in range(1, 1201, 200):
+            frame = encode_round_frame(
+                {d: long_lived_changes(j, lo, lo + 199)
+                 for j, d in enumerate(ids)})
+            try:
+                ds.apply_round_frames([frame])
+            except RowsBudgetError:
+                ds.compact({d: causal_floor(ds, i)
+                            for i, d in enumerate(ids)})
+                ds.apply_round_frames([frame])
+        monkeypatch.setattr(ds, "_cols_triplets", boom)
+        before = cuda_kernels.LAUNCHES["reconcile_rows_hash"]
+        with pytest.raises(DeviceDispatchError):
+            ds.apply_rounds([{d: long_lived_changes(j, 1201, 1210)
+                              for j, d in enumerate(ids)}])
+        assert ds._rebuild_gen == 1
+        assert ds.device == torch.device(dev)
+        if dev != "cpu":
+            assert cuda_kernels.LAUNCHES["reconcile_rows_hash"] > before
+            assert ds.rows_dev is not None and ds.rows_dev.is_cuda
+        out[str(dev)] = ds.hashes()
+    np.testing.assert_array_equal(out[str(cuda_device)], out["cpu"])

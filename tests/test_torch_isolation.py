@@ -31,7 +31,8 @@ def test_every_module_imports_with_jax_and_reference_blocked():
               "native.delta", "native.linearize", "sync.frames",
               "utils.gcpause", "storage", "linearize_schedule",
               "move_schedule", "compare_kernels", "engine.dispatchledger",
-              "utils.metrics"):
+              "utils.metrics", "engine.compaction", "sync.logarchive",
+              "sync.snapshots", "utils.lockprof", "utils.chaos"):
         assert f"automerge_tpu_torch.{m}" in mods, m
     code = "\n".join([
         "import importlib, sys",

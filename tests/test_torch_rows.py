@@ -13,7 +13,8 @@ import automerge_tpu as am
 from automerge_tpu.core.change import Change, Op
 from automerge_tpu.core.ids import ROOT_ID
 from automerge_tpu.engine.resident_rows import (
-    ResidentRowsDocSet as RefRows, RowsBudgetError as RefBudgetError)
+    DeviceDispatchError as RefDispatchError, ResidentRowsDocSet as RefRows,
+    RowsBudgetError as RefBudgetError)
 
 from automerge_tpu_torch.engine import cuda_kernels, dispatch, resident_rows
 from automerge_tpu_torch.engine.resident_rows import (
@@ -316,26 +317,63 @@ def test_dispatch_failure_keeps_host_truth(monkeypatch):
 
 
 def test_admission_failure_after_admitting_poisons(monkeypatch):
+    """A failure after part of a batch was admitted rebuilds the instance
+    from its log and raises DeviceDispatchError(admission_complete=False),
+    as the reference does; the hashes then equal the reference's under the
+    same fault, and replaying the batch is a duplicate-drop. Only a fault
+    that also strikes the rebuild's replay poisons, in both packages."""
     ids = ["e0", "e1"]
-    port = ResidentRowsDocSet(ids, device="cpu")
-    real = ResidentRowsDocSet._linearized_pos_rows
-    calls = []
-
-    def flaky(self, doc_idx, lrow):
-        calls.append(doc_idx)
-        if len(calls) > 1:
-            raise MemoryError("host out of memory")
-        return real(self, doc_idx, lrow)
-    monkeypatch.setattr(ResidentRowsDocSet, "_linearized_pos_rows", flaky)
 
     def text_change(actor):
         return Change(actor, 1, {}, [
             Op("makeText", f"T{actor}"),
             Op("link", ROOT_ID, key="t", value=f"T{actor}"),
             Op("ins", f"T{actor}", key="_head", elem=1)])
+    batch = [{"e0": [text_change("A")], "e1": [text_change("B")]}]
+
+    def faulty(cls, fail_from, fail_to):
+        real = cls._linearized_pos_rows
+        calls = []
+
+        def flaky(self, doc_idx, lrow):
+            calls.append(doc_idx)
+            if fail_from <= len(calls) <= fail_to:
+                raise MemoryError("host out of memory")
+            return real(self, doc_idx, lrow)
+        monkeypatch.setattr(cls, "_linearized_pos_rows", flaky)
+
+    # the second list's re-linearization fails once: both packages rebuild
+    ref = RefRows(ids)
+    port = ResidentRowsDocSet(ids, device="cpu")
+    faulty(RefRows, 2, 2)
+    faulty(ResidentRowsDocSet, 2, 2)
+    with pytest.raises(RefDispatchError) as ref_err:
+        ref.apply_rounds(batch)
+    with pytest.raises(DeviceDispatchError) as err:
+        port.apply_rounds(rounds_to_port(batch))
+    assert not ref_err.value.admission_complete
+    assert not err.value.admission_complete
+    assert isinstance(err.value.__cause__, MemoryError)
+    assert port._rebuild_gen == 1 and port._poisoned is None
+    assert [len(log) for log in port.change_log] == [1, 1]
+    np.testing.assert_array_equal(port.hashes(), ref.hashes())
+    again = port.apply_rounds(rounds_to_port(batch))[-1]
+    np.testing.assert_array_equal(again, ref.apply_rounds(batch)[-1])
+    assert [len(log) for log in port.change_log] == [1, 1]
+    monkeypatch.undo()
+
+    # every call from the second on fails: the rebuild's replay fails too,
+    # and both packages poison
+    ref = RefRows(ids)
+    port = ResidentRowsDocSet(ids, device="cpu")
+    faulty(RefRows, 2, 1 << 30)
+    faulty(ResidentRowsDocSet, 2, 1 << 30)
     with pytest.raises(MemoryError):
-        port.apply_rounds(rounds_to_port(
-            [{"e0": [text_change("A")], "e1": [text_change("B")]}]))
+        ref.apply_rounds(batch)
+    with pytest.raises(MemoryError):
+        port.apply_rounds(rounds_to_port(batch))
+    with pytest.raises(RuntimeError, match="no longer reflects"):
+        ref.hashes()
     with pytest.raises(RuntimeError, match="no longer reflects"):
         port.hashes()
 

@@ -52,3 +52,43 @@ def to_port(changes):
 
 def rounds_to_port(rounds):
     return [{d: to_port(chs) for d, chs in r.items()} for r in rounds]
+
+
+def changes_of(doc):
+    """Every change of an interpretive (reference) document, in causal
+    order."""
+    return doc._doc.opset.get_missing_changes({})
+
+
+def build_history():
+    """One author's text and map history (tests/test_compaction.py's):
+    "hello world" typed, `n` overwritten 30 times, the first 6 characters
+    deleted, leaving "world"."""
+    import automerge_tpu as am
+    d = am.init("alice")
+    d = am.change(d, lambda x: x.__setitem__("t", am.Text()))
+    d = am.change(d, lambda x: x["t"].insert_at(0, *"hello world"))
+    for k in range(30):
+        d = am.change(d, lambda x, k=k: x.__setitem__("n", k))
+    d = am.change(d, lambda x: [x["t"].delete_at(0) for _ in range(6)])
+    return d
+
+
+def assert_same_rows(ref, port):
+    """The two packages' rows engines hold the same state: hashes, the row
+    mirror, per-doc counters, the insert logs, ghosts and clocks."""
+    import numpy as np
+    np.testing.assert_array_equal(port.hashes(), ref.hashes())
+    assert port.dims() == ref.dims()
+    np.testing.assert_array_equal(port.rows_host, ref.rows_host)
+    n = len(ref.doc_ids)
+    np.testing.assert_array_equal(port.op_count[:n], ref.op_count[:n])
+    assert port.ins_log == ref.ins_log
+    assert port.ins_idx == ref.ins_idx
+    assert port.list_obj == ref.list_obj
+    assert port.ghost_eids == ref.ghost_eids
+    ref.sync_tables()
+    port.sync_tables()
+    for t_ref, t_port in zip(ref.tables, port.tables):
+        assert dict(t_port.clock) == dict(t_ref.clock)
+        assert dict(t_port.frontier) == dict(t_ref.frontier)
