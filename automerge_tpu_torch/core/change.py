@@ -1,14 +1,14 @@
-"""Operation and change records — the wire-level "ISA" of the CRDT (a copy
-of `automerge_tpu/core/change.py`).
+"""Operation and change records — the wire-level "ISA" of the CRDT.
 
-The operation vocabulary matches Automerge's (its INTERNALS.md:117-194):
-`makeMap`, `makeList`, `makeText`, `ins {obj, key: prevElemId|'_head', elem}`,
-`set {obj, key, value}`, `link {obj, key, value: objectId}`, `del {obj, key}`.
+The operation vocabulary matches the reference exactly
+(Automerge's INTERNALS.md:117-194): `makeMap`, `makeList`, `makeText`,
+`ins {obj, key: prevElemId|'_head', elem}`, `set {obj, key, value}`,
+`link {obj, key, value: objectId}`, `del {obj, key}`.
 
-A change is `{actor, seq, deps, message?, ops[]}` (Automerge's
-INTERNALS.md:104-115). `deps` is the pruned dependency frontier, not a full
-vector clock; full clocks are reconstructed via `transitive_deps`
-(src/op_set.js:29-37).
+A change is `{actor, seq, deps, message?, ops[]}` (INTERNALS.md:104-115, built
+at Automerge's src/auto_api.js:28-33). `deps` is the pruned dependency
+frontier, not a full vector clock; full clocks are reconstructed via
+`transitive_deps` (src/op_set.js:29-37).
 
 Ops inside a change carry no actor/seq; they are stamped with the change's
 (actor, seq) at application time (src/op_set.js:239). Ops stored in per-field
@@ -18,6 +18,17 @@ state *do* carry their stamp, which is what concurrency detection keys on.
 from __future__ import annotations
 
 from typing import Any, Iterable, Mapping
+
+MAKE_ACTIONS = ("makeMap", "makeList", "makeText")
+ASSIGN_ACTIONS = ("set", "del", "link")
+# `move` (r16) reparents a map child object or repositions a list element
+# as ONE op: {obj: destination container, key: dest key (map) / dest anchor
+# elemId or '_head' (list), value: moved object id (map) / moved elemId
+# (list), elem: dest sibling-order counter (list moves only)}. Concurrent
+# moves of one element resolve by priority; cycles resolve deterministically
+# (core/moves.py). The reference has no equivalent — a reparent there is a
+# delete + re-insert of the whole subtree.
+ALL_ACTIONS = MAKE_ACTIONS + ("ins",) + ASSIGN_ACTIONS + ("move",)
 
 
 class Op:
@@ -36,11 +47,11 @@ class Op:
 
     def stamped(self, actor: str, seq: int | None) -> "Op":
         """Copy of this op carrying the applying change's (actor, seq)."""
-        return Op(self.action, self.obj, self.key, self.value, self.elem,
-                  actor, seq)
+        return Op(self.action, self.obj, self.key, self.value, self.elem, actor, seq)
 
     def stripped(self) -> "Op":
-        """Copy without actor/seq (the form stored in undo histories)."""
+        """Copy without actor/seq — the form stored in undo histories
+        (Automerge's src/automerge.js:14, auto_api.js:89)."""
         if self.actor is None and self.seq is None:
             return self
         return Op(self.action, self.obj, self.key, self.value, self.elem)

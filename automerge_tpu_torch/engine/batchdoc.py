@@ -192,19 +192,21 @@ def decode_doc(enc: DocEncoding, out: dict[str, np.ndarray]) -> Any:
 
 
 def oracle_state(doc) -> dict:
-    """The same {data, conflicts} shape from an oracle document (any
-    mapping with a `_conflicts` mapping, as the reference's documents
-    are), for parity assertions. Maps become dicts, lists lists, and any
-    other non-scalar value (a text object) its string."""
+    """The same {data, conflicts} shape produced from an oracle document (a
+    document root of `api`), for parity assertions: maps become dicts,
+    lists lists, text objects their string."""
+    from .. import api
+    from ..frontend.text import Text
+
     def convert(value):
-        if value is None or isinstance(value, (bool, int, float, str)):
-            return value
+        if isinstance(value, Text):
+            return str(value)
         if isinstance(value, dict):
             return {k: convert(v) for k, v in value.items()}
         if isinstance(value, (list, tuple)):
             return [convert(v) for v in value]
-        return str(value)
+        return value
 
     conflicts = {k: {a: convert(v) for a, v in c.items()}
                  for k, c in doc._conflicts.items()}
-    return {"data": convert(doc), "conflicts": conflicts}
+    return {"data": convert(api.inspect(doc)), "conflicts": conflicts}

@@ -12,6 +12,15 @@ The rows engine's planner (`plan_round`, `apply_round_adaptive`) prices
 the megabatch route, the dirty lanes of a minority hash read reconciled in
 a few fused launches at smaller bucket dims, against the narrow gather the
 engine does otherwise, and runs the route where it is not dearer.
+
+The batch route (`plan_batch`, `plan_for`, `apply_batch_adaptive`) prices a
+from-scratch DocSet batch: on the device, batchdoc.apply_batch (the B5
+domination kernel and the linearize kernel on the card) returns per-doc
+hashes; on the host, `apply_host` builds each document through the
+interpretive OpSet (or the bulk loader) and returns materialized
+documents. The reference also opens a `metrics.trace("engine_dispatch")`
+span around the batch; spans come with the sync service's observability
+and are left out here.
 """
 
 from __future__ import annotations
@@ -53,6 +62,14 @@ _LINK = {
                                      # lanes of the host mirror, bytes out
     "mega_fixed_s": 4.4542e-04,      # megabatch route's host work (bucket
     "mega_doc_s": 6.5875e-07,        # planning, bookkeeping) and a doc's
+    # the batch route's host legs (chip_smoke.measure_batch_constants,
+    # phase 12 (f), its "batch_link" line, same card and host)
+    "host_op_s": 8.6586e-06,         # apply_host: no-diff interpretive
+                                     # apply + materialize, an op
+    "bulk_op_s": 1.8353e-05,         # bulk build from in-memory changes
+    "bulk_fixed_s": 1.0000e-06,      # (changes_to_columns included), an
+                                     # op and a doc (the fit's intercept
+                                     # fell to its 1e-6 floor)
 }
 
 
@@ -64,6 +81,39 @@ def calibrate(**overrides) -> None:
         _LINK[k] = float(v)
 
 
+def calibrate_from_profile(profile: dict) -> dict:
+    """Update the link model from a link-profile record (the reference's
+    profile_tunnel.py JSON: `h2d_ms_by_mb`, `d2h_512B_ms`,
+    `tiny_dispatch_plus_readback_ms`). Returns the constants actually
+    applied. Unknown or missing fields are skipped: partial profiles
+    calibrate partially."""
+    applied = {}
+    h2d = profile.get("h2d_ms_by_mb") or {}
+    if "0.001" in h2d:
+        applied["h2d_call_s"] = float(h2d["0.001"]) / 1e3
+    sizes = sorted((float(mb), float(ms)) for mb, ms in h2d.items()
+                   if float(mb) >= 1)
+    if len(sizes) >= 2:
+        (mb0, ms0), (mb1, ms1) = sizes[0], sizes[-1]
+        if ms1 > ms0:
+            applied["h2d_bytes_per_s"] = ((mb1 - mb0) * 1e6
+                                          / ((ms1 - ms0) / 1e3))
+    if "d2h_512B_ms" in profile:
+        applied["d2h_call_s"] = float(profile["d2h_512B_ms"]) / 1e3
+    if "tiny_dispatch_plus_readback_ms" in profile:
+        total = float(profile["tiny_dispatch_plus_readback_ms"]) / 1e3
+        applied["dispatch_fixed_s"] = max(
+            total - applied.get("d2h_call_s", _LINK["d2h_call_s"]), 1e-4)
+    calibrate(**applied)
+    return applied
+
+
+# apply_host engages the vectorized bulk build from this many changes per
+# document (the reference's threshold: below it the no-diff interpretive
+# apply, O(ops) with one end-of-batch RGA linearization, ties or wins).
+HOST_BULK_MIN_CHANGES = 24576
+
+
 @dataclass
 class Plan:
     backend: str          # "device" | "host"
@@ -71,11 +121,175 @@ class Plan:
     est_host_s: float
 
 
-def _device_cost(wire_bytes: int) -> float:
-    return (_LINK["dispatch_fixed_s"]
+def _device_cost(wire_bytes: int, passes: int = 1) -> float:
+    """One dispatch shipping `wire_bytes`, its fixed legs amortized over
+    `passes` identical jobs."""
+    return (_LINK["dispatch_fixed_s"] / passes
             + _LINK["h2d_call_s"]
             + wire_bytes / _LINK["h2d_bytes_per_s"]
-            + _LINK["d2h_call_s"])
+            + _LINK["d2h_call_s"] / passes)
+
+
+def plan_batch(n_docs: int, n_ops: int, wire_bytes: int,
+               passes: int = 1, changes_per_doc: float | None = None) -> Plan:
+    """Choose the backend for a from-scratch batch apply of `n_docs`
+    documents totalling `n_ops` ops, shipping `wire_bytes` per pass,
+    with fixed costs amortized over `passes` identical jobs.
+
+    `changes_per_doc` prices the host side with the same predicate
+    apply_host executes (bulk build from HOST_BULK_MIN_CHANGES changes a
+    doc); when unknown it is estimated at n_ops/n_docs/2 (ins+set pairs)."""
+    dev = _device_cost(wire_bytes, passes)
+    if changes_per_doc is None:
+        changes_per_doc = n_ops / max(n_docs, 1) / 2
+    if changes_per_doc >= HOST_BULK_MIN_CHANGES:
+        host = n_docs * _LINK["bulk_fixed_s"] + n_ops * _LINK["bulk_op_s"]
+    else:
+        host = n_ops * _LINK["host_op_s"]
+    return Plan("device" if dev < host else "host", dev, host)
+
+
+def plan_for(doc_changes: list, passes: int = 1) -> Plan:
+    """Plan (no execution) for a concrete from-scratch batch: estimates the
+    wire from the padded dims pack.py uses, and prices the host side per
+    document with apply_host's bulk/interpretive predicate. The plan also
+    carries those dims (`plan.dims`) for the dispatch ledger."""
+    def _pad(n, minimum=8):
+        p = minimum
+        while p < n:
+            p *= 2
+        return p
+
+    max_ops = 1
+    max_ins = 1
+    actors: set = set()
+    host = 0.0
+    for chs in doc_changes:
+        doc_ops = 0
+        doc_ins = 0
+        for c in chs:
+            doc_ops += len(c.ops)
+            for o in c.ops:
+                if o.action == "ins":
+                    doc_ins += 1
+            actors.add(c.actor)
+        max_ops = max(max_ops, doc_ops)
+        max_ins = max(max_ins, doc_ins)
+        if len(chs) >= HOST_BULK_MIN_CHANGES:  # apply_host's predicate
+            host += _LINK["bulk_fixed_s"] + doc_ops * _LINK["bulk_op_s"]
+        else:
+            host += doc_ops * _LINK["host_op_s"]
+    ops_pad = _pad(max_ops)
+    ins_pad = _pad(max_ins)
+    d_pad = pad_to_lanes(len(doc_changes))
+    wire_bytes = (rows_count(ops_pad, max(len(actors), 1), ins_pad)
+                  * d_pad * 4)
+    dev = _device_cost(wire_bytes, passes)
+    plan = Plan("device" if dev < host else "host", dev, host)
+    plan.dims = {"docs": (len(doc_changes), d_pad),
+                 "ops": (max_ops, ops_pad), "ins": (max_ins, ins_pad)}
+    return plan
+
+
+def _causal_order(changes):
+    """Stable causal (re)ordering of a complete change list. Returns the
+    input unchanged when it is already causally ordered (one O(n) clock
+    pass), a stably reordered copy when a causal order exists, or None when
+    none does (missing deps, duplicate or gapped seqs): the interpretive
+    path owns those semantics (causal queueing, seq-reuse errors).
+
+    The bulk build requires application order, and get_missing_changes
+    emits per-actor runs whose deps point across runs. The reorder is a
+    Kahn walk over per-actor chains with dep wait-heaps: O(n + deps log)
+    even on logs whose per-actor runs interleave change by change."""
+    import heapq
+    from collections import defaultdict, deque
+
+    clock: dict[str, int] = {}
+    for c in changes:
+        if c.seq != clock.get(c.actor, 0) + 1 or any(
+                clock.get(a, 0) < s for a, s in c.deps.items()):
+            break
+        clock[c.actor] = c.seq
+    else:
+        return changes
+
+    chains: dict[str, list] = defaultdict(list)
+    for c in changes:
+        chains[c.actor].append(c)
+    for chain in chains.values():
+        chain.sort(key=lambda c: c.seq)
+        if [c.seq for c in chain] != list(range(1, len(chain) + 1)):
+            return None  # duplicate or gapped seqs: interpretive semantics
+
+    clock = {}
+    ptr = {a: 0 for a in chains}
+    # waiting[a]: heap of (dep_seq, blocked_actor), actors whose chain
+    # head needs clock[a] >= dep_seq before it can advance
+    waiting: dict[str, list] = defaultdict(list)
+    ready = deque(chains)
+    out: list = []
+    while ready:
+        a = ready.popleft()
+        chain = chains[a]
+        while ptr[a] < len(chain):
+            c = chain[ptr[a]]
+            unmet = next(((da, ds) for da, ds in c.deps.items()
+                          if clock.get(da, 0) < ds), None)
+            if unmet is not None:
+                heapq.heappush(waiting[unmet[0]], (unmet[1], a))
+                break
+            out.append(c)
+            clock[a] = c.seq
+            ptr[a] += 1
+            w = waiting.get(a)
+            while w and w[0][0] <= clock[a]:
+                ready.append(heapq.heappop(w)[1])
+    if len(out) != len(changes):
+        return None  # some dep is outside the log: no causal order exists
+    return out
+
+
+def apply_host(changes, actor_id: str = "engine", device="cuda"):
+    """Host-path from-scratch apply of one document's complete change set:
+    the bulk build when the log is big enough and eligible, else the
+    interpretive replay, the OpSet on `device` (its move realms resolve
+    there). Returns the materialized document."""
+    from ..api import init
+    from ..core.bulkload import try_bulk_build
+    from ..frontend.materialize import apply_changes_to_doc, materialize_root
+    from ..native.wire import changes_to_columns
+
+    if len(changes) >= HOST_BULK_MIN_CHANGES:
+        ordered = _causal_order(changes)
+        if ordered is not None:
+            opset = try_bulk_build(changes_to_columns(ordered), device)
+            if opset is not None:
+                metrics.bump("engine_bulk_built")
+                return materialize_root(actor_id, opset)
+    doc = init(actor_id, device)
+    # no-diff apply: a from-scratch load has no diff consumer
+    return apply_changes_to_doc(doc, doc._doc.opset, list(changes),
+                                incremental=False, emit_diffs=False)
+
+
+def apply_batch_adaptive(doc_changes: list, passes: int = 1, device="cuda"):
+    """Route a from-scratch DocSet batch through the cheaper backend.
+
+    Returns (plan, result): a list of materialized documents on the host
+    route (apply_host, the OpSet on `device`), or the per-doc state hashes
+    (np.uint32) on the device route (batchdoc.apply_batch on `device`; its
+    readable-state decode is on demand, batchdoc.decode_doc)."""
+    from .batchdoc import apply_batch
+
+    dev = resolve_device(device)
+    plan = plan_for(doc_changes, passes)
+    with dispatchledger.call_scope("apply", plan=plan,
+                                   docs=len(doc_changes), axes=plan.dims):
+        if plan.backend == "host":
+            return plan, [apply_host(chs, device=dev) for chs in doc_changes]
+        _encs, _batch, out = apply_batch(doc_changes, device=dev)
+        return plan, hashes_to_numpy(out["hash"])
 
 
 def plan_spans(n_docs: int, s_pad: int) -> Plan:

@@ -982,6 +982,57 @@ class ResidentRowsDocSet(ResidentDocSet):
             self._mark_hash_dirty(moved)
         return stats
 
+    def materialize(self, doc_id: str) -> dict:
+        """Snapshot one document ({"data", "conflicts"}, as
+        batchdoc.oracle_state) by replaying its admitted change log
+        through the interpretive frontend on this instance's device (the
+        cold path; the hot path is hash-only; the docs-major decode this
+        class would otherwise inherit reads outputs the rows engine never
+        builds).
+
+        The log is the archived prefix (when a log horizon is set) and the
+        RAM tail. A snapshot-booted doc whose archive lacks the prefix
+        replays its snapshot image instead, with the tail (a post-boot
+        archive folded in) rebased onto the image's renumbered history
+        (snapshots.remap_tail)."""
+        from .. import api
+        from ..frontend.materialize import apply_changes_to_doc
+        from .batchdoc import oracle_state
+
+        i = self.doc_index[doc_id]
+        changes: list = []
+        arch_tail: list = []
+        snap_floor = self.tables[i].snap_floor
+        if self.log_archive is not None and self.log_horizon[i]:
+            archived = self.log_archive.read(doc_id)
+            if snap_floor and not self._archive_covers_floor(
+                    archived, snap_floor):
+                # archived after the boot: the archive is tail, not prefix
+                arch_tail = [c for c in archived
+                             if c.seq > snap_floor.get(c.actor, 0)]
+            else:
+                changes.extend(archived)
+                snap_floor = None   # the full prefix is on disk
+        tail = arch_tail + [c.change() if isinstance(c, AdmittedRef) else c
+                            for c in self.change_log[i]]
+        if snap_floor:
+            from ..sync.snapshots import remap_tail
+            img = (self.snapshot_store.load(doc_id)
+                   if self.snapshot_store is not None else None)
+            if img is None:
+                raise RuntimeError(
+                    f"cannot materialize snapshot-booted doc {doc_id!r}: "
+                    "no archived prefix and no local snapshot image "
+                    "(attach snapshot_dir so wire-received images are "
+                    "retained)")
+            changes = img.columns().to_changes()
+            tail = remap_tail(tail, img.clock, img.kept_seqs)
+        changes.extend(tail)
+        doc = api.init("resident-view", self.device)
+        doc = apply_changes_to_doc(doc, doc._doc.opset, changes,
+                                   incremental=False, emit_diffs=False)
+        return oracle_state(doc)
+
     # ------------------------------------------------------------------
     # device path
 

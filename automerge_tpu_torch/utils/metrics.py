@@ -2,8 +2,8 @@
 process-global store of counters, gauges and histogram summaries, the
 snapshot sections other planes register, and the node label.
 
-This is the part the dispatch ledger (`engine/dispatchledger.py`) and the
-rows engine's megabatch route call: `register`, `bump`, `gauge`,
+This is the part the dispatch ledger (`engine/dispatchledger.py`), the
+rows engine's megabatch route and the interpretive core (`core/`) call: `register`, `bump`, `gauge`,
 `observe`, `snapshot`, `reset`, `register_snapshot_section`,
 `register_reset_hook`, `node_name` and `set_node_name`, with the
 reference's semantics and snapshot keys.
@@ -37,8 +37,46 @@ COUNTERS: dict[str, str] = {
         "rounds the megabatch planner priced onto the per-doc path",
     "rows_dispatch_failed":
         "rows-engine device dispatches that failed after admission",
+    # the interpretive core (core/opset.py, core/bulkload.py)
+    "core_changes_applied": "changes admitted by the host apply paths",
+    "core_ops_applied": "ops inside admitted changes (host apply paths)",
+    "core_diffs_emitted": "diff records produced by the interpretive apply",
+    "core_bulk_fallbacks": "bulk builds that fell back to interpretive",
+    "engine_bulk_built": "host-path documents built by the bulk loader",
+    # the span-granularity text plane (core/textspans.py)
+    "sync_text_batches_merged":
+        "change batches admitted through the span-granularity text plane "
+        "(core/textspans.py)",
+    "sync_text_spans_spliced":
+        "contiguous element runs spliced into the visible-order index "
+        "(one splice per run, not per op)",
+    "sync_text_ops_sequential":
+        "text ops from changes covering the local frontier (no "
+        "concurrency checks paid)",
+    "sync_text_ops_concurrent":
+        "text ops replayed with per-pair concurrency checks (the only "
+        "ops whose cost scales with divergence)",
+    # the move plane (core/moves.py)
+    "core_moves_applied":
+        "move ops admitted through the per-op interpretive path",
+    "sync_move_batches_merged":
+        "change batches admitted through the batched move plane (one "
+        "winner+cycle resolution per touched realm)",
+    "sync_move_ops_sequential":
+        "move ops from changes covering the local frontier (classified "
+        "at admission via admit_change_header)",
+    "sync_move_ops_concurrent":
+        "move ops concurrent with the local frontier (the only moves "
+        "that can conflict or cycle)",
+    "sync_move_cycles_dropped":
+        "move candidates dropped by deterministic cycle resolution "
+        "(losers become no-ops; the element falls back to its next "
+        "candidate or base position)",
 }
 GAUGES: dict[str, str] = {
+    "core_queue_depth": "causal queue depth after the latest apply batch",
+    "core_queue_bytes":
+        "approximate host bytes held by the causal queue {estimate}",
     "obs_dispatch_amplification":
         "dispatches per dirty doc over the ledger window",
     "obs_dispatch_pad_waste_pct":

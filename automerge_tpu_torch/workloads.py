@@ -528,6 +528,142 @@ def reference_diff_streams():
 # ---------------------------------------------------------------------------
 # span tables (the text-merge plane)
 
+# the text object of the bench's generated load logs (configs 6 and 10)
+TEXT_OBJ_ID = "11111111-2222-3333-4444-555555555555"
+
+
+def text_load_log(n_edits: int = 65536, seed: int = 11,
+                  variant: str = "random", actor: str = "A",
+                  with_state: bool = False):
+    """A single-actor text change log as JSON, the bench's
+    `gen_text_load_log` (configs 6 and 10) draw for draw: returns
+    (json_str, visible_len), or with `with_state` (json_str,
+    visible_elem_ids, max_elem, n_changes).
+
+    Variants: "random" (75% single-char inserts at uniform positions, 25%
+    deletes), "delete_heavy" (50/50), "paste_burst" (bursts of 2..24 chars,
+    one change a burst, 78% appended, ~17% pasted at random positions, 5%
+    range deletes). A burst's elements enter the visible index in one
+    slice, which keeps the paste_burst log at millions of characters
+    linear-ish; the output is the bench's."""
+    import json
+
+    rng = random.Random(seed)
+    tid = TEXT_OBJ_ID
+    seq: list = []
+    elem = 0
+    changes = [{"actor": actor, "seq": 1, "deps": {}, "ops": [
+        {"action": "makeText", "obj": tid},
+        {"action": "link", "obj": ROOT_ID, "key": "t", "value": tid}]}]
+    cseq = 1
+
+    def burst_ops(pos, length):
+        nonlocal elem
+        ops, eids = [], []
+        parent = seq[pos - 1] if pos else "_head"
+        for _ in range(length):
+            elem += 1
+            eid = f"{actor}:{elem}"
+            ops.append({"action": "ins", "obj": tid, "key": parent,
+                        "elem": elem})
+            ops.append({"action": "set", "obj": tid, "key": eid,
+                        "value": rng.choice("abcdefgh ")})
+            eids.append(eid)
+            parent = eid
+        seq[pos:pos] = eids
+        return ops
+
+    if variant in ("random", "delete_heavy"):
+        p_ins = 0.75 if variant == "random" else 0.5
+        for _ in range(n_edits):
+            cseq += 1
+            if rng.random() < p_ins or not seq:
+                pos = rng.randint(0, len(seq))
+                parent = seq[pos - 1] if pos else "_head"
+                elem += 1
+                eid = f"{actor}:{elem}"
+                ops = [{"action": "ins", "obj": tid, "key": parent,
+                        "elem": elem},
+                       {"action": "set", "obj": tid, "key": eid,
+                        "value": rng.choice("abcdefgh ")}]
+                seq.insert(pos, eid)
+            else:
+                eid = seq.pop(rng.randrange(len(seq)))
+                ops = [{"action": "del", "obj": tid, "key": eid}]
+            changes.append({"actor": actor, "seq": cseq, "deps": {},
+                            "ops": ops})
+    elif variant == "paste_burst":
+        edits = 0
+        while edits < n_edits:
+            cseq += 1
+            r = rng.random()
+            if r < 0.05 and seq:
+                k = min(rng.randint(1, 24), len(seq), n_edits - edits)
+                at = rng.randrange(len(seq) - k + 1)
+                ops = [{"action": "del", "obj": tid, "key": eid}
+                       for eid in seq[at:at + k]]
+                del seq[at:at + k]
+                edits += k
+            else:
+                k = min(rng.randint(2, 24), n_edits - edits)
+                pos = len(seq) if r < 0.83 else rng.randint(0, len(seq))
+                ops = burst_ops(pos, k)
+                edits += k
+            changes.append({"actor": actor, "seq": cseq, "deps": {},
+                            "ops": ops})
+    else:
+        raise ValueError(f"unknown variant {variant!r}")
+    wire = json.dumps(changes)
+    if with_state:
+        return wire, seq, elem, cseq
+    return wire, len(seq)
+
+
+def divergent_side(base_seq, base_max_elem: int, n_base_changes: int,
+                   base_actor: str, actor: str, n_char_ops: int, seed: int,
+                   burst=(8, 32), p_delete: float = 0.12):
+    """One side of a divergent text history (config 10), the bench's
+    `gen_divergent_side`: change dicts by `actor` forked off a generated
+    base document (the first depends on the base's whole clock); bursts
+    chain-insert 8..32 chars anchored at base positions, deletes remove
+    contiguous windows of base characters. Returns (changes, events), the
+    events those of divergent_side_events."""
+    rng = random.Random(seed)
+    elem = base_max_elem
+    changes, events = [], []
+    cseq = 0
+    done = 0
+    while done < n_char_ops:
+        cseq += 1
+        deps = {base_actor: n_base_changes} if cseq == 1 else {}
+        if rng.random() < p_delete and base_seq and done:
+            k = min(rng.randint(2, 16), n_char_ops - done, len(base_seq))
+            at = rng.randrange(len(base_seq) - k + 1)
+            ops = [{"action": "del", "obj": TEXT_OBJ_ID, "key": eid}
+                   for eid in base_seq[at:at + k]]
+            events.append(("del", at, k))
+            done += k
+        else:
+            k = min(rng.randint(*burst), n_char_ops - done)
+            pos = rng.randint(0, len(base_seq))
+            parent = base_seq[pos - 1] if pos else "_head"
+            head = elem + 1
+            ops = []
+            for _ in range(k):
+                elem += 1
+                eid = f"{actor}:{elem}"
+                ops.append({"action": "ins", "obj": TEXT_OBJ_ID,
+                            "key": parent, "elem": elem})
+                ops.append({"action": "set", "obj": TEXT_OBJ_ID,
+                            "key": eid, "value": "abcdefgh "[elem % 9]})
+                parent = eid
+            events.append(("ins", pos, head, k))
+            done += k
+        changes.append({"actor": actor, "seq": cseq, "deps": deps,
+                        "ops": ops})
+    return changes, events
+
+
 # config 10's sibling ranks and origin hashes of its two sides
 SPAN_ARANK = {"C": 2, "B": 1}
 SPAN_ORIGINS = {"C": 2, "B": 3}
@@ -679,6 +815,29 @@ def move_storm_ops(n_objs: int = 1600, n_moves: int = 1536,
 def storm_key(obj: int) -> str:
     """The storm's object id for object number `obj`."""
     return f"o{obj:05d}"
+
+
+def move_storm_changes(n_objs: int = 1600, n_moves: int = 1536,
+                       writers: int = 7, seed: int = 16):
+    """The storm of bench config 16(b) as changes: (base, storm). `base` is
+    one change by "A" that makes `n_objs` maps and links each under the
+    root at its own key; `storm` is one change a move (move_storm_ops),
+    writer w's seq-s change depending on the base and on w's seq s-1, so
+    every cross-writer pair is concurrent. Admitted by an OpSet, the map
+    realm it resolves is move_storm's."""
+    ops = []
+    for i in range(n_objs):
+        ops.append(Op("makeMap", storm_key(i)))
+        ops.append(Op("link", ROOT_ID, key=storm_key(i), value=storm_key(i)))
+    base = Change("A", 1, {}, ops)
+    storm = []
+    for j, (w, s, dst, m) in enumerate(
+            move_storm_ops(n_objs, n_moves, writers, seed)):
+        deps = {"A": 1, **({w: s - 1} if s > 1 else {})}
+        storm.append(Change(w, s, deps, [Op("move", storm_key(dst),
+                                            key=f"sub{j}",
+                                            value=storm_key(m))]))
+    return base, storm
 
 
 def move_storm(n_objs: int = 1600, n_moves: int = 1536, writers: int = 7,

@@ -8,8 +8,10 @@ the rows engine (`ResidentRowsDocSet.apply_round_frames`, `apply_rounds`,
 (`dispatch.resolve_moves_adaptive`), the docs-major engine
 (`ResidentDocSet.apply_and_reconcile_columns`, `apply_and_reconcile`,
 `apply_changes`, `hashes_for`, `batchdoc.apply_batch`) and its diff plane
-(`apply_and_reconcile_columns(..., diffs=True)`, `diffs.MirrorDoc`). Ingress runs the
-native C++ encoder, built with g++ at first use, unless a line says
+(`apply_and_reconcile_columns(..., diffs=True)`, `diffs.MirrorDoc`), and the
+document API with the interpretive OpSet (`api.load`, `OpSet.add_changes`,
+`ResidentRowsDocSet.materialize`, `dispatch.apply_batch_adaptive`). Ingress
+runs the native C++ encoder, built with g++ at first use, unless a line says
 native=False.
 
     python3 chip_smoke.py
@@ -131,7 +133,30 @@ Phases:
      and ghosts), an insert after a ghost rejected before admission with
      CompactionAnchorError, and an ordinary round admitted. Every engine
      state is held to the plain version (hold_to_plain); the kernels
-     line counts the phase's launches.
+     line counts the phase's launches;
+ 12. the document API and the interpretive OpSet on the card: (a) bench
+     config 16(b)'s storm (1,600 objects, 1,536 concurrent moves by 7
+     writers) through OpSet.init(device).add_changes(move_batch=True),
+     held to the same on the CPU (the plain B4) and to the per-op path
+     with the walk forced (AMTPU_MOVE_KERNEL_MIN = 2**30): parents, drops,
+     batch diffs and documents equal; the plan's estimates and the B4
+     launches; (b) the same storm a change a call at the default
+     threshold (B4 from the 64th moved node on), its state equal to (a);
+     (c) bench config 10's bulk merge: a 1M-char base by api.load (the bulk
+     loader), H1 applied, H2 (1% concurrency) merged by the span plane and
+     by the per-op path, the joined texts equal; (d) bench config 6's
+     65,536-edit text load by api.load, equal to the interpretive replay;
+     (e) ResidentRowsDocSet.materialize: 64 docs of phase 3's text fleet
+     (equal to phase 9's docs-major materialize and to a CPU rows
+     instance), 16 docs of phase 11's long-lived fleet after an archive
+     pass (archive + tail) and 16 snapshot-booted ones (image +
+     remap_tail), each equal to a replay of its full log, ms a doc; (f)
+     the batch route's host constants (the "batch_link" line), then
+     dispatch.apply_batch_adaptive on bench config 5's docset fleet (the
+     device route, hashes equal to apply_batch's) and on a batch small
+     enough to plan the host (documents equal to apply_batch's decode).
+     The kernels line adds (a) and (b)'s B4 launches and (f)'s B5 and
+     linearize launches.
 Then the kernel timings (each kernel's launches timed three ways:
 `kernel_ms` from CUDA events around a host loop of launches, the host's
 `enqueue_ms` per launch in that loop, and `graph_ms` from a replay of the
@@ -1858,7 +1883,9 @@ def drive_long_lived(torch, dev, report, n_docs=LONG_DOCS,
                      tail=LONG_TAIL, text_docs=2048):
     """Phase 11: rows-engine durability on the card. Returns the reconcile
     kernel's launches on the phase's main path (hold_to_plain's own
-    launches are not counted)."""
+    launches are not counted), and what phase 12 (e) reads of the
+    long-lived fleet: the engine after its rebuild, the snapshot store,
+    and the directory that holds them (the caller removes it)."""
     import shutil
     import tempfile
 
@@ -1880,6 +1907,7 @@ def drive_long_lived(torch, dev, report, n_docs=LONG_DOCS,
     depth = rounds * per_round
     root = tempfile.mkdtemp(prefix="amtpu-smoke-long-")
     launches = 0
+    keep = None
     try:
         archive = LogArchive(os.path.join(root, "arch"))
         store = SnapshotStore(os.path.join(root, "snap"))
@@ -1967,9 +1995,12 @@ def drive_long_lived(torch, dev, report, n_docs=LONG_DOCS,
               f"launches {n}; snapshot {snap_b} B against archive "
               f"{arch_b} B ({snap_b / arch_b:.5f}); hashes equal to the "
               f"long-lived engine's [{card()}]")
-        del ds, boot
+        keep = {"ds": ds, "store": store, "root": root, "ids": ids,
+                "writers": writers, "depth": depth, "cut": cut}
+        del boot
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        if keep is None:
+            shutil.rmtree(root, ignore_errors=True)
 
     # (e) the text fleet: compaction, the ghost-anchor reject, admission
     tids, trounds = text_fleet(n_docs=text_docs)
@@ -2029,8 +2060,432 @@ def drive_long_lived(torch, dev, report, n_docs=LONG_DOCS,
           f"hashes unchanged); the next round admitted [{card()}]")
     print(f"phase 11: launches {launches}; phase 11 took "
           f"{time.perf_counter() - t_phase:.1f} s")
-    return launches
+    return launches, keep
 
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the document API and the interpretive OpSet on the card
+
+
+def storm_state(opset) -> dict:
+    """What a resolved storm realm decides: each moved object's effective
+    parent, the realm's cycle drops, and the materialized document."""
+    from automerge_tpu_torch.core.ids import ROOT_ID
+    from automerge_tpu_torch.core.moves import _DROPS_KEY
+    from automerge_tpu_torch.engine.batchdoc import oracle_state
+    from automerge_tpu_torch.frontend.materialize import materialize_root
+    parents = {}
+    for oid in sorted(opset.moved_objs):
+        obj = opset.by_object[oid]
+        ref = obj.loc if obj.loc is not None else next(iter(obj.inbound))
+        parents[oid] = ref.obj
+    return {"parents": parents,
+            "drops": opset.by_object[ROOT_ID].moves.get(_DROPS_KEY, 0),
+            "doc": oracle_state(materialize_root("storm", opset))}
+
+
+@contextlib.contextmanager
+def recorded_move_plans():
+    """Every plan of dispatch.resolve_moves_adaptive, in order (wrapped,
+    put back after)."""
+    from automerge_tpu_torch.engine import dispatch
+    plans = []
+    real = dispatch.resolve_moves_adaptive
+
+    def rec(packed, device="cuda"):
+        plan, out = real(packed, device=device)
+        plans.append(plan)
+        return plan, out
+    dispatch.resolve_moves_adaptive = rec
+    try:
+        yield plans
+    finally:
+        dispatch.resolve_moves_adaptive = real
+
+
+@contextlib.contextmanager
+def kernel_min(value):
+    """AMTPU_MOVE_KERNEL_MIN set to `value`, restored after."""
+    old = os.environ.get("AMTPU_MOVE_KERNEL_MIN")
+    os.environ["AMTPU_MOVE_KERNEL_MIN"] = str(value)
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("AMTPU_MOVE_KERNEL_MIN", None)
+        else:
+            os.environ["AMTPU_MOVE_KERNEL_MIN"] = old
+
+
+def drive_storm_opset(torch, dev, report, n_objs=1600, n_moves=1536):
+    """Phase 12 (a) and (b): bench config 16(b)'s storm (1,600 objects,
+    1,536 concurrent moves by 7 writers) through the OpSet on the card:
+    (a) one add_changes(move_batch=True), held to the same on the CPU (the
+    plain B4) and to the per-op path with the walk forced; (b) the per-op
+    path at the default threshold, a change a call. Returns the B4
+    launches of (a) and (b)."""
+    import numpy as np
+    from automerge_tpu_torch.core.moves import (MOVE_KERNEL_MIN_NODES,
+                                                _build_map_problem)
+    from automerge_tpu_torch.core.opset import OpSet
+    from automerge_tpu_torch.engine import cuda_kernels as ck
+    from automerge_tpu_torch.engine.move_kernels import (resolve_moves,
+                                                         resolve_moves_plain)
+    from automerge_tpu_torch.engine.pack import pack_moves
+    from automerge_tpu_torch.workloads import move_storm_changes
+
+    base, storm = move_storm_changes(n_objs, n_moves)
+    card0, _ = OpSet.init(dev).add_changes([base])
+    cpu0, _ = OpSet.init("cpu").add_changes([base])
+    with recorded_move_plans() as plans:
+        ck.LAUNCHES["resolve_moves"] = 0
+        t0 = time.perf_counter()
+        dev_set, card_diffs = card0.add_changes(storm, move_batch=True)
+        wall_a = time.perf_counter() - t0
+        n_a = ck.LAUNCHES["resolve_moves"]
+    check(n_a > 0, "storm realm: the OpSet did not launch B4")
+    check(card_diffs and all(d["action"] == "batch" for d in card_diffs),
+          "storm realm: the batch did not take the move plane")
+    plan = plans[-1]
+    check(plan.backend == "device", "storm realm: the plan took the host")
+    t0 = time.perf_counter()
+    cpu, cpu_diffs = cpu0.add_changes(storm, move_batch=True)
+    cpu_s = time.perf_counter() - t0
+    want = storm_state(dev_set)
+    check(cpu_diffs == card_diffs, "storm realm: card diffs != CPU diffs")
+    check(storm_state(cpu) == want, "storm realm: card state != CPU state")
+    with kernel_min(1 << 30):
+        t0 = time.perf_counter()
+        walk = card0
+        for c in storm:
+            walk, _ = walk.add_changes([c])
+        walk_s = time.perf_counter() - t0
+    check(storm_state(walk) == want,
+          "storm realm: card state != the per-op walk's")
+    # B4 against its plain version on the realm the batch resolved
+    packed = pack_moves([_build_map_problem(dev_set.thaw())])
+    nodes = torch.from_numpy(np.ascontiguousarray(packed["nodes"])).to(dev)
+    cands = torch.from_numpy(np.ascontiguousarray(packed["cands"])).to(dev)
+    got = resolve_moves(nodes, cands)
+    ref = resolve_moves_plain(nodes.cpu(), cands.cpu())
+    err = max(max_abs_err(got[k].cpu().numpy(), ref[k].numpy())
+              for k in ref)
+    report["resolve_moves"].append(err)
+    check(err == 0, "storm realm: B4 != plain version")
+    print(f"phase 12: (a) storm realm ({len(storm)} moves of "
+          f"{len(dev_set.moved_objs)} objects by 7 writers) through "
+          f"OpSet.add_changes(move_batch=True) on the card {wall_a:.4f} s "
+          f"(plan {plan.backend}: est_device_s {plan.est_device_s:.3e}, "
+          f"est_host_s {plan.est_host_s:.3e}; nodes {tuple(nodes.shape)}, "
+          f"cands {tuple(cands.shape)}); B4 launches {n_a}; on the CPU "
+          f"(plain B4) {cpu_s:.4f} s; per-op with the walk forced "
+          f"{walk_s:.3f} s; parents, drops ({want['drops']}), batch diffs "
+          f"({len(card_diffs)}) and documents equal; B4 on this realm "
+          f"equal to the plain version [{card()}]")
+    ck.LAUNCHES["resolve_moves"] = 0
+    t0 = time.perf_counter()
+    per = card0
+    for c in storm:
+        per, _ = per.add_changes([c])
+    wall_b = time.perf_counter() - t0
+    n_b = ck.LAUNCHES["resolve_moves"]
+    check(n_b > 0, "per-op storm: no change launched B4")
+    check(storm_state(per) == want, "per-op storm: state != (a)")
+    print(f"phase 12: (b) the same storm a change a call "
+          f"(add_changes([c]), threshold {MOVE_KERNEL_MIN_NODES} moved "
+          f"nodes) {wall_b:.3f} s, {1e3 * wall_b / len(storm):.3f} ms a "
+          f"change; B4 launches {n_b} (changes from the "
+          f"{MOVE_KERNEL_MIN_NODES}th moved node on: "
+          f"{len(storm) - MOVE_KERNEL_MIN_NODES + 1}); state equal to (a) "
+          f"[{card()}]")
+    return n_a + n_b
+
+
+def drive_text_api(dev, base_chars=1_000_000, load_edits=65536):
+    """Phase 12 (c) and (d): bench config 10's bulk merge (a 1M-char base
+    by api.load, H1 applied, H2 merged by the span plane and by the
+    per-op path) and bench config 6's text load (65,536 edits by api.load,
+    held to the interpretive replay)."""
+    import json
+
+    from automerge_tpu_torch import api
+    from automerge_tpu_torch.core import bulkload
+    from automerge_tpu_torch.core.change import coerce_change
+    from automerge_tpu_torch.frontend.materialize import apply_changes_to_doc
+    from automerge_tpu_torch.utils import metrics
+    from automerge_tpu_torch.workloads import (SPAN_ARANK, SPAN_ORIGINS,
+                                               divergent_side,
+                                               merge_table_from_events,
+                                               text_load_log)
+
+    builds = []
+    real_build = bulkload.build_opset
+
+    def counted_build(cols, device="cuda"):
+        builds.append(device)
+        return real_build(cols, device)
+    bulkload.build_opset = counted_build
+    try:
+        t0 = time.perf_counter()
+        wire, seq, mx, nb = text_load_log(int(base_chars / 0.85), seed=31,
+                                          variant="paste_burst",
+                                          with_state=True)
+        n_side = int(round(len(seq) * 0.01))
+        h1, ev1 = divergent_side(seq, mx, nb, "A", "C", n_side, seed=21)
+        h2, ev2 = divergent_side(seq, mx, nb, "A", "B", n_side, seed=22)
+        h1c = [coerce_change(c) for c in h1]
+        h2c = [coerce_change(c) for c in h2]
+        gen_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        doc = api.load(wire, device=dev)
+        load_s = time.perf_counter() - t0
+        check(len(builds) == 1 and len(doc["t"]) == len(seq),
+              "bulk merge: the base did not load through the bulk loader")
+        t0 = time.perf_counter()
+        doc1 = apply_changes_to_doc(doc, doc._doc.opset, h1c,
+                                    incremental=True)
+        h1_s = time.perf_counter() - t0
+        merged0 = metrics.snapshot().get("sync_text_batches_merged", 0)
+        t0 = time.perf_counter()
+        span = apply_changes_to_doc(doc1, doc1._doc.opset, h2c,
+                                    incremental=True)
+        span_s = time.perf_counter() - t0
+        check(metrics.snapshot().get("sync_text_batches_merged", 0)
+              > merged0, "bulk merge: H2 did not take the span plane")
+        t0 = time.perf_counter()
+        perop = apply_changes_to_doc(doc1, doc1._doc.opset, h2c,
+                                     incremental=True, text_batch=False)
+        perop_s = time.perf_counter() - t0
+        joined = span["t"].join()
+        _r, _b, _c, expected = merge_table_from_events(
+            len(seq), {"C": ev1, "B": ev2}, SPAN_ARANK, SPAN_ORIGINS)
+        check(joined == perop["t"].join() and len(joined) == expected,
+              "bulk merge: span plane != per-op path")
+        print(f"phase 12: (c) bulk merge (bench config 10): base "
+              f"{len(seq)} chars ({nb} changes) generated with both sides "
+              f"({n_side} char ops a side) in {gen_s:.2f} s; api.load "
+              f"(bulk) {load_s:.3f} s; H1 applied {h1_s:.3f} s; H2 merged "
+              f"by the span plane {span_s:.3f} s, by the per-op path "
+              f"{perop_s:.3f} s; joined texts equal ({len(joined)} chars) "
+              f"[{card()}]")
+        del doc, doc1, span, perop
+        full, vis = text_load_log(load_edits)
+        builds.clear()
+        t0 = time.perf_counter()
+        loaded = api.load(full, device=dev)
+        load6_s = time.perf_counter() - t0
+        check(len(builds) == 1 and len(loaded["t"]) == vis,
+              "text load: not through the bulk loader")
+        t0 = time.perf_counter()
+        ref = api.init("replay", dev)
+        ref = apply_changes_to_doc(ref, ref._doc.opset,
+                                   [coerce_change(c)
+                                    for c in json.loads(full)],
+                                   incremental=False)
+        replay_s = time.perf_counter() - t0
+        check(api.equals(loaded, ref), "text load: bulk != interpretive")
+        print(f"phase 12: (d) text load (bench config 6, {load_edits:,} edits, "
+              f"{vis} chars): api.load (bulk) {load6_s:.3f} s; the "
+              f"interpretive replay (incremental=False) {replay_s:.3f} s; "
+              f"api.equals [{card()}]")
+    finally:
+        bulkload.build_opset = real_build
+
+
+def replay_state(changes, dev) -> dict:
+    """A whole log replayed through the interpretive frontend on `dev`, as
+    oracle_state."""
+    from automerge_tpu_torch import api
+    from automerge_tpu_torch.engine.batchdoc import oracle_state
+    from automerge_tpu_torch.frontend.materialize import apply_changes_to_doc
+    doc = api.init("replay", dev)
+    return oracle_state(apply_changes_to_doc(
+        doc, doc._doc.opset, changes, incremental=False, emit_diffs=False))
+
+
+def drive_materialize(dev, text_ds, docs_ds, long_keep, n_text=64,
+                      n_long=16, fleet=None):
+    """Phase 12 (e): ResidentRowsDocSet.materialize on the card: 64 docs of
+    phase 3's text fleet (equal to phase 9's docs-major materialize and to
+    a CPU rows instance of the same streams), 16 long-lived docs of phase
+    11 after an archive pass (archive + tail) and 16 snapshot-booted ones
+    (image + remap_tail), each equal to a replay of its full log."""
+    from automerge_tpu_torch.engine.resident_rows import ResidentRowsDocSet
+    from automerge_tpu_torch.sync.frames import encode_round_frame
+    from automerge_tpu_torch.workloads import long_lived_changes, text_fleet
+
+    tids, trounds = fleet or text_fleet()
+    sub = tids[:n_text]
+    t0 = time.perf_counter()
+    got = {d: text_ds.materialize(d) for d in sub}
+    text_ms = 1e3 * (time.perf_counter() - t0) / len(sub)
+    cpu = ResidentRowsDocSet(sub, device="cpu")
+    cpu.apply_rounds([{d: r[d] for d in sub if d in r} for r in trounds])
+    for d in sub:
+        check(got[d] == docs_ds.materialize(d) == cpu.materialize(d),
+              f"text fleet: materialize of {d} differs")
+    ds, store, ids = long_keep["ds"], long_keep["store"], long_keep["ids"]
+    depth, cut = long_keep["depth"], long_keep["cut"]
+    arch = ids[:n_long]
+    for i, d in enumerate(arch):
+        w = f"w{i % 4:02d}"
+        ds.archive_log_prefix(d, {w: depth - 50})
+        check(ds.log_horizon[i] and 0 < len(ds.change_log[i]) < depth,
+              f"long-lived: {d} has no archive + tail split")
+    t0 = time.perf_counter()
+    got = [ds.materialize(d) for d in arch]
+    arch_ms = 1e3 * (time.perf_counter() - t0) / len(arch)
+    for j, state in enumerate(got):
+        check(state == replay_state(long_lived_changes(j, 1, depth), dev),
+              f"long-lived: materialize of {arch[j]} != its full log")
+    booted = ids[n_long:2 * n_long]
+    boot = ResidentRowsDocSet(booted, actors=long_keep["writers"],
+                              device=dev)
+    boot.snapshot_store = store
+    images = {d: store.load(d) for d in booted}
+    boot.apply_rounds([{d: img.columns().to_changes()
+                        for d, img in images.items()}])
+    for i, (d, img) in enumerate(images.items()):
+        boot.seed_clock(d, img.clock, img.heads)
+        boot.change_log[i] = []
+        boot.log_horizon[i] = dict(img.clock)
+    boot.apply_round_frames([encode_round_frame(
+        {d: long_lived_changes(n_long + i, cut + 1, depth)
+         for i, d in enumerate(booted)})])
+    t0 = time.perf_counter()
+    got = [boot.materialize(d) for d in booted]
+    boot_ms = 1e3 * (time.perf_counter() - t0) / len(booted)
+    for i, state in enumerate(got):
+        # doc j's image was written from writer j % 4's first `cut` changes
+        check(state == replay_state(
+            long_lived_changes(n_long + i, 1, depth), dev),
+            f"snapshot-booted: materialize of {booted[i]} != its full log")
+    print(f"phase 12: (e) rows materialize on the card: text fleet "
+          f"{len(sub)} docs {text_ms:.3f} ms a doc (equal to the docs-major "
+          f"materialize and to a CPU rows instance); long-lived after an "
+          f"archive pass (archive + 50-change tail, {depth} changes a "
+          f"doc) {len(arch)} docs {arch_ms:.3f} ms a doc; snapshot-booted "
+          f"(image of {cut} changes + remap_tail) {len(booted)} docs "
+          f"{boot_ms:.3f} ms a doc; each equal to a replay of its full log "
+          f"[{card()}]")
+
+
+def measure_batch_constants(dev, ids, initial) -> dict:
+    """The batch route's host constants on this machine (dispatch._LINK's
+    host_op_s, bulk_op_s, bulk_fixed_s): apply_host's no-diff apply +
+    materialize over 2,000 docs of the docset fleet, seconds an op; the
+    bulk build from in-memory changes (changes_to_columns included) of
+    bench config 6's log at 24,576 and 49,152 edits, a fixed part and a
+    part an op."""
+    import json
+
+    from automerge_tpu_torch.core.bulkload import try_bulk_build
+    from automerge_tpu_torch.core.change import Change
+    from automerge_tpu_torch.engine.dispatch import apply_host
+    from automerge_tpu_torch.native.wire import changes_to_columns
+    from automerge_tpu_torch.workloads import text_load_log
+
+    docs = [initial[d] for d in ids[:2000]]
+    n_ops = sum(len(c.ops) for chs in docs for c in chs)
+    t0 = time.perf_counter()
+    for chs in docs:
+        apply_host(chs, device=dev)
+    host_op = (time.perf_counter() - t0) / n_ops
+    points = []
+    for n in (24576, 49152):
+        chs = [Change.from_dict(c)
+               for c in json.loads(text_load_log(n)[0])]
+        ops = sum(len(c.ops) for c in chs)
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            check(try_bulk_build(changes_to_columns(chs), dev) is not None,
+                  "bulk build fell back")
+            walls.append(time.perf_counter() - t0)
+        points.append((ops, p50(walls)))
+    (o1, t1), (o2, t2) = points
+    bulk_op = (t2 - t1) / (o2 - o1)
+    out = {"host_op_s": host_op, "bulk_op_s": bulk_op,
+           "bulk_fixed_s": max(t1 - o1 * bulk_op, 1e-6)}
+    print(f"phase 12: (f) batch route host legs: apply_host of "
+          f"{len(docs)} docset-fleet docs ({n_ops} ops) "
+          f"{host_op * n_ops:.4f} s; bulk build of {o1} ops "
+          f"{t1:.4f} s, of {o2} ops {t2:.4f} s [{card()}]")
+    print("batch_link " + json.dumps(out))
+    return out
+
+
+def drive_batch_route(torch, dev, n_docs=10_000):
+    """Phase 12 (f): dispatch.apply_batch_adaptive on bench config 5's
+    docset fleet (10,000 docs x 3 changes; the device route, its hashes
+    equal to apply_batch's) and on a batch small enough to plan the host
+    (its documents equal to apply_batch's decode). Returns the launches
+    of dominated and linearize on the device route."""
+    from automerge_tpu_torch.core.change import Change, Op
+    from automerge_tpu_torch.core.ids import ROOT_ID
+    from automerge_tpu_torch.engine import cuda_kernels as ck
+    from automerge_tpu_torch.engine import dispatch
+    from automerge_tpu_torch.engine.batchdoc import (apply_batch, decode_doc,
+                                                     doc_outputs,
+                                                     oracle_state)
+    from automerge_tpu_torch.workloads import docset_fleet
+
+    ids, initial, _ = docset_fleet(n_docs=n_docs, rounds=0)
+    measure_batch_constants(dev, ids, initial)
+    batch = [initial[d] for d in ids]
+    ck.LAUNCHES["dominated"] = ck.LAUNCHES["linearize"] = 0
+    t0 = time.perf_counter()
+    plan, hashes = dispatch.apply_batch_adaptive(batch, device=dev)
+    wall = time.perf_counter() - t0
+    n_dom, n_lin = ck.LAUNCHES["dominated"], ck.LAUNCHES["linearize"]
+    check(plan.backend == "device" and n_dom > 0,
+          "docset fleet: the batch route did not take the card")
+    _e, _b, out = apply_batch(batch, device=dev)
+    check((hashes == ck.hashes_to_numpy(out["hash"])).all(),
+          "docset fleet: the route's hashes != apply_batch's")
+    small = None
+    for k in (8, 4, 2, 1):
+        cand = batch[:k]
+        if dispatch.plan_for(cand).backend == "host":
+            small = cand
+            break
+    if small is None:
+        small = [[Change("A", 1, {}, [Op("set", ROOT_ID, key="n",
+                                         value=0)])]]
+    t0 = time.perf_counter()
+    hplan, docs = dispatch.apply_batch_adaptive(small, device=dev)
+    hwall = time.perf_counter() - t0
+    check(hplan.backend == "host", "no batch planned the host")
+    encs, _b, out = apply_batch(small, device=dev)
+    for i, doc in enumerate(docs):
+        check(oracle_state(doc) == decode_doc(encs[i], doc_outputs(out, i)),
+              "host route: a document != apply_batch's decode")
+    print(f"phase 12: (f) apply_batch_adaptive: docset fleet {len(batch)} "
+          f"docs plan {plan.backend} (est_device_s {plan.est_device_s:.3e}, "
+          f"est_host_s {plan.est_host_s:.3e}) {wall:.3f} s, hashes equal "
+          f"to apply_batch's, launches dominated {n_dom} linearize {n_lin};"
+          f" {len(small)} docs ({sum(len(c.ops) for chs in small for c in chs)}"
+          f" ops) plan {hplan.backend} (est_device_s "
+          f"{hplan.est_device_s:.3e}, est_host_s {hplan.est_host_s:.3e}) "
+          f"{hwall:.4f} s, documents equal to apply_batch's decode "
+          f"[{card()}]")
+    return n_dom, n_lin
+
+
+def drive_api(torch, dev, report, text_ds, docs_ds, long_keep):
+    """Phase 12: the document API and the interpretive OpSet on the card.
+    Returns the launches of B4 ((a) and (b)) and of dominated and
+    linearize ((f))."""
+    t_phase = time.perf_counter()
+    n_b4 = drive_storm_opset(torch, dev, report)
+    drive_text_api(dev)
+    drive_materialize(dev, text_ds, docs_ds, long_keep)
+    n_dom, n_lin = drive_batch_route(torch, dev)
+    print(f"phase 12: launches resolve_moves {n_b4}, dominated {n_dom}, "
+          f"linearize {n_lin}; phase 12 took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return n_b4, n_dom, n_lin
 
 def time_docs_round(torch, ds):
     """Device milliseconds of one full apply_doc over the text fleet's
@@ -2383,7 +2838,14 @@ def main() -> int:
     docset_ds, docs_ds, docs_launches, lin9, fleets = drive_docs_major(
         torch, dev, report, text_final)
     lin10 = drive_diff_plane(torch, dev, fleets)
-    long_launches = drive_long_lived(torch, dev, report)
+    long_launches, long_keep = drive_long_lived(torch, dev, report)
+    try:
+        api_b4, api_dom, api_lin = drive_api(torch, dev, report, text_ds,
+                                             docs_ds, long_keep)
+    finally:
+        import shutil
+        shutil.rmtree(long_keep["root"], ignore_errors=True)
+        del long_keep
 
     rows_times = time_kernel(torch, map_ds, "map storm")
     time_kernel(torch, text_ds, "text fleet")
@@ -2403,7 +2865,8 @@ def main() -> int:
           f"move plane {move_launches}; docs-major engine {docs_launches} "
           f"(dominated); linearize {lin9} (phase 9) + {lin10} (phase 10, "
           f"the diff plane); rows engine durability {long_launches} "
-          f"(phase 11)")
+          f"(phase 11); the document API and the OpSet: resolve_moves "
+          f"{api_b4}, dominated {api_dom}, linearize {api_lin} (phase 12)")
     print(json.dumps({"kernels": [
         kernel_entry("reconcile_rows_hash",
                      "automerge_tpu_torch/csrc/reconcile_rows.cu",
@@ -2418,17 +2881,19 @@ def main() -> int:
         kernel_entry("resolve_moves",
                      "automerge_tpu_torch/csrc/move_round.cu",
                      "automerge_tpu/engine/move_kernels.py:319",
-                     move_launches, report["resolve_moves"],
+                     move_launches + api_b4, report["resolve_moves"],
                      move_times["realm fleet"]),
         kernel_entry("dominated",
                      "automerge_tpu_torch/csrc/dominated.cu",
                      "automerge_tpu/engine/pallas_kernels.py:578",
-                     docs_launches, report["dominated"], dom_times),
+                     docs_launches + api_dom, report["dominated"],
+                     dom_times),
         kernel_entry("linearize",
                      "automerge_tpu_torch/csrc/linearize.cu",
                      "automerge_tpu/engine/kernels.py:102-137 (plain XLA, "
                      "no Pallas kernel)",
-                     lin9 + lin10, report["linearize"], lin_times)],
+                     lin9 + lin10 + api_lin, report["linearize"],
+                     lin_times)],
         "mega": mega.as_dict()}))
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print(card())

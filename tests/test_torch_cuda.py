@@ -494,3 +494,92 @@ def test_rebuild_on_the_card_stays_on_the_card(cuda_device, monkeypatch):
             assert ds.rows_dev is not None and ds.rows_dev.is_cuda
         out[str(dev)] = ds.hashes()
     np.testing.assert_array_equal(out[str(cuda_device)], out["cpu"])
+
+
+def _storm_state(opset):
+    from automerge_tpu_torch.engine.batchdoc import oracle_state
+    from automerge_tpu_torch.frontend.materialize import materialize_root
+    parents = {}
+    for oid in sorted(opset.moved_objs):
+        obj = opset.by_object[oid]
+        ref = obj.loc if obj.loc is not None else next(iter(obj.inbound))
+        parents[oid] = ref.obj
+    return parents, oracle_state(materialize_root("s", opset))
+
+
+@pytest.mark.cuda
+def test_storm_realm_through_the_opset_on_the_card_equals_the_cpu(
+        cuda_device):
+    """An OpSet on the card resolves a storm realm of >= 64 moved nodes
+    through B4 (its launch counter moves), in one batch and a change a
+    call, to the CPU OpSet's state and diffs."""
+    from automerge_tpu_torch.core.opset import OpSet
+    from automerge_tpu_torch.workloads import move_storm_changes
+    base, storm = move_storm_changes(n_objs=200, n_moves=150)
+    out = {}
+    for dev in (cuda_device, "cpu"):
+        o0, _ = OpSet.init(dev).add_changes([base])
+        assert o0.device == torch.device(dev)
+        before = cuda_kernels.LAUNCHES["resolve_moves"]
+        batched, diffs = o0.add_changes(storm, move_batch=True)
+        per = o0
+        for c in storm:
+            per, _ = per.add_changes([c])
+        launched = cuda_kernels.LAUNCHES["resolve_moves"] - before
+        if dev != "cpu":
+            # one for the batch, one a change from the 64th moved node on
+            assert launched == 1 + len(storm) - 63
+        else:
+            assert launched == 0
+        assert _storm_state(per) == _storm_state(batched)
+        out[str(dev)] = (diffs, _storm_state(batched))
+    assert out[str(cuda_device)] == out["cpu"]
+
+
+@pytest.mark.cuda
+def test_rows_materialize_on_the_card_equals_the_cpu(cuda_device):
+    from automerge_tpu_torch import api
+    from automerge_tpu_torch.workloads import text_fleet
+    ids, rounds = text_fleet(n_docs=16)
+    got = {}
+    for dev in (cuda_device, "cpu"):
+        ds = ResidentRowsDocSet(ids, device=dev)
+        ds.apply_rounds(rounds)
+        got[str(dev)] = [ds.materialize(d) for d in ids]
+    assert got[str(cuda_device)] == got["cpu"]
+    assert api.init("x", device=cuda_device)._doc.opset.device.type == "cuda"
+
+
+@pytest.mark.cuda
+def test_apply_batch_adaptive_routes_decode_equal_on_the_card(
+        cuda_device, monkeypatch):
+    """On the same batch, the device route (the host priced up) and the
+    host route (the card's fixed cost priced up) decode to the same
+    states."""
+    from automerge_tpu_torch.engine import dispatch
+    from automerge_tpu_torch.engine.batchdoc import (apply_batch, decode_doc,
+                                                     doc_outputs,
+                                                     oracle_state)
+    from automerge_tpu_torch.workloads import docset_fleet
+    ids, initial, _ = docset_fleet(n_docs=64, rounds=0)
+    batch = [initial[d] for d in ids]
+    saved = dict(dispatch._LINK)
+    try:
+        dispatch.calibrate(host_op_s=1.0)
+        before = cuda_kernels.LAUNCHES["dominated"]
+        plan, hashes = dispatch.apply_batch_adaptive(batch,
+                                                     device=cuda_device)
+        assert plan.backend == "device"
+        assert cuda_kernels.LAUNCHES["dominated"] == before + 1
+        dispatch._LINK.update(saved)
+        dispatch.calibrate(dispatch_fixed_s=10.0)
+        plan, docs = dispatch.apply_batch_adaptive(batch,
+                                                   device=cuda_device)
+        assert plan.backend == "host"
+    finally:
+        dispatch._LINK.clear()
+        dispatch._LINK.update(saved)
+    encs, _b, out = apply_batch(batch, device=cuda_device)
+    assert hashes.tolist() == hashes_to_numpy(out["hash"]).tolist()
+    assert [oracle_state(d) for d in docs] == \
+        [decode_doc(encs[i], doc_outputs(out, i)) for i in range(len(ids))]

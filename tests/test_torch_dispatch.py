@@ -77,9 +77,10 @@ def test_calibrate_rejects_unknown_keys_and_keeps_known_ones(costs):
     with pytest.raises(KeyError):
         dispatch.calibrate(tunnel_s=1.0)
     with pytest.raises(KeyError):
-        dispatch.calibrate(span_op_s=1.0, bulk_op_s=1.0)
-    dispatch.calibrate(span_op_s=3)
+        dispatch.calibrate(span_op_s=1.0, bulk_op_ms=1.0)
+    dispatch.calibrate(span_op_s=3, bulk_op_s=2)
     assert dispatch._LINK["span_op_s"] == 3.0
+    assert dispatch._LINK["bulk_op_s"] == 2.0
 
 
 @pytest.mark.parametrize("plane", ["spans", "moves"])

@@ -32,7 +32,13 @@ def test_every_module_imports_with_jax_and_reference_blocked():
               "utils.gcpause", "storage", "linearize_schedule",
               "move_schedule", "compare_kernels", "engine.dispatchledger",
               "utils.metrics", "engine.compaction", "sync.logarchive",
-              "sync.snapshots", "utils.lockprof", "utils.chaos"):
+              "sync.snapshots", "utils.lockprof", "utils.chaos", "api",
+              "core.opset", "core.clock", "core.elems", "core.bulkload",
+              "frontend.context", "frontend.proxies", "frontend.array_ops",
+              "frontend.text", "frontend.cursors", "frontend.snapshots",
+              "frontend.materialize", "frontend.immutable_view",
+              "sync.docset", "sync.watchable", "utils.persist",
+              "utils.uuid"):
         assert f"automerge_tpu_torch.{m}" in mods, m
     code = "\n".join([
         "import importlib, sys",
@@ -78,6 +84,14 @@ def test_every_module_imports_with_jax_and_reference_blocked():
         "merge_spans_adaptive(span_fleet(n_docs=3)[0], device='cpu')",
         "resolve_moves_adaptive(pack_moves([move_storm(n_objs=90, "
         "n_moves=80)]), device='cpu')",
+        "from automerge_tpu_torch import api",
+        "a = api.init('A', device='cpu')",
+        "a = api.change(a, lambda d: d.__setitem__('k', [1, 2]))",
+        "b = api.change(api.merge(api.init('B', device='cpu'), a),",
+        "               lambda d: d['k'].append(3))",
+        "m = api.merge(a, b)",
+        "assert api.inspect(api.load(api.save(m), device='cpu')) == "
+        "{'k': [1, 2, 3]}",
         "print('ok')",
     ])
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -102,12 +116,18 @@ def test_default_device_without_a_card_raises():
     if torch.cuda.is_available():
         assert resolve_device().type == "cuda"
         return
+    from automerge_tpu_torch import api
+    from automerge_tpu_torch.core.opset import OpSet
     for make in (lambda: ResidentRowsDocSet(["a"]),
                  lambda: ResidentRowsDocSet(["a"], device="cuda:0"),
-                 resolve_device):
+                 resolve_device, api.init, lambda: api.init("A"),
+                 api.init_immutable, OpSet.init,
+                 lambda: api.load(api.save(api.init("A", device="cpu")))):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
     assert ResidentRowsDocSet(["a"], device="cpu").device.type == "cpu"
+    assert api.init("A", device="cpu")._doc.opset.device.type == "cpu"
+    assert OpSet.init("cpu").device.type == "cpu"
 
 
 def test_docs_major_entry_points_default_to_the_card():
