@@ -13,8 +13,7 @@ device (`init`, `init_immutable`, `load`, `load_immutable` take `device=`,
 default the card; "cpu" runs without one): its OpSet resolves move realms
 there (core/moves.py). `merge`, `apply_changes`, `change` and the rest keep
 the local document's device. Left out: `save_transit` / `load_transit`
-(they come with `interop/transit.py`) and the trace plane's hand-off in
-`_apply_new_change` (`utils/tracer.py`, which comes with the sync service).
+(they come with `interop/transit.py`).
 """
 
 from __future__ import annotations
@@ -32,6 +31,7 @@ from .frontend.materialize import apply_changes_to_doc, materialize_root
 from .frontend.proxies import ListProxy, MapProxy, root_proxy
 from .frontend.snapshots import DocState, FrozenList, FrozenMap, RootMap
 from .frontend.text import Text
+from .utils import tracer
 from .utils.uuid import make_uuid
 
 SAVE_FORMAT_VERSION = 1
@@ -74,12 +74,19 @@ def load_immutable(data: str, actor_id: str | None = None, device="cuda"):
 
 def _apply_new_change(doc, opset: OpSet, ops, message: str | None) -> RootMap:
     """Stamp actor/seq/deps on a fresh change and apply it
-    (auto_api.js:28-39)."""
+    (auto_api.js:28-39). The trace plane's lifecycle starts here: a
+    deterministically sampled (actor, seq) gets a trace context whose
+    finalize span covers change construction + the local apply
+    (utils/tracer.py; one check when AMTPU_TRACE_SAMPLE is unset)."""
     actor = doc._doc.actor_id
     seq = opset.clock.get(actor, 0) + 1
+    tr = tracer.finalize_begin(actor, seq)
     deps = {a: s for a, s in opset.deps.items() if a != actor}
     change = Change(actor, seq, deps, ops, message)
-    return apply_changes_to_doc(doc, opset, [change], incremental=True)
+    out = apply_changes_to_doc(doc, opset, [change], incremental=True)
+    if tr is not None:
+        tracer.finalize_end(tr)
+    return out
 
 
 def _make_change(doc, ctx_local, ctx_undo_local, message: str | None) -> RootMap:

@@ -23,10 +23,9 @@ Device: `OpSet.init(device=...)` resolves the device once (`device.py`: the
 card unless the caller passes "cpu", raising without one); every OpSet
 derived from it and every Builder thawed from those carries it, and each
 move realm resolution runs on it (core/moves.py: the packed route is the
-B4 kernel on the card, its plain version on the CPU). The reference's
-op-lifecycle hand-offs (`utils/oplag.py`: `queue_admitted` at a change's
-admission, `queue_park_batch` when a batch leaves changes queued) are not
-here: that module comes with the sync service.
+B4 kernel on the card, its plain version on the CPU). The op-lifecycle
+plane (`utils/oplag.py`) hears of a change's admission (`queue_admitted`)
+and of a batch that leaves changes queued (`queue_park_batch`).
 
 Persistence model: `OpSet` instances are immutable. Mutation happens through a
 `Builder` that shallow-copies the top-level containers once per *batch* of
@@ -40,7 +39,7 @@ from __future__ import annotations
 from typing import Any, Iterator
 
 from ..device import resolve_device
-from ..utils import metrics
+from ..utils import metrics, oplag
 from ..utils.persist import AList, CowDict, EMPTY_ALIST
 from .change import Change, Op
 from .ids import HEAD, ROOT_ID, make_elem_id, parse_elem_id
@@ -755,6 +754,9 @@ def admit_change_header(b: Builder, change: Change) -> dict | None:
     b.history = b.history.append(change)
     metrics.bump("core_changes_applied")
     metrics.bump("core_ops_applied", len(change.ops))
+    # op-lifecycle plane: a change that sat causally-unready in the
+    # queue records its dependency-wait here (no-op unless it was parked)
+    oplag.queue_admitted(actor, seq)
     return all_deps
 
 
@@ -944,6 +946,9 @@ class OpSet:
                     rebuild_elem_ids(obj, state=b)
             b._deferred_seqs.clear()
         _queue_gauges(b)
+        # op-lifecycle plane: mark when parking began (1/N hash-sampled)
+        if b.queue:
+            oplag.queue_park_batch([(c.actor, c.seq) for c in b.queue])
         return self.freeze(b), diffs
 
     # -- change-graph queries (op_set.js:299-330) ---------------------------

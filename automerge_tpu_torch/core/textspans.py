@@ -48,15 +48,13 @@ batched merge-order sort and the B3 rank+hash kernel) lives in
 engine/span_kernels.py; `try_apply_text_batch` places spans on the host,
 as the reference does.
 
-This is the port's copy of `automerge_tpu/core/textspans.py`. The
-reference times the placement loop under `perfscope.phase("span_merge")`;
-that hand-off is left out here (`utils/perfscope.py` comes with the sync
-service's observability).
+This is the port's copy of `automerge_tpu/core/textspans.py`; the
+placement loop is timed under `perfscope.phase("span_merge")`.
 """
 
 from __future__ import annotations
 
-from ..utils import metrics
+from ..utils import metrics, perfscope
 from .change import Change
 from .elems import CHUNK
 from .ids import HEAD, make_elem_id
@@ -306,10 +304,11 @@ def try_apply_text_batch(b: Builder, changes: list) -> list[dict] | None:
 
     diffs: list[dict] = []
     spans = 0
-    for oid, ob in per_obj.items():
-        spans += _place_object(b, oid, ob)
-        diffs.append({"action": "batch", "type": "text", "obj": oid,
-                      "path": get_path(b, oid)})
+    with perfscope.phase("span_merge"):
+        for oid, ob in per_obj.items():
+            spans += _place_object(b, oid, ob)
+            diffs.append({"action": "batch", "type": "text", "obj": oid,
+                          "path": get_path(b, oid)})
 
     metrics.bump("sync_text_batches_merged")
     metrics.bump("sync_text_spans_spliced", spans)

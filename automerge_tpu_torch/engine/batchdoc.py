@@ -20,6 +20,7 @@ import torch
 
 from ..core.change import Change
 from ..device import resolve_device
+from ..utils import metrics
 from .encode import (A_MAKE_MAP, A_MAKE_TEXT, DocEncoding, LOC_KEY_PREFIX,
                      encode_doc, stack_docs)
 from .cuda_kernels import hashes_to_numpy
@@ -38,11 +39,15 @@ def apply_batch(doc_changes: list[list[Change]],
     dev = resolve_device(device)
     if actors is None:
         actors = sorted({c.actor for changes in doc_changes for c in changes})
-    encodings = [encode_doc(changes, actors) for changes in doc_changes]
-    batch = stack_docs(encodings)
-    max_fids = batch.pop("max_fids")
-    arrays = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
-    out = apply_doc(arrays, max_fids, host_order=True)
+    with metrics.trace("engine_reconcile"):
+        encodings = [encode_doc(changes, actors) for changes in doc_changes]
+        batch = stack_docs(encodings)
+        max_fids = batch.pop("max_fids")
+        arrays = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        out = apply_doc(arrays, max_fids, host_order=True)
+    metrics.bump("engine_docs_reconciled", len(doc_changes))
+    metrics.bump("engine_ops_reconciled",
+                 sum(len(c.ops) for changes in doc_changes for c in changes))
     return encodings, arrays, out
 
 

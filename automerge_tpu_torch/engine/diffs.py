@@ -35,9 +35,10 @@ diffs: per list, removes in descending old index, then inserts in
 ascending new index, then sets. Conflicts list the losers in
 actor-descending order.
 
-Not here yet: `PerOpDiffStream`, the op-granular stream, which folds each
-admitted batch through an interpretive shadow OpSet; it comes with the
-port of `api.init`, the OpSet and the `EngineDocSet` service.
+`PerOpDiffStream` is the op-granular stream for one document of an
+`EngineDocSet`: it folds each admitted batch through an interpretive
+shadow OpSet (`api.init` on the service's device) and emits the
+reference's per-op records in application order.
 """
 
 from __future__ import annotations
@@ -252,6 +253,79 @@ def _move_records(t, f: int, key: str, r: dict, kind_of: dict, oid_of: dict,
                     "key": dest_key, "value": child, "link": True})
     homes[child] = (dest_obj, dest_key)
     return out
+
+
+class PerOpDiffStream:
+    """Op-granular, application-ordered diff stream for one document of an
+    EngineDocSet — the reference's record stream (op_set.js:105-176,
+    README.md:487-520), record for record, produced off the engine path.
+
+    How: an interpretive shadow OpSet tracks the node's admitted log for
+    this document; on every admission gossip it pulls exactly the changes
+    it has not folded yet (`missing_changes` against its own clock) and
+    emits their per-op diffs in the order it applies them. On the rows
+    backend that pull returns the node's admission order; on the docs-major
+    backend it returns per-actor runs — the same order a remote reference
+    frontend receives from getMissingChanges (op_set.js:299-306), so
+    fidelity matches the reference's own remote-consumer experience.
+
+    Opt-in per document: consumers that only maintain carets/selections
+    should fold the engine's batch stream instead (proven index-equivalent,
+    tests/test_cursor_equivalence.py) and skip this host-side cost. The
+    shadow opset is the price of per-op granularity — the device kernel
+    converges whole rounds and cannot order diffs within a round."""
+
+    def __init__(self, docset, doc_id: str, callback):
+        import threading
+
+        from ..api import init
+
+        self._docset = docset
+        self.doc_id = doc_id
+        self._callback = callback
+        # the shadow lives where the node's engine does (the card unless
+        # the service runs on the CPU)
+        device = getattr(getattr(docset, "_resident", None), "device",
+                         "cuda")
+        self._opset = init("per-op-observer", device)._doc.opset
+        # EngineDocSet delivers admission gossip from whichever transport
+        # thread ingested (outside its own lock); serialize the pull-apply-
+        # emit sequence so concurrent deliveries cannot fold the same
+        # change window twice against a stale shadow clock.
+        self._fold_lock = threading.Lock()
+        docset.register_handler(self._on_admitted)
+        try:
+            self._on_admitted(doc_id, None)  # fold state admitted before us
+        except BaseException:
+            # never leave a half-constructed stream attached: the caller
+            # gets the error, not an unreachable handler firing forever
+            docset.unregister_handler(self._on_admitted)
+            raise
+
+    def close(self) -> None:
+        self._docset.unregister_handler(self._on_admitted)
+
+    @property
+    def opset(self):
+        """The shadow opset (read surface: clock, object tables)."""
+        return self._opset
+
+    def _on_admitted(self, doc_id: str, _handle) -> None:
+        if doc_id != self.doc_id:
+            return
+        with self._fold_lock:
+            # drain=False: this handler runs inside the docset's admission
+            # gossip; a draining read here would re-enter the handler chain
+            # on this thread and self-deadlock on the (non-reentrant) fold
+            # lock. The docset's outer drain loop delivers anything a
+            # read-triggered flush admits.
+            changes = self._docset.missing_changes(
+                self.doc_id, dict(self._opset.clock), drain=False)
+            if not changes:
+                return
+            self._opset, diffs = self._opset.add_changes(changes)
+            if diffs:
+                self._callback(diffs)
 
 
 class MirrorDoc:

@@ -18,9 +18,9 @@ from-scratch DocSet batch: on the device, batchdoc.apply_batch (the B5
 domination kernel and the linearize kernel on the card) returns per-doc
 hashes; on the host, `apply_host` builds each document through the
 interpretive OpSet (or the bulk loader) and returns materialized
-documents. The reference also opens a `metrics.trace("engine_dispatch")`
-span around the batch; spans come with the sync service's observability
-and are left out here.
+documents; the batch runs inside a `metrics.trace("engine_dispatch")`
+span. The megabatch route's gathers and its readback are timed under the
+`pack` and `readback` phases (`utils/perfscope.py`).
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..utils import metrics
+from ..utils import metrics, perfscope
 from . import dispatchledger
 from .cuda_kernels import hashes_to_numpy, reconcile_rows_hash
 from .pack import mega_row_map, pad_to_lanes, plan_megabuckets, rows_count
@@ -284,8 +284,10 @@ def apply_batch_adaptive(doc_changes: list, passes: int = 1, device="cuda"):
 
     dev = resolve_device(device)
     plan = plan_for(doc_changes, passes)
-    with dispatchledger.call_scope("apply", plan=plan,
-                                   docs=len(doc_changes), axes=plan.dims):
+    with metrics.trace("engine_dispatch", backend=plan.backend), \
+            dispatchledger.call_scope("apply", plan=plan,
+                                      docs=len(doc_changes),
+                                      axes=plan.dims):
         if plan.backend == "host":
             return plan, [apply_host(chs, device=dev) for chs in doc_changes]
         _encs, _batch, out = apply_batch(doc_changes, device=dev)
@@ -541,15 +543,16 @@ def apply_round_adaptive(rset, plan: RoundPlan):
     logical = padded = docs_cap = off = 0
     for docs, k_pad, dims, rmap, sel in parts:
         k, rows_b = len(docs), len(rmap)
-        if resident:
-            rows_t = flat[off:off + rows_b]
-            lanes_t = flat[off + rows_b:off + rows_b + k_pad]
-            off += rows_b + k_pad
-            # one gather kernel, no [rows_b, n_pad] or [ROWS, k_pad]
-            # intermediate
-            sub = rset.rows_dev[rows_t[:, None], lanes_t]
-        else:
-            sub = rset._to_dev(rset.rows_host[np.ix_(rmap, sel)])
+        with perfscope.phase("pack"):
+            if resident:
+                rows_t = flat[off:off + rows_b]
+                lanes_t = flat[off + rows_b:off + rows_b + k_pad]
+                off += rows_b + k_pad
+                # one gather kernel, no [rows_b, n_pad] or [ROWS, k_pad]
+                # intermediate
+                sub = rset.rows_dev[rows_t[:, None], lanes_t]
+            else:
+                sub = rset._to_dev(rset.rows_host[np.ix_(rmap, sel)])
         with dispatchledger.call_scope(
                 "rows_mega", backend="device", docs=k,
                 axes={"docs": (k, k_pad), "rows": (rows_b, rows_b)}):
@@ -557,7 +560,9 @@ def apply_round_adaptive(rset, plan: RoundPlan):
         logical += rows_b * k
         padded += rows_b * k_pad
         docs_cap += k_pad
-    vals = hashes_to_numpy(outs[0] if len(outs) == 1 else torch.cat(outs))
+    with perfscope.phase("readback"):
+        vals = hashes_to_numpy(outs[0] if len(outs) == 1
+                               else torch.cat(outs))
     done = (parts[0][0] if len(parts) == 1
             else np.concatenate([p[0] for p in parts]))
     mirror[done] = vals

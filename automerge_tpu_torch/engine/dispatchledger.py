@@ -7,10 +7,9 @@ tensor is wasted lanes, and where the cost model routed. One
 process-global ledger (dispatch routing is process-level state). Hooks
 feed it:
 
-- a flush round is wrapped in `round_scope(dirty docs)`, the boundary
-  every rollup is keyed on (the reference's sync service does this; the
-  port's service is not ported yet, so the port's own callers are the
-  tests and `chip_smoke.py`);
+- the sync service (`sync/service.py`) wraps each coalesced flush in
+  `round_scope(dirty docs, tenants=...)`, the boundary every rollup is
+  keyed on;
 - `engine/dispatch.py::apply_round_adaptive` wraps each fused bucket
   launch in `call_scope("rows_mega", ...)` and reports the round's
   occupancy through `note_megabatch`;
@@ -38,10 +37,10 @@ path (every `GAUGE_REFRESH` folds).
 `AMTPU_DISPATCHLEDGER=0` disables the plane: one cached check (reset by
 `_reload_for_tests`), and every hook returns before allocating.
 
-Left out: the reference's two optional hand-offs at a round's fold, to
-the tenant ledger (`sync/tenantledger.py`) and the flight recorder
-(`utils/flightrec.py`). Neither module is ported yet; each joins when it
-is.
+At a round's fold two optional hand-offs run, as in the reference: the
+round's folded cost goes to the tenant ledger (`sync/tenantledger.py
+note_round`, split by who dirtied the round) and one `dispatch_round`
+event to the flight recorder (`utils/flightrec.py`).
 
 Definitions:
 
@@ -475,8 +474,29 @@ class _RoundScope:
                 folded["tenants"] = dict(rd.tenants)
             if rd.mega:
                 folded["mega"] = rd.mega
+            amp = ((folded["dispatches"] + folded["ambient"])
+                   / rd.dirty_docs if rd.dirty_docs else None)
             led._fold_round_locked(folded)
             led._self_s += (rd.self_s + time.perf_counter() - t0)
+        if rd.tenants:
+            # the tenant attribution plane's dispatch/padding-share feed:
+            # this round's folded cost is divided by who dirtied the
+            # batch (lazy import: the tenant ledger lives in the sync
+            # layer and reaches back here only through this hand-off)
+            try:
+                from ..sync import tenantledger
+                tenantledger.note_round(rd.tenants, folded,
+                                        label=rd.label)
+            except Exception:
+                pass
+        try:
+            from ..utils import flightrec
+            flightrec.record("dispatch_round", round=seq,
+                             docs=rd.dirty_docs,
+                             dispatches=folded["dispatches"],
+                             **({"amp": round(amp, 3)} if amp else {}))
+        except Exception:
+            pass
         return False
 
 

@@ -34,7 +34,10 @@ Key mechanics, as in the reference:
   changed documents' rows come back, and `diffs.decode_round_diffs` turns
   them into the reference's edit records.
 
-Not here yet (a later slice): the snapshot floor.
+Telemetry, as in the reference: `engine_resident_apply` and
+`engine_hashes` spans (`metrics.trace`), an `engine_hash_readback`
+flight-recorder event before a reconcile's readback, and the `readback`
+phase (`utils/perfscope.py`).
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ from ..core.ids import ROOT_ID, HEAD, make_elem_id
 from ..device import resolve_device
 from ..native.delta import NativeDeltaEncoder, frame_bytes_of
 from ..native.wire import changes_to_columns
+from ..utils import flightrec, metrics, perfscope
 from .encode import (A_INS, A_LINK, A_MAKE_LIST, A_MAKE_MAP,
                      A_MAKE_TEXT, A_MOVE, A_SET, _ACTION_CODE, ValueTable,
                      content_hash, move_loc_key, move_value_key,
@@ -805,16 +809,18 @@ class ResidentDocSet:
         self._ensure_actor_hash_state()
         n = len(self.doc_ids)
         if not diffs:
-            self._out = _scatter_and_apply(self.state, flat, meta,
-                                           self.cap_fids)
+            with metrics.trace("engine_resident_apply"):
+                self._out = _scatter_and_apply(self.state, flat, meta,
+                                               self.cap_fids)
             vals = hashes_to_numpy(self._out["hash"])[:n]
             self._adopt_full_hashes(vals)   # flush-time capture
             return vals
         prev = self._prev_for_diffs()
         # actor content hashes in the rank basis (every row is the same)
         actor_hashes = self.state["actor_hash"][0]
-        out, survh, chg_fid, chg_elem = _scatter_apply_diff(
-            self.state, flat, meta, actor_hashes, *prev, self.cap_fids)
+        with metrics.trace("engine_resident_apply"):
+            out, survh, chg_fid, chg_elem = _scatter_apply_diff(
+                self.state, flat, meta, actor_hashes, *prev, self.cap_fids)
         self._out = out
         # the baseline of the NEXT diff round stays on the device; it is
         # independent of _out, so hash-only rounds and add_docs in between
@@ -893,25 +899,37 @@ class ResidentDocSet:
         resident state, run the same reconcile on the narrow sub-batch, and
         put the hashes into the mirror. Device work is O(len(idxs)),
         independent of the fleet size."""
-        self._ensure_actor_hash_state()
-        k = len(idxs)
-        # padded rows repeat the last dirty doc (any valid doc works; the
-        # extra hashes are discarded below)
-        sel = torch.tensor(idxs + [idxs[-1]] * (_pad_to(k, 8) - k),
-                           dtype=torch.int64, device=self.device)
-        sub = {name: t.index_select(0, sel) for name, t in self.state.items()}
-        vals = hashes_to_numpy(apply_doc(sub, self.cap_fids)["hash"])
-        self._ensure_hash_mirror()[np.asarray(idxs, np.int64)] = vals[:k]
-        self._doc_dirty.difference_update(idxs)
+        with metrics.trace("engine_hashes"):
+            self._ensure_actor_hash_state()
+            k = len(idxs)
+            # padded rows repeat the last dirty doc (any valid doc works;
+            # the extra hashes are discarded below)
+            sel = torch.tensor(idxs + [idxs[-1]] * (_pad_to(k, 8) - k),
+                               dtype=torch.int64, device=self.device)
+            sub = {name: t.index_select(0, sel)
+                   for name, t in self.state.items()}
+            out = apply_doc(sub, self.cap_fids)
+            flightrec.record("engine_hash_readback", docs=k)
+            with perfscope.phase("readback"):
+                vals = hashes_to_numpy(out["hash"])
+            self._ensure_hash_mirror()[np.asarray(idxs, np.int64)] = \
+                vals[:k]
+            self._doc_dirty.difference_update(idxs)
 
     def reconcile(self) -> np.ndarray:
         """Run the reconcile over the whole resident state; returns per-doc
         np.uint32 hashes aligned with doc_ids."""
-        self._ensure_actor_hash_state()
-        self._out = apply_doc(self.state, self.cap_fids)
-        vals = hashes_to_numpy(self._out["hash"])[:len(self.doc_ids)]
-        self._adopt_full_hashes(vals)
-        return vals
+        with metrics.trace("engine_hashes"):
+            self._ensure_actor_hash_state()
+            self._out = apply_doc(self.state, self.cap_fids)
+            # breadcrumb before the readback barrier (see the rows engine)
+            flightrec.record("engine_hash_readback",
+                             docs=len(self.doc_ids))
+            metrics.gauge("engine_resident_bytes", self.resident_bytes())
+            with perfscope.phase("readback"):
+                vals = hashes_to_numpy(self._out["hash"])[:len(self.doc_ids)]
+            self._adopt_full_hashes(vals)
+            return vals
 
     def resident_bytes(self) -> int:
         """Footprint of the docs-major resident state tensors (bytes)."""
@@ -928,7 +946,10 @@ class ResidentDocSet:
                 and not any(i < n for i in self._doc_dirty):
             return mirror[:n].copy()
         if self._out is not None:
-            vals = hashes_to_numpy(self._out["hash"])[:n]
+            # flush-time hashes from the last fused apply cover every
+            # doc: one readback, no reconcile
+            with perfscope.phase("readback"):
+                vals = hashes_to_numpy(self._out["hash"])[:n]
             self._adopt_full_hashes(vals)
             return vals.copy()
         dirty = sorted(i for i in self._doc_dirty if i < n)
@@ -952,7 +973,9 @@ class ResidentDocSet:
         dirty = sorted(i for i in self._doc_dirty if i < n and i in want)
         if dirty:
             if self._out is not None:
-                self._adopt_full_hashes(hashes_to_numpy(self._out["hash"]))
+                with perfscope.phase("readback"):
+                    self._adopt_full_hashes(
+                        hashes_to_numpy(self._out["hash"]))
             else:
                 self._reconcile_partial(dirty)
         return mirror[np.asarray(idxs, np.int64)].copy()

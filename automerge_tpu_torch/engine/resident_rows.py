@@ -19,9 +19,9 @@ Ingress, on a native instance (the default):
   same-actor in-order chain is admitted by one vectorized pass over the
   frame columns against a dense clock/frontier cache and encoded by ONE
   native call (`_encode_rounds_batched`, counted in
-  `ROUNDS["rows_rounds_batched"]`); otherwise each round is admitted per
+  the `rows_rounds_batched` counter); otherwise each round is admitted per
   doc, fast docs vectorized and the rest through `_admit`
-  (`_encode_round_frame`, counted in `ROUNDS["rows_rounds_fallback"]`).
+  (`_encode_round_frame`, counted in `rows_rounds_fallback`).
   The micro-batch is applied with one scatter and one kernel launch, and
   the device hash tensor is returned unread; with `lazy_dispatch` set the
   device work waits for the next hash read. A device copy left stale
@@ -66,10 +66,12 @@ Durability (a long-lived document on a bounded row buffer):
   admission_complete=False)`. The instance is poisoned only when the
   rebuild itself fails or a failure happens inside a rebuild.
 
-Left out (later slices): `materialize` (it replays through the
-interpretive frontend, ROADMAP item 5), and the telemetry planes' spans
-(`metrics.trace`, `flightrec`, `perfscope`); the dispatch ledger
-(`dispatchledger.call_scope`) is ported.
+Telemetry, as in the reference: `metrics.trace` spans around a round
+frame's apply (`rows_round_apply`) and a hash read (`rows_hashes`), the
+admission routes counted as `rows_rounds_batched` / `rows_rounds_fallback`,
+a `rows_hash_readback` flight-recorder event before
+each readback, the `pack` and `readback` phases (`utils/perfscope.py`),
+and every launch inside a `dispatchledger.call_scope`.
 """
 
 from __future__ import annotations
@@ -85,7 +87,7 @@ from ..native.linearize import linearize_host
 from ..native.wire import changes_to_columns
 from ..storage import _ACTION_IDX
 from ..sync.frames import RoundColumns, decode_round_frame
-from ..utils import metrics
+from ..utils import flightrec, metrics, perfscope
 from ..utils.gcpause import gc_paused
 from . import compaction
 from . import dispatch as round_dispatch
@@ -95,10 +97,6 @@ from .encode import A_DEL, A_SET, _pad_to
 from .pack import pad_to_lanes, row_bases, rows_dims_eligible
 from .resident import AdmittedRef, ResidentDocSet, _Pending
 
-# Rounds of apply_round_frames by admission route (the reference counts the
-# same two through its metrics plane): the whole micro-batch vectorized, or
-# round by round.
-ROUNDS = {"rows_rounds_batched": 0, "rows_rounds_fallback": 0}
 
 
 class DeviceDispatchError(RuntimeError):
@@ -1133,7 +1131,8 @@ class ResidentRowsDocSet(ResidentDocSet):
             self.rows_dev, hashes = _scan_rounds(
                 self.rows_dev, self._upload_trips(trip_list), self.dims())
         self._hash_handle = None
-        vals = hashes_to_numpy(hashes)
+        with perfscope.phase("readback"):
+            vals = hashes_to_numpy(hashes)
         if len(trip_list):
             # the FINAL round's row is the canonical post-batch hash table:
             # adopt it so the next hashes() read is free
@@ -1347,7 +1346,7 @@ class ResidentRowsDocSet(ResidentDocSet):
             return self._apply_rounds_final([rc.to_dict() for rc in rounds])
         # the path's allocation bursts (admitted refs, delta rows) would
         # trigger generation-2 collections over the whole heap
-        with gc_paused():
+        with metrics.trace("rows_round_apply"), gc_paused():
             return self._apply_round_frames(rounds)
 
     def _apply_round_frames(self, rounds):
@@ -1360,11 +1359,11 @@ class ResidentRowsDocSet(ResidentDocSet):
             # case) when any change breaks the per-doc in-order chain
             enc_all = self._encode_rounds_batched(rounds)
             if enc_all is not None:
-                ROUNDS["rows_rounds_batched"] += len(rounds)
+                metrics.bump("rows_rounds_batched", len(rounds))
                 encoded = [enc_all]
             else:
                 if any(rc.cols.n_changes for rc in rounds):
-                    ROUNDS["rows_rounds_fallback"] += len(rounds)
+                    metrics.bump("rows_rounds_fallback", len(rounds))
                 encoded = [self._encode_round_frame(rc) for rc in rounds]
             self._grow_for_rounds(encoded)
             trip_list = [self._cols_triplets(e) for e in encoded]
@@ -1836,7 +1835,11 @@ class ResidentRowsDocSet(ResidentDocSet):
             # be consumed
             self._hash_handle = None
         if self._hash_handle is not None:
-            vals = hashes_to_numpy(self._hash_handle)
+            # breadcrumb BEFORE the readback barrier: a hang there finds
+            # this thread's entry in the flight recorder
+            flightrec.record("rows_hash_readback", docs=n, cached=True)
+            with perfscope.phase("readback"):
+                vals = hashes_to_numpy(self._hash_handle)
             mirror[:n] = vals[:n]
             self._hash_handle = None
             self._doc_dirty.clear()
@@ -1856,7 +1859,9 @@ class ResidentRowsDocSet(ResidentDocSet):
                     "rows_hash", backend="device", docs=len(dirty),
                     axes={"docs": (n, self.n_pad)}):
                 h = reconcile_rows_hash(self.rows_dev, self.dims())
-            vals = hashes_to_numpy(h)
+            flightrec.record("rows_hash_readback", docs=n, cached=False)
+            with perfscope.phase("readback"):
+                vals = hashes_to_numpy(h)
             mirror[:n] = vals[:n]
             self._hash_handle = None
             self._doc_dirty.clear()
@@ -1894,11 +1899,14 @@ class ResidentRowsDocSet(ResidentDocSet):
         # empty lanes carry -1 in the ac/fid/if/io bands); repeat the last
         # dirty lane, whose extra hashes are discarded below
         sel = np.asarray(idxs + [idxs[-1]] * (k_pad - k), np.int64)
-        sub = np.ascontiguousarray(self.rows_host[:, sel])
+        with perfscope.phase("pack"):
+            sub = np.ascontiguousarray(self.rows_host[:, sel])
         with dispatchledger.call_scope("rows_hash", backend="device", docs=k,
                                        axes={"docs": (k, k_pad)}):
             h = reconcile_rows_hash(self._to_dev(sub), self.dims())
-        vals = hashes_to_numpy(h)
+        flightrec.record("rows_hash_readback", docs=k, cached=False)
+        with perfscope.phase("readback"):
+            vals = hashes_to_numpy(h)
         self._hash_mirror[np.asarray(idxs, np.int64)] = vals[:k]
         self._doc_dirty.difference_update(idxs)
 
@@ -1915,8 +1923,9 @@ class ResidentRowsDocSet(ResidentDocSet):
         since the last read are reconciled. A clean read launches
         nothing."""
         self._check_poisoned()
-        with self._dispatch_guard():
+        with metrics.trace("rows_hashes"), self._dispatch_guard():
             self._refresh_hash_mirror(None)
+            metrics.gauge("rows_resident_bytes", self.resident_bytes())
             return self._hash_mirror[:len(self.doc_ids)].copy()
 
     def hashes_for(self, idxs) -> np.ndarray:
@@ -1927,7 +1936,7 @@ class ResidentRowsDocSet(ResidentDocSet):
         idxs = [int(i) for i in idxs]
         if not idxs:
             return np.zeros(0, np.uint32)
-        with self._dispatch_guard():
+        with metrics.trace("rows_hashes"), self._dispatch_guard():
             self._refresh_hash_mirror(set(idxs))
             return self._hash_mirror[np.asarray(idxs, np.int64)].copy()
 

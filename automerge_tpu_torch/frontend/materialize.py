@@ -6,10 +6,8 @@ materialized objects. After a change, only the touched objects and their
 ancestor chain up to the root are rebuilt (freeze_api.js:148-186); everything
 else is shared structurally with the previous snapshot.
 
-This is the port's copy of `automerge_tpu/frontend/materialize.py`. The
-reference times `apply_changes_to_doc` under
-`perfscope.phase("host_materialize")`; that hand-off is left out here
-(`utils/perfscope.py` comes with the sync service's observability).
+This is the port's copy of `automerge_tpu/frontend/materialize.py`;
+`apply_changes_to_doc` is timed under `perfscope.phase("host_materialize")`.
 """
 
 from __future__ import annotations
@@ -19,6 +17,7 @@ from typing import Any
 from ..core import opset as O
 from ..core.ids import ROOT_ID
 from ..core.opset import Link, OpSet
+from ..utils import perfscope
 from .snapshots import DocState, FrozenList, FrozenMap, RootMap
 from .text import Text
 
@@ -172,16 +171,17 @@ def apply_changes_to_doc(doc, opset: OpSet, changes, incremental: bool,
         raise ValueError("emit_diffs=False requires incremental=False")
     if text_batch is None:
         text_batch = incremental
-    new_opset, diffs = opset.add_changes(changes, emit_diffs=emit_diffs,
-                                         text_batch=text_batch)
-    if getattr(doc._doc, "frontend", "frozen") == "immutable":
-        # The immutable-view frontend re-instantiates from the opset
-        # (the reference's ImmutableAPI likewise refreshes rather than
-        # patches, immutable_api.js:45-50).
-        from .immutable_view import materialize_immutable_root
-        return materialize_immutable_root(doc._doc.actor_id, new_opset)
-    if incremental:
-        cache = update_cache(new_opset, diffs, doc._doc.cache)
-    else:
-        cache = {}
-    return build_root(doc._doc.actor_id, new_opset, cache)
+    with perfscope.phase("host_materialize"):
+        new_opset, diffs = opset.add_changes(changes, emit_diffs=emit_diffs,
+                                             text_batch=text_batch)
+        if getattr(doc._doc, "frontend", "frozen") == "immutable":
+            # The immutable-view frontend re-instantiates from the opset
+            # (the reference's ImmutableAPI likewise refreshes rather than
+            # patches, immutable_api.js:45-50).
+            from .immutable_view import materialize_immutable_root
+            return materialize_immutable_root(doc._doc.actor_id, new_opset)
+        if incremental:
+            cache = update_cache(new_opset, diffs, doc._doc.cache)
+        else:
+            cache = {}
+        return build_root(doc._doc.actor_id, new_opset, cache)

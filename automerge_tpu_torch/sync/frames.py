@@ -1,6 +1,9 @@
-"""Columnar wire frames, the codec half of `automerge_tpu/sync/frames.py`:
-the per-list frame (AMW1) and the round frame (AMR1). The protocol's
-message classes and trace headers come with the sync service.
+"""Columnar wire frames (the port of `automerge_tpu/sync/frames.py`): the
+per-list frame (AMW1), the round frame (AMR1), and the protocol's message
+headers and classes (`TRACE_KEY`, `OPLAG_KEY`, `TRACEPLANE_KEY`,
+`SUB_KEY`, `SNAP_KEY`, `msg_kind`, `pack_trace`, `unpack_trace`), each
+the reference's byte for byte, so a port node and a reference node speak
+one protocol.
 
 A frame is a self-contained binary serialization of a change list as
 struct-of-arrays (integer columns plus frame-local string tables) whose
@@ -49,9 +52,107 @@ import numpy as np
 
 from ..core.change import Change
 from ..native.wire import WireColumns, changes_to_columns, concat_columns
+from ..utils import perfscope
 
 FRAME_MAGIC = b"AMW1"
 ROUND_MAGIC = b"AMR1"
+
+# ---------------------------------------------------------------------------
+# trace-context header
+#
+# Cross-replica trace propagation (docs/OBSERVABILITY.md): every protocol
+# message MAY carry a `"trace"` key holding the sender's span context in
+# the compact form `<trace_id>-<span_id>` (hex, 16+8 chars). The receiver
+# adopts it (metrics.adopt_context) so its serving spans join the sender's
+# trace. It rides in the JSON part of the message — the plain-JSON wire and
+# the AMWM binary envelope's JSON head both carry it unchanged — and peers
+# that predate it simply ignore the key.
+
+TRACE_KEY = "trace"
+
+# Op-lifecycle provenance header (utils/oplag.py): change-bearing
+# messages whose doc carries a sampled op additionally ship an
+# `"oplag": "<id>,<t_admit>,<t_send>"` key beside the trace header —
+# same envelope rules (JSON part of both wire forms; unknown-key-ignored
+# by peers that predate it). The receiver records the wire / peer-apply /
+# convergence lag stages from it (docs/OBSERVABILITY.md "Contention &
+# convergence lag").
+OPLAG_KEY = "oplag"
+
+# Trace-plane stitching header (utils/tracer.py — r19): a change-bearing
+# message whose doc carries sampled lifecycle traces ships a
+# `"traceplane": [{tid, actor, seq, t0, sent, origin, spans, meta}, ...]`
+# key beside the oplag header — the SENDER'S accumulated stage spans plus
+# its wall epoch, so the receiving service stitches its own
+# decode/admission/visibility spans onto them and completes ONE
+# cross-process trace. Same envelope rules (JSON part of both wire forms;
+# unknown-key-ignored by peers that predate it). With AMTPU_TRACE_SAMPLE
+# unset the key is never emitted — the envelope stays byte-identical
+# (the bench config-19 parity gate).
+TRACEPLANE_KEY = "traceplane"
+
+# Subscription (interest) protocol message (sync/connection.py): a peer
+# declares WHICH docs it wants synced instead of the whole DocSet —
+# `{"sub": {"add": [...], "prefixes": [...], "remove": [...],
+# "remove_prefixes": [...], "reset": bool, "mode": "all"?,
+# "clocks": {doc: clock}}}`. Plain JSON, so it crosses the TCP envelope
+# and any reference-framing relay unchanged; peers that predate the
+# message keep full-DocSet sync (interest defaults to everything). The
+# optional `clocks` map carries the subscriber's current frontiers for
+# explicitly-added docs — the serving side backfills exactly the
+# missing suffix through the ordinary `missing_changes` snapshot read
+# plane, never a full-DocSet replay (docs/INTERNALS.md "Interest-based
+# partial replication").
+SUB_KEY = "sub"
+
+# Snapshot-bootstrap message (sync/connection.py + sync/snapshots.py): a
+# serving peer answers a fresh joiner's empty-clock subscribe with
+# `{"docId": ..., "clock": {...}, "snap": {"clock": {...}, "b64": ...}}`
+# — a base64 compacted doc-state image covering `snap.clock`, followed by
+# the ordinary missing-suffix frames. Base64 keeps the image JSON-clean,
+# so it crosses the plain wire, the AMWM envelope's JSON head, and any
+# reference-framing relay unchanged. Strictly opt-in: the joiner
+# declares `"snap": 1` inside its sub delta (only doc_sets exposing
+# apply_snapshot do), and peers that predate the key never see one.
+SNAP_KEY = "snap"
+
+
+def msg_kind(msg: dict) -> str:
+    """Coarse protocol-message class: the label space of the per-kind
+    traffic accounting (`sync_conn_msgs_*{kind=...}` /
+    `sync_conn_bytes_*{kind=...}`) and of flight-recorder frame
+    breadcrumbs. Lives here (not sync/tcp.py, its original home) so the
+    transport-agnostic Connection classifies without a transport
+    import."""
+    if "metrics" in msg:
+        return f"metrics:{msg['metrics']}"
+    if "audit" in msg:
+        return f"audit:{msg['audit']}"
+    if "sub" in msg:
+        return "sub"
+    if msg.get("snap") is not None:
+        return "snapshot"
+    if msg.get("frame") is not None:
+        return "frame"
+    if msg.get("changes") is not None:
+        return "changes"
+    return "clock"
+
+
+def pack_trace(ctx: dict) -> str:
+    """`{"tid": ..., "sid": ...}` -> compact `tid-sid` wire header."""
+    return f"{ctx['tid']}-{ctx.get('sid') or ''}"
+
+
+def unpack_trace(header) -> dict | None:
+    """Wire header -> `{"tid", "sid"}`; None for absent/malformed values
+    (an untraced or foreign peer must never break message handling)."""
+    if not isinstance(header, str) or not header:
+        return None
+    tid, _, sid = header.partition("-")
+    if not tid:
+        return None
+    return {"tid": tid, "sid": sid or None}
 
 
 # ---------------------------------------------------------------------------
@@ -147,10 +248,12 @@ def bytes_to_columns(data: bytes) -> WireColumns:
     return cols
 
 
+@perfscope.phased("sync_wire")
 def encode_frame(changes: list[Change]) -> bytes:
     return columns_to_bytes(changes_to_columns(changes))
 
 
+@perfscope.phased("sync_wire")
 def decode_frame(data: bytes) -> WireColumns:
     return bytes_to_columns(data)
 
@@ -179,6 +282,7 @@ class RoundColumns:
                 for k, d in enumerate(self.doc_ids)}
 
 
+@perfscope.phased("sync_wire")
 def encode_round_frame(deltas: dict[str, list[Change]]) -> bytes:
     """Serialize one sync round, {doc_id: [Change]}, as a single frame: the
     receiver decodes O(1) frames per round instead of O(docs)."""
@@ -224,6 +328,7 @@ def round_from_parts(doc_parts: dict[str, list]) -> RoundColumns:
     return RoundColumns(doc_ids, off, merged)
 
 
+@perfscope.phased("sync_wire")
 def decode_round_frame(data: bytes) -> RoundColumns:
     if data[:4] != ROUND_MAGIC:
         raise ValueError("not a round frame (bad magic)")

@@ -1,0 +1,1880 @@
+"""EngineDocSet: a DocSet whose truth lives in the device-resident engine
+(the port of `automerge_tpu/sync/service.py`).
+
+A sync node where the documents are not interpretive host objects but
+rows of a resident engine on the card: `ResidentRowsDocSet` (the
+docs-minor row buffer reconciled by the fused reconcile kernel,
+`backend="rows"`) or `ResidentDocSet` (the docs-major engine,
+`backend="resident"`). Peers talk to it through the ordinary
+`Connection` protocol; with `wire="columnar"` the changes cross the
+network as binary columnar frames (sync/frames.py) and are scattered
+into device state without ever becoming per-op JSON.
+
+What stays on the host: the per-doc admitted change log (to re-serve
+`getMissingChanges` to lagging peers) and the per-doc clocks that drive
+the anti-entropy protocol. What lives on the device: every op/clock/
+insertion row plus the converged state and its hash.
+
+Device: both backends take `device=` (default "cuda"), resolved once by
+`device.resolve_device` (so a service asked for the card raises without
+one) and handed to the engine. The reference pins a device on its rows
+engine only and rejects one on the docs-major engine; the port's
+engines both take one, so the port accepts it on both backends. A
+service on the CPU defers each round's reconcile to the next hash read
+(`lazy_dispatch`, as the reference does on its CPU backend); on the card
+every flush launches the reconcile.
+
+Threads: the epoch flusher is named `amtpu-torch-flusher-<shard>`;
+`close()` stops and joins it (and a chaos lock holder, if one runs).
+
+Duck-typing contract with Connection: `doc_ids`, `get_doc` (returns a handle
+whose `._doc.opset` exposes `clock` / `get_missing_changes`),
+`apply_changes`, `apply_columns` (columnar fast path), `register_handler` /
+`unregister_handler`.
+"""
+
+from __future__ import annotations
+
+import threading
+import time as _time
+from typing import Callable
+
+import os
+
+from ..core.change import Change
+from ..device import resolve_device
+from ..engine import dispatchledger
+from ..engine.resident import ResidentDocSet
+from ..engine.resident_rows import CompactionAnchorError, DeviceDispatchError
+from ..utils import (chaos, flightrec, lockprof, metrics, oplag, perfscope,
+                     tracer)
+from . import docledger, epochs, tenantledger
+
+
+class _HandleOpSet:
+    """The slice of the OpSet read surface the sync protocol needs."""
+
+    def __init__(self, service: "EngineDocSet", doc_id: str):
+        self._service = service
+        self._doc_id = doc_id
+
+    @property
+    def clock(self) -> dict[str, int]:
+        return self._service.clock_of(self._doc_id)
+
+    def get_missing_changes(self, clock: dict[str, int]) -> list[Change]:
+        return self._service.missing_changes(self._doc_id, clock)
+
+
+class DocHandle:
+    """Lightweight stand-in for an interactive document: enough surface for
+    Connection (doc._doc.opset) plus on-demand materialization."""
+
+    def __init__(self, service: "EngineDocSet", doc_id: str):
+        self._service = service
+        self.doc_id = doc_id
+        self.opset = _HandleOpSet(service, doc_id)
+
+    @property
+    def _doc(self) -> "DocHandle":
+        return self
+
+    def materialize(self):
+        return self._service.materialize(self.doc_id)
+
+
+class PendingIngress:
+    """Wait handle for a pipelined (async) epoch-mode ingress: .wait()
+    blocks until the flush that carried the ingress and re-raises its
+    error. Appends from one thread flush in admission order, so waiting
+    on ingress k implies every earlier ingress of the same thread is
+    durable too — a sender streaming with bounded in-flight depth keeps
+    the durability contract while rounds flush back-to-back."""
+
+    __slots__ = ("_svc", "_ticket")
+
+    def __init__(self, svc: "EngineDocSet", ticket):
+        self._svc = svc
+        self._ticket = ticket
+
+    @property
+    def done(self) -> bool:
+        return self._ticket is None or self._ticket.done
+
+    def wait(self) -> None:
+        if self._ticket is None:
+            return            # synchronous fallback path: already flushed
+        # this thread now owns the post-flush gossip for its ingress —
+        # a concurrently-deciding backstop may still double-drain (the
+        # per-doc queue pops are atomic, so that's just shared work)
+        self._ticket.claimed = True
+        try:
+            self._ticket.wait(alive_fn=self._svc._kick_or_flush)
+        except BaseException:
+            self._svc._drain_admitted_shielded()
+            raise
+        self._svc._drain_admitted()
+
+
+class EngineDocSet:
+    #: Connection/transport marker: apply_changes/apply_columns and the
+    #: protocol reads are safe for concurrent entry from many threads
+    #: (epoch-buffered or lock-serialized), so transports need not hold
+    #: their doc_set-wide lock across the apply (sync/tcp.py).
+    concurrent_ingest = True
+
+    def __init__(self, doc_ids: list[str] | None = None,
+                 live_views: bool = False, backend: str = "resident",
+                 device="cuda", log_archive_dir: str | None = None,
+                 log_horizon_changes: int | None = None,
+                 ingest_mode: str | None = None,
+                 snapshot_dir: str | None = None):
+        """live_views=True turns the node into a view server: every ingress
+        runs the fused apply+reconcile with device-side diff emission
+        (engine/diffs.py), per-doc MirrorDoc views are maintained
+        incrementally from the diff records (the reference's
+        updateCache-from-diffs flow, freeze_api.js:148-186, running off the
+        engine instead of an interpretive OpSet), and subscribers receive
+        the raw diff stream. Reads via `view()` then cost zero device work.
+        The trade: each ingress pays a reconcile dispatch immediately
+        instead of deferring it to the next hash read.
+
+        backend="rows" stores truth in the docs-minor streaming engine
+        (ResidentRowsDocSet): each ingress becomes a round frame applied
+        through the whole-batch vectorized admission path, and `batch()`
+        coalesces many ingresses into ONE device dispatch — the steady
+        state of a streaming sync service. live_views requires the
+        docs-major backend (device-side diff emission lives there).
+
+        ingest_mode (rows backend only) selects the admission path:
+        "epoch" (default; env AMTPU_INGEST_MODE) buffers each ingress
+        into striped epoch-stamped buffers (sync/epochs.py) with NO
+        service lock on the admission path — a single flusher thread
+        seals epochs and drains them into the engine as coalesced
+        rounds, and concurrent writers group-commit (N writers ride one
+        flush). "locked" is the pre-epoch inline path (each ingress
+        flushes under the service lock) — kept for A/B measurement
+        (bench config 9) and as a fallback. Both modes keep the same
+        synchronous contract: when apply_* returns normally, the change
+        is flushed. A raised flush error keeps locked mode's restore-
+        for-retry semantics — the round's un-admitted columns stay in
+        _pending and a LATER flush may still admit them (at-least-once;
+        the engine's (actor, seq) dedup makes a re-submission of the
+        same change idempotent). In epoch mode that error reaches every
+        writer riding the failed round, not only the one whose ingress
+        caused it.
+
+        log_archive_dir (rows backend only) attaches a log-horizon archive
+        (sync/logarchive.py): the causally-stable log prefix — below the
+        same peer-clock floor compaction uses — can move out of RAM via
+        archive_logs(), and moves automatically whenever a doc's in-RAM
+        log exceeds log_horizon_changes. Steady-state peers sync from the
+        RAM tail; lagging/new peers transparently cold-read the archive
+        (the reference wire protocol is unchanged); rebuild-from-log
+        replays archive + tail. Together with row compaction this bounds
+        BOTH device and host memory of a long-lived document."""
+        if backend not in ("resident", "rows"):
+            raise ValueError(f"unknown backend {backend!r}")
+        if backend == "rows" and live_views:
+            raise ValueError(
+                "live_views requires backend='resident' (device-side diff "
+                "emission lives in the docs-major engine); rows-backend "
+                "consumers get the same per-doc view/diff surface from "
+                "engine.diffs.PerOpDiffStream + MirrorDoc")
+        self.backend = backend
+        device = resolve_device(device)
+        if backend == "rows":
+            from ..engine.resident_rows import ResidentRowsDocSet
+            self._resident = ResidentRowsDocSet(list(doc_ids or []),
+                                                device=device)
+            if log_archive_dir is not None:
+                from .logarchive import LogArchive
+                self._resident.log_archive = LogArchive(log_archive_dir)
+            if snapshot_dir is not None:
+                from .snapshots import SnapshotStore
+                self._resident.snapshot_store = SnapshotStore(snapshot_dir)
+        else:
+            self._resident = ResidentDocSet(list(doc_ids or []),
+                                            device=device)
+            if log_archive_dir is not None:
+                raise ValueError(
+                    "log_archive_dir requires backend='rows' (the log-"
+                    "horizon layer lives on the rows engine's admitted log)")
+            if snapshot_dir is not None:
+                raise ValueError(
+                    "snapshot_dir requires backend='rows' (snapshots "
+                    "compact the rows engine's admitted log)")
+        if log_horizon_changes is not None and (
+                backend != "rows" or log_archive_dir is None):
+            # silently ignoring the bound would reproduce the exact
+            # failure (unbounded RAM log) the parameter exists to prevent
+            raise ValueError(
+                "log_horizon_changes requires backend='rows' AND "
+                "log_archive_dir (the truncated prefix must go somewhere)")
+        self.log_horizon_changes = log_horizon_changes
+        if ingest_mode is None:
+            ingest_mode = os.environ.get("AMTPU_INGEST_MODE", "epoch")
+        if ingest_mode not in ("epoch", "locked"):
+            raise ValueError(f"unknown ingest_mode {ingest_mode!r}")
+        if backend != "rows":
+            # docs-major ingress applies inline (live-view diff emission
+            # is tied to the apply); the epoch buffers target the
+            # streaming rows posture
+            ingest_mode = "locked"
+        self.ingest_mode = ingest_mode
+        self._pending: dict[str, list] = {}   # rows backend: coalesced round
+        # metrics label for this node's spans/counters; ShardedEngineDocSet
+        # sets it to the shard index so per-shard series stay separable
+        self._shard: str | None = None
+        # monotonic round counter: every flush's span is tagged with it
+        # (span-record tag, not a metric label — unbounded), so a stitched
+        # cross-replica timeline names WHICH round a span belonged to
+        self._round_seq = 0
+        self._batch_depth = 0
+        self._admit_notify: list[str] = []    # docs awaiting handler gossip
+        # per doc: actor -> changes ordered by seq (admission guarantees
+        # in-order per actor). This is the re-serve log, op_set.js:308-317.
+        self._log: dict[str, dict[str, list[Change]]] = {
+            d: {} for d in self._resident.doc_ids}
+        self._handles: dict[str, DocHandle] = {}
+        self.handlers: list[Callable] = []
+        self.live_views = live_views
+        self._views: dict[str, "object"] = {}
+        self._view_subs: list[Callable] = []
+        # One node can serve several transport peers (TcpSyncServer spawns a
+        # reader thread per socket); the resident engine is not re-entrant.
+        # Instrumented (utils/lockprof.py): its wait/hold histograms
+        # (sync_lock_wait_s{lock=service}, ...) say how long ingress and
+        # reads queue behind it. ShardedEngineDocSet renames each shard's
+        # label to service_shard<k>.
+        self._lock = lockprof.InstrumentedRLock("service")
+        # sampled op-lifecycle tokens awaiting this node's next flush,
+        # and flushed-round recordings awaiting the post-lock drain
+        # (utils/oplag.py; both mutated under self._lock)
+        self._lag_pending: list = []
+        self._lag_flushed: list = []
+        # early-resolved tickets' park durations awaiting the post-lock
+        # drain (sync_commit_wait_s observes deferred out of the
+        # service-lock hold window; mutated under self._lock)
+        self._commit_waits: list = []
+        # Epoch-batched ingestion (sync/epochs.py, ingest_mode="epoch"):
+        # writers append into the striped buffer WITHOUT self._lock and
+        # park on a ticket; the flusher (one lazy thread per service /
+        # shard, amtpu-torch-flusher-<k>) seals epochs under self._lock and
+        # drains them through _flush_locked as coalesced rounds. The
+        # service lock's remaining ingestion duty is the seal itself.
+        self._epoch = (epochs.EpochIngestBuffer()
+                       if ingest_mode == "epoch" else None)
+        self._flusher = (epochs.Flusher(
+            self._flush_epochs,
+            lambda: "amtpu-torch-flusher-" + (self._shard if self._shard
+                                              is not None else "0"))
+            if ingest_mode == "epoch" else None)
+        # Epoch drains need no lock of their own: every seal + flush
+        # runs entirely under self._lock (the only out-of-lock step,
+        # resolving a drain-local ticket list, is safe to interleave),
+        # so concurrent drainers — flusher respawns, inline readers
+        # (_maybe_flush_locked), explicit flush() — already serialize
+        # there. (A writer-as-leader variant was measured and rejected:
+        # inline leadership seals too eagerly — 2.3-op rounds vs the
+        # flusher's 3.7 at 4 writers — and its GIL footprint stretched
+        # every co-running flush ~1.8x on a 2-core host.)
+        #
+        # Per-thread drain state: set while THIS thread runs the
+        # post-drain gossip backstop, so a handler callback re-entering
+        # apply takes the inline locked path instead of parking on a
+        # ticket only its own drain pass could resolve.
+        self._drain_local = threading.local()
+        # thread ident owning an open batch(): its own ingresses keep the
+        # coalesce-under-held-lock fast path (one dispatch per batch)
+        self._batch_owner: int | None = None
+        # epoch tickets riding the current _flush_locked (mutated under
+        # self._lock): consumed by _early_resolve_locked once admission
+        # is durable, so the flush tail overlaps the writers' wakeups
+        self._inflight_tickets: list = []
+        # Snapshot read plane (the engine's hash-epoch substrate extended to
+        # the whole read surface): per-doc admission versions, bumped
+        # under self._lock whenever a doc's clock/log moves (flush,
+        # archival) — _read_gen bumps for whole-engine swaps (rebuild).
+        # clock_of/missing_changes serve lock-free from these caches
+        # while the key matches and nothing is buffered or pending, so
+        # steady-state gossip reads never block admission or flush.
+        self._doc_ver: dict[str, int] = {}
+        self._read_gen = 0
+        self._clock_cache: dict[str, tuple] = {}
+        self._log_cache: dict[str, tuple] = {}
+        # Diff records are index-based patches, so subscribers must see a
+        # doc's batches in ingress order — but running callbacks under
+        # self._lock would let a subscriber that grabs its own lock deadlock
+        # against a peer thread calling back into this node (ABBA). Instead,
+        # ingress order is frozen by appending to this queue while holding
+        # self._lock; delivery drains the queue outside it, serialized by
+        # _notify_lock (an RLock, so a subscriber may itself call
+        # apply_changes without deadlocking).
+        self._notify_queue: list[tuple[str, list]] = []
+        self._notify_lock = threading.RLock()
+        # known-peer clock registry (Connection.note_peer_clock): feeds the
+        # compaction floor — per doc, per actor, the min across every
+        # registered peer's advertised clock. With no registered peers the
+        # floor is the doc's own clock (standalone nodes compact freely).
+        self._peer_clocks: dict[object, dict[str, dict[str, int]]] = {}
+        self._peer_seen: dict[object, float] = {}
+        self._peer_first: dict[object, float] = {}
+        # a peer whose transport died without close() must not pin the
+        # floor forever: entries silently expire from the floor after this
+        # many seconds without a message (they re-register on next msg)
+        self.peer_floor_ttl: float = 900.0
+        # Fault injection (utils/chaos.py — the fleet health plane's test
+        # substrate): _chaos_node is this node's targeting label for
+        # in-process multi-node setups (bench/tests set it; None + no
+        # AMTPU_CHAOS_NODE = process-wide). The lock-hold chaos holder
+        # spawns here when its env knob is set, so a degraded-peer
+        # subprocess needs no code of its own; close() stops it. All
+        # hooks are one cached check when AMTPU_CHAOS_* is unset.
+        self._chaos_node: str | None = None
+        self._chaos_holder = chaos.maybe_lock_holder(self._lock)
+        # Per-doc convergence ledger (sync/docledger.py): admissions are
+        # stamped at flush time, peer frontiers by the attached
+        # Connections, and the nested "docledger" snapshot section rides
+        # every metrics pull / flight-recorder dump this node serves.
+        # None when AMTPU_DOCLEDGER=0.
+        self.doc_ledger = docledger.of(self)
+        # SLO-coupled admission control (sync/epochs.IngressGovernor):
+        # when attached, every epoch-path ingress consults it BEFORE
+        # buffering — under a sustained converge-p99 breach low-priority
+        # ingress is delayed (backpressure on the writer thread, off
+        # every lock) or shed with IngressShedError. None = ungoverned
+        # (one attribute check on the admission path).
+        self.ingress_governor: epochs.IngressGovernor | None = None
+
+    # -- peer registry / compaction floor -----------------------------------
+
+    def note_peer_clock(self, peer, doc_id: str,
+                        clock: dict[str, int]) -> None:
+        """Record a peer's advertised clock for a doc (Connection calls
+        this on every received message). Clocks only grow, so keep the
+        per-actor max of what the peer has claimed."""
+        import time
+        with self._lock:
+            now = time.monotonic()
+            self._peer_seen[peer] = now
+            self._peer_first.setdefault(peer, now)
+            docs = self._peer_clocks.setdefault(peer, {})
+            cur = docs.setdefault(doc_id, {})
+            for a, s in (clock or {}).items():
+                if s > cur.get(a, 0):
+                    cur[a] = int(s)
+
+    def forget_peer(self, peer) -> None:
+        """Drop a peer from the compaction-floor registry (Connection
+        close). The floor then stops being held down by a departed peer."""
+        with self._lock:
+            self._peer_clocks.pop(peer, None)
+            self._peer_seen.pop(peer, None)
+            self._peer_first.pop(peer, None)
+
+    def _compaction_floor_locked(self, doc_id: str) -> dict[str, int]:
+        """Reclaim floor for one doc: the engine's causal-stability floor
+        (every actor's next change provably covers everything below it —
+        engine/compaction.causal_floor), further lowered by each
+        registered peer's advertised clock (a known-stale replica may be
+        forked by a future actor, so nothing it hasn't acknowledged is
+        reclaimed), and vetoed entirely when a peer advertises an actor we
+        have no changes from (that actor's in-flight changes carry clocks
+        we cannot bound)."""
+        import time
+
+        from ..engine.compaction import causal_floor
+
+        rset = self._resident
+        i = rset.doc_index[doc_id]
+        floor = causal_floor(rset, i)
+        own = dict(rset.tables[i].clock)   # StaleView reads materialize
+        horizon = time.monotonic() - self.peer_floor_ttl
+        stale = [k for k in self._peer_clocks
+                 if self._peer_seen.get(k, 0.0) < horizon]
+        for k in stale:
+            # transport died without close(): drop the entry so neither
+            # the floor nor memory is pinned by dead connections
+            self._peer_clocks.pop(k, None)
+            self._peer_seen.pop(k, None)
+            self._peer_first.pop(k, None)
+        grace = time.monotonic() - 30.0
+        for key, pc in self._peer_clocks.items():
+            peer = pc.get(doc_id)
+            if peer is None:
+                # The peer has never advertised this doc. Steady state:
+                # it does not sync it, so it holds no in-flight changes
+                # for it and should not hold its floor down (a peer
+                # syncing doc X alone must not disable doc Y's reclaim
+                # forever). Handshake race: Connection.open() advertises
+                # the peer's docs one message at a time, so a freshly
+                # registered peer may simply not have REACHED this doc
+                # yet — within the grace window it pins everything.
+                if self._peer_first.get(key, 0.0) > grace:
+                    return {}
+                continue
+            if any(a not in own for a in peer):
+                return {}
+            floor = {a: min(s, peer.get(a, 0)) for a, s in floor.items()}
+        return {a: s for a, s in floor.items() if s > 0}
+
+    def archive_logs(self, doc_ids: list[str] | None = None) -> dict[str, int]:
+        """Explicitly move each doc's causally-stable log prefix (below the
+        same peer-clock floor compaction uses) into the attached archive.
+        Returns per-doc archived-change counts. Requires backend='rows'
+        with log_archive_dir set."""
+        with self._lock:
+            self._maybe_flush_locked()
+            rset = self._resident
+            if getattr(rset, "log_archive", None) is None:
+                raise ValueError(
+                    "no log archive attached (construct with "
+                    "log_archive_dir=...)")
+            out: dict[str, int] = {}
+            for d in (doc_ids if doc_ids is not None
+                      else list(rset.doc_index)):
+                floor = self._compaction_floor_locked(d)
+                out[d] = (rset.archive_log_prefix(d, floor)
+                          if floor else 0)
+                if out[d]:
+                    # the RAM log was truncated: log snapshots re-key
+                    self._bump_read_vers_locked((d,))
+            return out
+
+    # -- snapshots & bootstrap (sync/snapshots.py) ----------------------------
+
+    @property
+    def snapshot_store(self):
+        return getattr(self._resident, "snapshot_store", None)
+
+    def write_snapshots(self, doc_ids: list[str] | None = None) -> dict:
+        """Compact each doc's causally-stable prefix into its snapshot
+        image: archive the prefix below the peer-clock floor first (the
+        horizon is the covered clock), then run the survivor join over
+        the archived prefix OUTSIDE the service lock and commit the
+        image crash-safely. Returns per-doc write stats ({} entries for
+        docs with nothing stable yet). Requires backend='rows' with
+        both log_archive_dir and snapshot_dir set."""
+        from .snapshots import compact_prefix
+
+        store = self.snapshot_store
+        if store is None:
+            raise ValueError(
+                "no snapshot store attached (construct with "
+                "snapshot_dir=...)")
+        self.archive_logs(doc_ids)
+        rset = self._resident
+        if getattr(rset, "log_archive", None) is None:
+            raise ValueError(
+                "write_snapshots requires a log archive (the prefix "
+                "source); construct with log_archive_dir=...")
+        out: dict[str, dict] = {}
+        targets = (doc_ids if doc_ids is not None
+                   else list(rset.doc_index))
+        for d in targets:
+            with self._lock:
+                i = rset.doc_index[d]
+                hz = dict(rset.log_horizon[i])
+            if not hz:
+                out[d] = {}
+                continue
+            # O(prefix) read + survivor join outside the lock — one
+            # doc's snapshot write must not stall concurrent appends
+            prefix = [c for c in rset.log_archive.read(d)
+                      if c.seq <= hz.get(c.actor, 0)]
+            with metrics.trace("sync_snapshot_write"):
+                out[d] = store.write(d, compact_prefix(prefix))
+        return out
+
+    @staticmethod
+    def _suffix_covers(row: dict | None, seq_hint: tuple,
+                       clock: dict) -> bool:
+        """True when a suffix change's transitive clock row (plus its
+        own (actor, seq) coordinate) covers the snapshot clock — the
+        conformance gate snapshot shipping requires (see
+        sync/snapshots.py)."""
+        if row is None:
+            return False
+        a0, s0 = seq_hint
+        for a, s in clock.items():
+            have = s0 if a == a0 else 0
+            r = row.get(a, 0)
+            if r > have:
+                have = r
+            if have < s:
+                return False
+        return True
+
+    def snapshot_payload_for(self, doc_id: str):
+        """Wire-serve surface: (image blob, covered clock) when a fresh
+        joiner (empty clock) can be bootstrapped from this node's
+        snapshot — i.e. an image exists AND every suffix change above
+        its clock provably covers that clock (checked against the
+        engine's exact state-clock memos; a non-covering suffix falls
+        back to full-history serving, disclosed via
+        sync_bootstrap_fallbacks). None = serve full history."""
+        store = self.snapshot_store
+        if store is None:
+            return None
+        try:
+            img = store.load(doc_id)
+        except (OSError, ValueError):
+            return None
+        if img is None or not img.clock:
+            return None
+        rset = self._resident
+        with self._lock:
+            self._maybe_flush_locked()
+            i = rset.doc_index.get(doc_id)
+            if i is None:
+                return None
+            t = rset.tables[i]
+            rset._sync_stale_table(t)
+            suffix = [c for c in rset.change_log[i]
+                      if c.seq > img.clock.get(c.actor, 0)]
+            for c in suffix:
+                row = t.state_clocks.get((c.actor, c.seq))
+                if row is not None and not isinstance(row, dict):
+                    arr, ridx = row
+                    row = {rset.actors[r]: int(v)
+                           for r, v in enumerate(arr[ridx]) if v}
+                    t.state_clocks[(c.actor, c.seq)] = row
+                if not self._suffix_covers(row, (c.actor, c.seq - 1),
+                                           img.clock):
+                    metrics.bump("sync_bootstrap_fallbacks")
+                    return None
+        blob = store.payload(doc_id)
+        if blob is None:
+            return None
+        return blob, dict(img.clock)
+
+    def _bootstrap_docs(self, images: dict) -> dict[str, bool]:
+        """Admit a batch of snapshot images (independent docs -> ONE
+        coalesced flush round) and seed each covered clock, all inside
+        one service-lock critical section: between a doc's (renumbered)
+        image admission and its clock seed, a concurrent ingress
+        carrying ORIGINAL seqs must not observe the intermediate
+        renumbered clock — it would admit mid-window and corrupt the
+        doc. Handler gossip drains after release, so adverts only ever
+        show seeded clocks. Returns per-doc success (False = the doc
+        was no longer empty; the caller serves/awaits full history)."""
+        from .frames import bytes_to_columns
+
+        cols_by = {d: bytes_to_columns(img.frame_bytes)
+                   for d, img in images.items()}
+        ok: dict[str, bool] = {}
+        try:
+            with self._lock:
+                self._maybe_flush_locked()
+                rset = self._resident
+                for d, img in images.items():
+                    self.add_doc(d)
+                    t = rset.tables[rset.doc_index[d]]
+                    rset._sync_stale_table(t)
+                    if t.clock:
+                        # not empty (normal sync raced the image):
+                        # refuse — renumbered image seqs must never
+                        # interleave with partial original history
+                        metrics.bump("sync_bootstrap_fallbacks")
+                        ok[d] = False
+                        continue
+                    ok[d] = True
+                    if cols_by[d].n_changes:
+                        self._pending.setdefault(d, []).append(cols_by[d])
+                if self._pending:
+                    self._flush_locked()
+                seeded = []
+                for d, good in ok.items():
+                    if not good:
+                        continue
+                    img = images[d]
+                    rset.seed_clock(d, img.clock, img.heads)
+                    i = rset.doc_index[d]
+                    rset.change_log[i] = []
+                    rset.log_horizon[i] = dict(img.clock)
+                    seeded.append(d)
+                self._bump_read_vers_locked(seeded)
+        except BaseException:
+            self._drain_admitted_shielded()
+            raise
+        self._drain_admitted()
+        return ok
+
+    def _bootstrap_doc(self, doc_id: str, img) -> bool:
+        return self._bootstrap_docs({doc_id: img})[doc_id]
+
+    def _apply_chunked(self, doc_id: str, changes, chunk: int = 256) -> None:
+        """Replay a (possibly deep) change list in bounded rounds so the
+        engine's budget-pressure compaction can reclaim dominated rows
+        between them — the bootstrap twin of the rebuild path's
+        _replay_chunked."""
+        changes = list(changes)
+        for k in range(0, len(changes), chunk):
+            self.apply_changes(doc_id, changes[k:k + chunk])
+
+    def apply_snapshot(self, doc_id: str, blob: bytes) -> bool:
+        """Receive-side bootstrap: decode a snapshot image, admit its
+        compacted frame, seed the covered clock, and mark the prefix
+        below-horizon. Only an EMPTY doc may be snapshot-booted (the
+        compacted frame's renumbered seqs must not interleave with
+        partial original history) — a non-empty doc returns False and
+        the caller serves/awaits full history."""
+        from .snapshots import SnapshotStore
+
+        img = SnapshotStore.decode(blob)
+        t0 = _time.perf_counter()
+        if not self._bootstrap_doc(doc_id, img):
+            return False
+        store = self.snapshot_store
+        if store is not None:
+            # keep the image: this replica can re-serve the next joiner
+            store.adopt(doc_id, blob)
+        metrics.observe("sync_bootstrap_s", _time.perf_counter() - t0)
+        metrics.bump("sync_snapshot_frames_received")
+        metrics.bump("sync_snapshot_bytes_received", len(blob))
+        return True
+
+    def bootstrap_from_storage(self, doc_ids: list[str] | None = None
+                               ) -> dict:
+        """Cold-boot this (fresh) node from its attached storage tier:
+        per doc, load the snapshot image, admit it, seed the covered
+        clock, then replay only the archived TAIL above the image's
+        clock — O(state + tail) instead of O(history). Docs without an
+        image (or whose tail fails the coverage gate) replay their full
+        archive instead (disclosed via sync_bootstrap_fallbacks).
+        Returns per-doc {'mode': 'snapshot'|'replay'|'empty',
+        'changes': n}."""
+        from .snapshots import validate_tail
+
+        rset = self._resident
+        store = self.snapshot_store
+        archive = getattr(rset, "log_archive", None)
+        out: dict[str, dict] = {}
+        targets = list(doc_ids) if doc_ids is not None else sorted(
+            set(rset.doc_index)
+            | set(store.doc_ids() if store is not None else ()))
+        t0 = _time.perf_counter()
+
+        def _replay(d) -> None:
+            archived = archive.read(d) if archive is not None else ()
+            if archived:
+                # chunked replay: a deep history applied in one round
+                # would trip the VMEM precheck before the engine's
+                # budget-pressure compaction can reclaim anything
+                self._apply_chunked(d, archived)
+                out[d] = {"mode": "replay", "changes": len(archived)}
+            else:
+                out[d] = {"mode": "empty", "changes": 0}
+
+        # independent docs' images coalesce into shared flush rounds
+        # (bounded by an op budget so one round never trips the VMEM
+        # precheck) — the per-doc fixed flush cost amortizes across the
+        # fleet, which is most of the measured bootstrap win at scale
+        batch: dict = {}
+        tails: dict = {}
+        batch_ops = 0
+
+        def _flush_batch() -> None:
+            nonlocal batch, tails, batch_ops
+            if not batch:
+                return
+            ok = self._bootstrap_docs(batch)
+            # tails coalesce the same way the images did: one batch()
+            # flush per op-budget group instead of one per doc
+            group: list = []
+            group_ops = 0
+            for d, good in ok.items():
+                if good:
+                    out[d] = {"mode": "snapshot",
+                              "changes": batch[d].n_changes
+                              + len(tails[d])}
+                    if not tails[d]:
+                        continue
+                    if len(tails[d]) >= 2048:
+                        self._apply_chunked(d, tails[d])
+                        continue
+                    group.append(d)
+                    group_ops += len(tails[d])
+                    if group_ops >= 2048:
+                        with self.batch():
+                            for g in group:
+                                self.apply_changes(g, tails[g])
+                        group, group_ops = [], 0
+                else:
+                    _replay(d)
+            if group:
+                with self.batch():
+                    for g in group:
+                        self.apply_changes(g, tails[g])
+            batch, tails, batch_ops = {}, {}, 0
+
+        for d in targets:
+            img = None
+            if store is not None:
+                img = store.load(d)
+            if img is not None and img.clock:
+                # segmented tail read: sealed segments the image's clock
+                # covers are skipped via their manifest clock ranges
+                tail = [c for c in (archive.read_since(d, img.clock)
+                                    if archive is not None else ())
+                        if c.seq > img.clock.get(c.actor, 0)]
+                if validate_tail(tail, img.clock, img.heads):
+                    batch[d] = img
+                    tails[d] = tail
+                    batch_ops += max(img.n_ops, img.n_changes)
+                    if batch_ops >= 2048:
+                        _flush_batch()
+                    continue
+                metrics.bump("sync_bootstrap_fallbacks")
+            _replay(d)
+        _flush_batch()
+        metrics.observe("sync_bootstrap_s", _time.perf_counter() - t0)
+        return out
+
+    # -- registry surface (doc_set.js:5-38) ---------------------------------
+
+    @property
+    def doc_ids(self) -> list[str]:
+        return list(self._resident.doc_ids)
+
+    def get_doc(self, doc_id: str) -> DocHandle | None:
+        if doc_id not in self._resident.doc_index:
+            return None
+        if doc_id not in self._handles:
+            self._handles[doc_id] = DocHandle(self, doc_id)
+        return self._handles[doc_id]
+
+    def add_doc(self, doc_id: str) -> DocHandle:
+        # registry mutation under the service lock: two threads adding
+        # the same unseen doc (a tcp reader racing the caller) could
+        # both pass the membership check and double-register it in the
+        # resident engine (found by graftlint shared-mutate-aliased;
+        # the RLock makes the engine-roundtrip re-entrancy safe)
+        with self._lock:
+            if doc_id not in self._resident.doc_index:
+                self._resident.add_docs([doc_id])
+                self._log[doc_id] = {}
+        return self.get_doc(doc_id)
+
+    def register_handler(self, handler: Callable) -> None:
+        if handler not in self.handlers:
+            self.handlers.append(handler)
+
+    def unregister_handler(self, handler: Callable) -> None:
+        if handler in self.handlers:
+            self.handlers.remove(handler)
+
+    # -- ingress ------------------------------------------------------------
+
+    def _ingest(self, doc_id: str, apply_fn) -> tuple[DocHandle, list]:
+        """Shared ingress tail: run apply_fn (which scatters the delta and,
+        in live-view mode, reconciles + emits diffs), log admissions, fold
+        diff records into the doc's mirror view."""
+        tok = oplag.admit(doc_id)
+        # trace plane: inline ingress — admission and seal coincide (no
+        # coalescing queue), so queue_wait ~ 0 and coalesce_wait is the
+        # service-lock wait; the apply below is the dispatch stage
+        tracer.admit(doc_id)
+        tracer.sealed((doc_id,))
+        want_t = tok is not None or tracer.enabled()
+        flush_t0 = flush_s = 0.0
+        with self._lock:
+            self.add_doc(doc_id)
+            if want_t:
+                flush_t0 = _time.perf_counter()
+            diffs = apply_fn()
+            if want_t:
+                # docs-major ingress applies inline: no coalescing queue,
+                # the apply IS the flush stage (recorded below, after the
+                # lock releases — profiler cost must not inflate holds)
+                flush_s = _time.perf_counter() - flush_t0
+            admitted = self._resident.last_admitted.get(doc_id, [])
+            log = self._log[doc_id]
+            for c in admitted:
+                log.setdefault(c.actor, []).append(c)
+            if admitted:
+                self._bump_read_vers_locked((doc_id,))
+                if self.doc_ledger is not None:
+                    self.doc_ledger.note_admit(doc_id, len(admitted))
+                tenantledger.note_ingress(doc_id, len(admitted))
+            records = (diffs or {}).get(doc_id, [])
+            if records:
+                from ..engine.diffs import MirrorDoc
+                self._views.setdefault(doc_id, MirrorDoc()).apply(records)
+            handle = self.get_doc(doc_id)
+            if records:
+                self._notify_queue.append((doc_id, records))
+        oplag.flush_boundary((doc_id,))   # retire a stale awaiting token
+        if tok is not None:
+            oplag.flushed(tok, flush_start=flush_t0, flush_s=flush_s)
+        tracer.flush_round((doc_id,), 0, flush_t0, flush_s)
+        if records:
+            self._drain_notifications()
+        if admitted:
+            for handler in list(self.handlers):
+                handler(doc_id, handle)
+        return handle, admitted
+
+    def apply_changes(self, doc_id: str, changes: list[Change]) -> DocHandle:
+        """Admit a change batch into resident state (causal buffering and
+        duplicate-drop happen in the engine's delta encoder) and notify
+        handlers so attached Connections gossip the update."""
+        if tracer.enabled():
+            # trace plane: hand-built changes have no frontend finalize;
+            # the sampled ones' lifecycle starts at this service boundary
+            tracer.origin_ingress((c.actor, c.seq) for c in changes)
+        if self.backend == "rows":
+            from ..native.wire import changes_to_columns
+            return self._rows_ingest(doc_id, changes_to_columns(changes))
+
+        def apply_fn():
+            if self.live_views:
+                _h, diffs = self._resident.apply_and_reconcile(
+                    {doc_id: changes}, diffs=True)
+                return diffs
+            self._resident.apply_changes({doc_id: changes})
+            return None
+        handle, _ = self._ingest(doc_id, apply_fn)
+        return handle
+
+    def apply_columns(self, doc_id: str, cols) -> DocHandle:
+        """Columnar-frame ingress (sync/frames.py). With the native delta
+        encoder available the columns go straight to C++ interning/hashing
+        and the log keeps lazy refs into the frame — no per-op Python
+        objects exist unless a lagging peer later needs re-serving. The
+        fallback materializes Change objects once (one pass, no JSON)."""
+        if tracer.enabled():
+            tracer.origin_ingress(
+                (cols.actors[int(a)], int(s))
+                for a, s in zip(cols.change_actor, cols.change_seq))
+        if self.backend == "rows":
+            return self._rows_ingest(doc_id, cols)
+
+        def apply_fn():
+            if self.live_views:
+                _h, diffs = self._resident.apply_and_reconcile_columns(
+                    {doc_id: cols}, diffs=True)
+                return diffs
+            if self._resident._native is not None:
+                self._resident.apply_columns({doc_id: cols})
+            else:
+                self._resident.apply_changes({doc_id: cols.to_changes()})
+            return None
+        handle, _ = self._ingest(doc_id, apply_fn)
+        return handle
+
+    # -- rows backend: coalesced round-frame ingress ------------------------
+
+    def apply_columns_async(self, doc_id: str, cols) -> PendingIngress:
+        """Pipelined columnar admission (epoch mode): buffer the ingress
+        and return a PendingIngress whose .wait() blocks until the
+        carrying flush (re-raising its error). A writer that keeps a
+        small in-flight window (await ticket k before appending k+D)
+        gets group-commit throughput with rounds flushing back-to-back —
+        the next cohort's ops are already buffered when a round
+        resolves, so no flush ever waits on a wake chain. Every handle
+        should eventually be waited — .wait() is the durability
+        observation point and the waiter drives handler gossip promptly
+        (an abandoned handle falls back to the drain thread's gossip
+        backstop, which runs only after the carrying round). Outside
+        epoch mode (locked services, docs-major, inside an owned batch)
+        this degrades to the synchronous apply and returns a
+        pre-resolved handle."""
+        if self.backend != "rows" or not self._epoch_admission_open():
+            self.apply_columns(doc_id, cols)
+            return PendingIngress(self, None)
+        if tracer.enabled():
+            tracer.origin_ingress(
+                (cols.actors[int(a)], int(s))
+                for a, s in zip(cols.change_actor, cols.change_seq))
+        return PendingIngress(self, self._epoch_append(doc_id, cols))
+
+    def _epoch_admission_open(self) -> bool:
+        """Epoch-buffered admission applies unless THIS thread must not
+        park on a ticket: inside its own batch() (the batch exit runs
+        the flush), or while it is the drain thread running the gossip
+        backstop (a handler re-entering apply must take the inline
+        locked path — parking would deadlock the drainer on a flush
+        only it performs)."""
+        return (self._epoch is not None
+                and self._batch_owner != threading.get_ident()
+                and not getattr(self._drain_local, "gossiping", False))
+
+    def _rows_ingest(self, doc_id: str, cols) -> DocHandle:
+        if self._epoch_admission_open():
+            return self._rows_ingest_epoch(doc_id, cols)
+        try:
+            with self._lock:
+                self.add_doc(doc_id)
+                rset = self._resident
+                i = rset.doc_index[doc_id]
+                if rset.ghost_eids[i]:
+                    # reject a ghost-anchored ingress HERE, before it
+                    # coalesces: only the offending sender's call errors,
+                    # never a round shared with innocent peers
+                    rset._check_ghost_anchors_cols(
+                        i, cols, 0, len(cols.op_action))
+                self._pending.setdefault(doc_id, []).append(cols)
+                tok = oplag.admit(doc_id)
+                tracer.admit(doc_id)
+                if tok is not None:
+                    self._lag_pending.append(tok)
+                if not self._batch_depth:
+                    self._flush_locked()
+                handle = self.get_doc(doc_id)
+        except BaseException:
+            self._drain_admitted_shielded()
+            raise
+        self._drain_admitted()
+        return handle
+
+    def _rows_ingest_epoch(self, doc_id: str, cols) -> DocHandle:
+        """Lock-free-admission ingress: append into the striped epoch
+        buffer (one stripe lock, microseconds), kick the flusher, and
+        park until the flush that carried the entry resolves the ticket
+        — the group-commit geometry. The service lock is never touched
+        on this path; concurrent writers' entries coalesce into ONE
+        round, so N writers amortize one flush (bench config 9).
+        Ghost-anchored ingresses are rejected at seal time, failing only
+        the offending ticket; a flush error, however, is group-scoped —
+        it re-raises to EVERY writer riding the failed round, and the
+        round's restored columns may still admit on a later retry flush
+        (the locked path's restore-for-retry semantics, see __init__'s
+        ingest_mode contract note)."""
+        # sync_commit_wait_s is recorded by the resolver (Ticket
+        # .resolve) — the writer's post-wake path stays lock-free.
+        # claimed=True: this thread WILL wait and run the gossip itself,
+        # so the flusher's backstop stays off the round (delivery happens
+        # on the applying thread — in a relay, inside the serve span).
+        PendingIngress(self, self._epoch_append(doc_id, cols,
+                                                claimed=True)).wait()
+        return self.get_doc(doc_id)
+
+    def attach_governor(self, governor) -> None:
+        """Attach an epochs.IngressGovernor: the SLO engine (or any
+        converge-lag feed) drives its judge(); governed admission then
+        delays or sheds low-priority epoch-path ingress while the
+        breach sustains. Detach with attach_governor(None)."""
+        self.ingress_governor = governor
+
+    def _epoch_append(self, doc_id: str, cols, claimed: bool = False):
+        """Shared epoch admission: governor check (SLO-coupled shedding,
+        see attach_governor), oplag-admit, one stripe-lock append, kick
+        the flusher. Both the synchronous and the pipelined ingress
+        park on the returned ticket via PendingIngress.wait, so the
+        wait/drain/re-raise contract lives in exactly one place."""
+        gov = self.ingress_governor
+        gov_delay = 0.0
+        if gov is not None:
+            # delay happens HERE — on the writer thread, before any
+            # buffer or lock is touched, so backpressure lands on the
+            # low-priority sender alone (shed mode raises instead; the
+            # change is re-offered by the sender's next advert cycle)
+            d = gov.admit(doc_id)
+            if d:
+                _time.sleep(d)
+                gov_delay = d
+        # chaos tenant-storm (utils/chaos.py): multiply ONE tenant's
+        # ingress rate by re-appending this batch's columns as extra
+        # un-waited epoch entries — duplicate changes dedup at admission
+        # (actor, seq), so the storm costs real flush/dispatch work
+        # without corrupting state. Inert (one cached check) unless
+        # AMTPU_CHAOS_TENANT_STORM is set.
+        extra = chaos.tenant_storm(self._chaos_node, doc_id)
+        tok = oplag.admit(doc_id)
+        # trace plane: bind this thread's finalized traces to the doc —
+        # governor park recorded, queue_wait opens here (utils/tracer.py)
+        tracer.admit(doc_id, delay_s=gov_delay)
+        ticket = self._epoch.append(doc_id, cols, tok, claimed=claimed)
+        for _ in range(extra):
+            self._epoch.append(doc_id, cols, None)
+        self._kick_or_flush()
+        return ticket
+
+    def _kick_or_flush(self) -> None:
+        """Ticket-liveness hook: re-kick the flusher — or, once close()
+        has stopped it, drain inline so a late writer (e.g. a TCP
+        reader still applying during shutdown) is resolved instead of
+        parked forever behind a dead flusher."""
+        if not self._flusher.kick():
+            self._flush_epochs()
+
+    def _seal_epochs_locked(self) -> list:
+        """The epoch seal (runs under self._lock — its one remaining
+        ingestion duty): swap the striped buffers out and coalesce the
+        drained entries into self._pending, where the existing flush /
+        restore-for-retry machinery takes over. Per-entry pre-admission
+        rejections (ghost anchors) resolve ONLY the offending sender's
+        ticket. Returns the tickets riding the coalesced round."""
+        entries = self._epoch.seal()
+        if not entries:
+            return []
+        tickets: list = []
+        sealed_docs: list = []
+        n_ops = 0
+        for e in entries:
+            try:
+                self.add_doc(e.doc_id)
+                rset = self._resident
+                i = rset.doc_index[e.doc_id]
+                if rset.ghost_eids[i]:
+                    rset._check_ghost_anchors_cols(
+                        i, e.cols, 0, len(e.cols.op_action))
+            except BaseException as exc:
+                e.ticket.resolve(exc)
+                continue
+            self._pending.setdefault(e.doc_id, []).append(e.cols)
+            n_ops += len(e.cols.op_action)
+            if e.tok is not None:
+                oplag.sealed(e.tok)
+                self._lag_pending.append(e.tok)
+            sealed_docs.append(e.doc_id)
+            tickets.append(e.ticket)
+        # trace plane: stamp-only under self._lock (recording defers to
+        # _drain_lag_records, exactly like the oplag tokens above)
+        tracer.sealed(sealed_docs)
+        if n_ops:
+            # bulk-counted here (one metrics-lock crossing per seal, and
+            # in OPS — the registered unit — not buffered entries)
+            metrics.bump("sync_ops_buffered", int(n_ops))
+        flightrec.record("epoch_seal", shard=self._shard,
+                         entries=len(tickets), ops=int(n_ops))
+        return tickets
+
+    #: hard cap (seconds) on the flusher's pre-seal refill probe: the
+    #: probe only yields while the buffer is still GROWING, so the cap
+    #: exists for a pathological never-waiting append flood, not for
+    #: the steady state (which quiesces in a few GIL yields)
+    _REFILL_CAP_S = 5e-4
+
+    def _refill_probe(self) -> None:
+        """Adaptive group-commit window: before sealing, yield the GIL
+        while concurrent writers are still refilling the buffer. The
+        writers a round's resolve just woke are appending their next
+        in-flight window RIGHT NOW — sealing immediately cuts them off
+        mid-refill, pinning rounds at roughly half the writers'
+        pipeline depth (measured: 4.0 ops/round at 4 depth-2 writers,
+        the flusher-cycle-bound plateau of bench config 9). Each
+        `sleep(0)` hands the GIL to a runnable writer; the probe exits
+        as soon as a poll sees no growth (a solo or synchronous writer
+        quiesces on the first poll — no latency tax on the un-contended
+        path, which is why this probe lives here and NOT in the read
+        path's _maybe_flush_locked) or at the hard cap. Unlike the
+        fixed straggler delay measured-and-rejected earlier, this never
+        waits on a CLOCK for work that may not come — only on observed
+        growth."""
+        buf = self._epoch
+        if buf is None:
+            return
+        prev = -1
+        deadline = _time.perf_counter() + self._REFILL_CAP_S
+        while True:
+            cur = buf.count()
+            if cur <= prev or _time.perf_counter() >= deadline:
+                return
+            prev = cur
+            _time.sleep(0)
+
+    def _flush_epochs(self) -> None:
+        """Dedicated-flusher drain: the pre-seal refill probe
+        (_refill_probe — lets the just-woken writers finish appending
+        their next in-flight window so rounds fill toward the full
+        pipeline depth), then one seal + flush + resolve cycle.
+
+        After the drain, the gossip BACKSTOP: the waked writers
+        normally run the admission gossip (their _drain_admitted after
+        wait()), but an apply_columns_async caller that abandons (or
+        long-defers) its handle would otherwise strand _admit_notify —
+        replication silently stalled until unrelated traffic. The
+        backstop runs ONLY when the round carried at least one
+        unclaimed ticket (no writer has committed to waiting on it):
+        a round whose riders are all claimed has a parked writer per
+        ingress, each of which drains the gossip itself right after it
+        wakes — so the flusher must not race them for the handler
+        calls. That keeps delivery on the applying threads (a relayed
+        send stays inside the serve span that triggered it — one trace
+        end to end) and, crucially, keeps the synchronous contract
+        visible: when apply_* returns, its doc's gossip was delivered
+        by a writer thread, not left in flight on this one. The
+        _drain_local guard routes any handler callback that re-enters
+        apply on THIS thread onto the inline locked path, so the
+        drainer can never park on a ticket only it could resolve."""
+        self._refill_probe()
+        riders = self._drain_epochs_once()
+        if riders and all(t.claimed for t in riders):
+            return
+        self._drain_local.gossiping = True
+        try:
+            self._drain_admitted()
+        finally:
+            self._drain_local.gossiping = False
+
+    def _drain_epochs_once(self) -> list:
+        """One drain: seal the open epoch, flush the
+        coalesced round, resolve the riding tickets with the outcome —
+        returned (seal-rejected tickets excluded: their writers wake
+        with the error and run their own shielded gossip drain) so
+        _flush_epochs can decide whether the gossip backstop is needed. A
+        flush error reaches every waiting writer of the round (the same
+        visibility the inline path gave its single caller) while
+        self._pending keeps the existing restore-for-retry rules; the
+        waked writers normally run the admission gossip off the flusher
+        (the drain itself never calls handlers — _flush_epochs runs the
+        guarded backstop pass after it).
+
+        GC is paused for the drain (utils.gcpause, refcounted — same
+        treatment batch() gives its exit flush): the round encode is a
+        burst of small allocations, and generational collections landing
+        inside the flush window were measured at ~1.7x round cost on
+        the 2-core bench host."""
+        from ..utils.gcpause import gc_paused
+
+        exc: BaseException | None = None
+        riders: list = []
+        with self._lock, gc_paused():
+            tickets = self._seal_epochs_locked()
+            riders = tickets
+            # Flush only when the seal coalesced new entries: a restored
+            # _pending round (failed-flush retry state) is retried by the
+            # NEXT ingress/flush/read exactly as in locked mode — the
+            # flusher must not turn a liveness re-kick into a hot retry
+            # loop against a persistent failure.
+            if tickets and self._pending:
+                self._inflight_tickets = tickets
+                try:
+                    self._flush_locked()
+                except BaseException as e:
+                    exc = e
+                finally:
+                    # tickets NOT consumed by the early post-admission
+                    # resolve (the flush failed before admission): theirs
+                    # is the error outcome below
+                    tickets = self._inflight_tickets
+                    self._inflight_tickets = []
+        self._epoch.resolve(tickets, exc)
+        return riders
+
+    def _metric_labels(self) -> dict:
+        return {"shard": self._shard} if self._shard is not None else {}
+
+    def _flush_locked(self) -> None:
+        """Apply every pending per-doc column batch as ONE round frame:
+        the traced sync-round span plus per-round throughput accounting
+        around _flush_pending_locked (which does the work)."""
+        if not self._pending:
+            return
+        labels = self._metric_labels()
+        n_ops = sum(len(c.op_action) for parts in self._pending.values()
+                    for c in parts)
+        self._round_seq += 1
+        round_no = self._round_seq
+        flightrec.record("round_flush", shard=self._shard, round=round_no,
+                         docs=len(self._pending), ops=int(n_ops))
+        # sampled op-lifecycle tokens riding this round (utils/oplag.py):
+        # taken out NOW so a failing flush drops rather than re-times them
+        toks, self._lag_pending = self._lag_pending, []
+        round_docs = (frozenset(self._pending)
+                      if oplag.enabled() or tracer.enabled() else None)
+        phases0 = perfscope.phase_totals() if toks else None
+        t0 = _time.perf_counter()
+        with metrics.trace("sync_round_flush", tags={"round": round_no},
+                           **labels), \
+                dispatchledger.round_scope(
+                    len(self._pending),
+                    label=(f"shard{self._shard}"
+                           if self._shard is not None else None),
+                    tenants=tenantledger.round_tenants(self._pending)):
+            self._flush_pending_locked()
+        if round_docs is not None:
+            deltas = None
+            if toks:
+                p1 = perfscope.phase_totals()
+                deltas = {k: p1.get(k, 0.0) - phases0.get(k, 0.0)
+                          for k in ("pack", "dispatch", "device_wait")}
+            # stage recording happens OUTSIDE self._lock (and outside the
+            # round-latency window below): _drain_lag_records drains this
+            # after release, so the profiler's own cost never inflates
+            # the hold-time / round-latency baselines it exists to record
+            self._lag_flushed.append(
+                (toks, round_docs, t0, _time.perf_counter() - t0, deltas,
+                 round_no))
+        # failure paths raise out of the span (its timing still records).
+        # The swallowed mid-admission rebuild path restores the round to
+        # self._pending for retry — subtract those ops so throughput
+        # counters only see rounds whose changes reached truth (the retry
+        # flush counts them when they actually admit).
+        metrics.observe("sync_round_seconds", _time.perf_counter() - t0)
+        restored = sum(len(c.op_action) for parts in self._pending.values()
+                       for c in parts)
+        if restored < n_ops:
+            metrics.bump("sync_rounds_flushed", **labels)
+            metrics.bump("sync_ops_ingested", int(n_ops - restored),
+                         **labels)
+
+    def _flush_pending_locked(self) -> None:
+        """Apply every pending per-doc column batch as ONE round frame
+        through the streaming engine's batched admission; queue handler
+        notifications for the docs that admitted changes."""
+        if not self._pending:
+            return
+        # chaos slow-apply (utils/chaos.py): an env-gated injected stall
+        # inside the flush window — the fault class the fleet doctor
+        # attributes as "slow_apply". Inert (one cached check) unless
+        # AMTPU_CHAOS_SLOW_APPLY_S is set.
+        chaos.slow_apply(self._chaos_node)
+        from .frames import round_from_parts
+
+        pending = self._pending
+        self._pending = {}
+        rset = self._resident
+        # Admission detection: log-length compares, guarded by the
+        # engine's rebuild generation. Lengths are O(1) per doc (clock
+        # reads would materialize a fast-path StaleView per touched doc
+        # per flush — measured ~18% of a 2000-change fleet round); they
+        # are only misleading across a mid-admission rebuild, which
+        # restores the archived prefix into change_log — in that rare
+        # case (generation bumped) every doc of the round conservatively
+        # reports changed, costing at most spurious idempotent gossip.
+        # The rebuild path that needs exact restores does not use
+        # _changed: it restores the whole round via admission_complete.
+        pre_gen = getattr(rset, "_rebuild_gen", 0)
+        pre = {d: len(rset.change_log[rset.doc_index[d]]) for d in pending}
+
+        def _changed(d):
+            if getattr(rset, "_rebuild_gen", 0) != pre_gen:
+                return True
+            return len(rset.change_log[rset.doc_index[d]]) > pre[d]
+        try:
+            self._flush_pending_inner_locked(rset, pending, _changed)
+        finally:
+            # a mid-flush rebuild swapped the engine internals: every
+            # doc's log list was replaced, so the whole snapshot read
+            # plane (clock/log caches) must re-key — and the stale
+            # entries are dropped outright (they pin pre-rebuild lists)
+            if getattr(rset, "_rebuild_gen", 0) != pre_gen:
+                self._read_gen += 1
+                self._clock_cache.clear()
+                self._log_cache.clear()
+
+    def _early_resolve_locked(self) -> None:
+        """Resolve the in-flight epoch tickets (set by the epoch drain
+        paths around _flush_locked) as soon as the round's admission and
+        cache invalidation are durable. No-op when the flush was not
+        carrying epoch tickets (locked mode, batch exits, retries)."""
+        t, self._inflight_tickets = self._inflight_tickets, []
+        if t:
+            # release every futex here (one cheap wake each); the
+            # sync_commit_wait_s observes are deferred to
+            # _drain_lag_records OUTSIDE self._lock — per-ticket registry
+            # crossings under the hold would inflate exactly the
+            # service-lock hold time this refactor gates
+            self._commit_waits.extend(
+                w for w in (tk.resolve() for tk in t) if w is not None)
+
+    def _bump_read_vers_locked(self, docs) -> None:
+        """Invalidate the per-doc snapshot read caches (clock_of /
+        missing_changes) for docs whose clock or admitted log moved.
+        Invalidation rules mirror the hash-epoch plane (INTERNALS.md):
+        admission and archival bump the touched doc; rebuild bumps the
+        generation (_read_gen) in _flush_pending_locked; compaction
+        bumps nothing (clocks and logs are untouched by row reclaim).
+        Stale cache entries are EVICTED, not just out-keyed: a doc's
+        cached log tuple pins the pre-archival change_log, and keeping
+        it would re-grow exactly the RAM the log-horizon layer
+        reclaims."""
+        for d in docs:
+            self._doc_ver[d] = self._doc_ver.get(d, 0) + 1
+            self._clock_cache.pop(d, None)
+            self._log_cache.pop(d, None)
+
+    def _flush_pending_inner_locked(self, rset, pending, _changed) -> None:
+        try:
+            self._apply_with_compaction(rset, pending)
+        except DeviceDispatchError as e:
+            # The admitted part of the flush is durable on the host
+            # (change_log, clocks, queue and the row mirror are consistent).
+            # admission_complete=True (pure dispatch failure): every change
+            # in the round reached host truth — admitted, causally queued,
+            # or dropped as a duplicate — so nothing needs retrying.
+            # admission_complete=False (mid-admission rebuild-from-log):
+            # the unprocessed suffix of the round is in neither the rebuilt
+            # log nor the queue, so restore EVERY doc of the round — the
+            # engine's (actor, seq) dedup drops the already-admitted prefix
+            # idempotently and the retry admits exactly the remainder.
+            if not getattr(e, "admission_complete", False):
+                self._pending = dict(pending)
+        except CompactionAnchorError as e:
+            # Deterministic pre-admission rejection: the offending doc's
+            # round anchors at a compacted element and can never admit —
+            # drop it (the sender needs a full resync) instead of wedging
+            # every later flush on the same retry; restore the rest.
+            self._pending = {
+                d: cols for d, cols in pending.items()
+                if d != e.doc_id and not _changed(d)}
+            self._bump_read_vers_locked(
+                d for d in pending if _changed(d))
+            raise
+        except Exception:
+            # Pre-admission failure (budget precheck, malformed frame, …).
+            # Restore ONLY the docs whose changes verifiably did not admit
+            # (_changed: rebuild-generation-guarded log-length compare);
+            # re-queueing an admitted doc would
+            # make the retry drop its changes as duplicates while its ops
+            # are already in row state — silent divergence. Docs that did
+            # admit still gossip below via the shared tail.
+            self._pending = {d: cols for d, cols in pending.items()
+                             if not _changed(d)}
+            if self.handlers:
+                self._admit_notify.extend(d for d in pending
+                                          if _changed(d))
+            self._bump_read_vers_locked(
+                d for d in pending if _changed(d))
+            raise
+        admitted = [d for d in pending if _changed(d)]
+        if self.doc_ledger is not None:
+            # per-doc admission stamps (counts only — the ledger's flush
+            # contract forbids clock reads here; lag restamps ride the
+            # read cache). Submitted-change counts, not post-dedup: the
+            # ledger's usefulness split happens at DELIVERY, this stamp
+            # marks frontier movement + recency.
+            for d in admitted:
+                self.doc_ledger.note_admit(
+                    d, sum(int(p.n_changes) for p in pending[d]))
+        for d in admitted:
+            tenantledger.note_ingress(
+                d, sum(int(p.n_changes) for p in pending[d]))
+        if self.handlers:
+            # no registered handlers -> no notifications to queue: the
+            # post-flush drain then needs no service-lock reacquisition
+            # per admitted doc (measured as the residual service-lock
+            # traffic of the epoch admission path)
+            self._admit_notify.extend(admitted)
+        self._bump_read_vers_locked(admitted)
+        # Log-horizon auto-trigger: MUST run after `admitted` above —
+        # archiving shrinks change_log, and the length-based _changed is
+        # only sound before any archival of this flush's docs.
+        if self.log_horizon_changes is not None \
+                and getattr(rset, "log_archive", None) is not None:
+            for d in admitted:
+                i = rset.doc_index[d]
+                if len(rset.change_log[i]) > self.log_horizon_changes:
+                    floor = self._compaction_floor_locked(d)
+                    if floor:
+                        rset.archive_log_prefix(d, floor)
+        # Host admission (and any archival) is durable and the snapshot
+        # read plane re-keyed: the round's riding tickets can resolve
+        # NOW, overlapping the remaining flush tail (span/metric
+        # accounting, lock release) with the writers' wake-and-next-
+        # append window — on a 2-core host that serial wake chain was a
+        # measurable slice of every group-commit cycle. Notifications
+        # were queued above, so a woken writer's drain sees them; the
+        # archival runs BEFORE this, so apply's post-conditions (horizon
+        # set, RAM log bounded) hold the moment the writer returns.
+        self._early_resolve_locked()
+
+    def _apply_with_compaction(self, rset, pending: dict) -> None:
+        """Apply one coalesced round; on VMEM-budget pressure, compact
+        every doc to its known-peer clock floor (engine/compaction.py) and
+        retry once. RowsBudgetError is raised BEFORE admission, so the
+        retry re-submits the identical round against the reclaimed state —
+        this is what lets a single long-lived document outlive the
+        pre-compaction budget instead of hitting a hard admission wall."""
+        from ..engine.resident_rows import RowsBudgetError
+        from .frames import round_from_parts
+
+        if not getattr(self, "_lazy_resolved", False):
+            # CPU services defer the reconcile to hash reads (admission is
+            # O(changes); a per-flush reconcile is O(state)); on the card
+            # every flush launches the reconcile
+            rset.lazy_dispatch = rset.device.type == "cpu"
+            self._lazy_resolved = True
+
+        # r20 megabatch handoff: the coalesced round frame (every doc
+        # dirtied this round, one columnar frame) IS the unit the engine's
+        # round planner buckets into fused multi-doc dispatches
+        # (engine/dispatch.py plan_round / apply_round_adaptive). Below
+        # AMTPU_MEGABATCH_MIN_DOCS — or on a cost-model loss — the engine
+        # falls back to the per-doc-era dispatch paths; converged hashes
+        # are byte-equal either way (tests/test_megabatch.py pins it).
+        round_ = round_from_parts(pending)
+        try:
+            rset.apply_round_frames([round_])
+        except RowsBudgetError:
+            floors = {d: self._compaction_floor_locked(d)
+                      for d in rset.doc_ids}
+            stats = rset.compact(floors, self._pending_anchor_pins(pending))
+            if not any(s["ops_after"] < s["ops_before"]
+                       or s["elems_after"] < s["elems_before"]
+                       for s in stats.values()):
+                raise   # nothing reclaimable: the batch genuinely oversized
+            rset.apply_round_frames([round_])
+
+    @staticmethod
+    def _pending_anchor_pins(pending: dict) -> dict[str, set]:
+        """Anchor element ids the coalesced pending round inserts after:
+        compaction must not reclaim these — the round was generated before
+        its sender could have seen any tombstone-covering floor, so the
+        floor argument does not apply to it (it is already in flight)."""
+        import numpy as np
+
+        from ..core.ids import HEAD
+        from ..storage import _ACTION_IDX
+
+        pins: dict[str, set] = {}
+        for d, parts in pending.items():
+            p: set = set()
+            for cols in parts:
+                acts = np.asarray(cols.op_action)
+                for j in np.nonzero(acts == _ACTION_IDX["ins"])[0].tolist():
+                    k = int(cols.op_key[j])
+                    if k >= 0 and cols.keys[k] != HEAD:
+                        p.add(cols.keys[k])
+            if p:
+                pins[d] = p
+        return pins
+
+    def flush(self) -> None:
+        """Apply any coalesced ingress now (rows backend; no-op otherwise).
+        Epoch mode: also seals and flushes any buffered epoch entries
+        inline (readers must never depend on flusher liveness)."""
+        if self.backend != "rows":
+            return
+        try:
+            with self._lock:
+                self._maybe_flush_locked()
+        except BaseException:
+            self._drain_admitted_shielded()
+            raise
+        self._drain_admitted()
+
+    def close(self) -> None:
+        """Flush any buffered ingress and stop (join) the flusher thread.
+        Idle flushers exit on their own after the linger window, so
+        close() is a courtesy for deterministic teardown, not a
+        correctness requirement."""
+        if self._epoch is not None and not self._epoch.empty():
+            try:
+                self.flush()
+            except Exception:
+                pass   # tickets carried the error to their writers
+        if self._flusher is not None:
+            self._flusher.stop()
+        if self._chaos_holder is not None:
+            self._chaos_holder.stop()
+            self._chaos_holder = None
+        # the closed node's ledger leaves the snapshot section (late
+        # hooks on still-attached connections keep working against the
+        # detached object)
+        docledger.detach(self)
+
+    def batch(self):
+        """Context manager: coalesce every ingress inside the block into
+        ONE device dispatch at exit (rows backend). The service lock is
+        held for the duration, so the block must not wait on other threads
+        that ingest into this node. Generational GC pauses for the whole
+        block INCLUDING the exit flush (utils.gcpause — refcounted, so
+        concurrent nodes cannot re-enable each other mid-burst): a burst
+        of small ingress allocations would otherwise trigger gen-2 scans
+        over the whole service heap — measured at ~4x the round cost on a
+        100K-doc fleet node."""
+        import contextlib
+
+        from ..utils.gcpause import gc_paused
+
+        @contextlib.contextmanager
+        def _cm():
+            try:
+                with self._lock, gc_paused():
+                    prev_owner = self._batch_owner
+                    self._batch_owner = threading.get_ident()
+                    self._batch_depth += 1
+                    try:
+                        yield self
+                    finally:
+                        self._batch_depth -= 1
+                        self._batch_owner = prev_owner
+                        if not self._batch_depth:
+                            self._flush_locked()
+            except BaseException:
+                self._drain_admitted_shielded()
+                raise
+            self._drain_admitted()
+            # other threads' ingresses buffered while this batch held the
+            # lock: hand them to the flusher now
+            if self._epoch is not None and not self._epoch.empty() \
+                    and self._flusher is not None:
+                self._flusher.kick()
+        return _cm()
+
+    def _drain_admitted_shielded(self) -> None:
+        """Drain on an exception path: admitted docs must still gossip, but
+        a handler error must not replace the original (retryable) error
+        propagating past the caller."""
+        try:
+            self._drain_admitted()
+        except Exception:
+            pass
+
+    def _drain_lag_records(self) -> None:
+        """Record sampled op-lifecycle stages for flushed rounds OUTSIDE
+        self._lock: histogram updates, flight-recorder appends, and the
+        periodic percentile refresh must not inflate the service-lock
+        hold time or round latency the contention plane exists to
+        measure. Runs before handler gossip so every token is parked in
+        the awaiting-wire table before its doc's message leaves."""
+        if self._commit_waits:
+            with self._lock:
+                waits, self._commit_waits = self._commit_waits, []
+            for w in waits:
+                metrics.observe("sync_commit_wait_s", w)
+        if not self._lag_flushed:
+            return
+        with self._lock:
+            batch, self._lag_flushed = self._lag_flushed, []
+        for toks, round_docs, t0, flush_s, deltas, round_no in batch:
+            # retire stale awaiting tokens for docs this round re-flushed
+            # BEFORE parking the round's own tokens
+            oplag.flush_boundary(round_docs)
+            for tok in toks:
+                oplag.flushed(tok, flush_start=t0, flush_s=flush_s,
+                              phases=deltas)
+            # trace plane: the round's sampled lifecycle traces record
+            # queue_wait / coalesce_wait / dispatch and park in the
+            # awaiting-wire table — like the tokens above, BEFORE the
+            # handler gossip ships their docs' messages
+            tracer.flush_round(round_docs, round_no, t0, flush_s)
+
+    def _drain_admitted(self) -> None:
+        """Notify handlers for admitted docs, outside self._lock (a handler
+        — e.g. a Connection — may call back into this node). Inside a
+        batch() the calling thread still holds the lock, so draining
+        defers to the batch exit (which runs after release).
+
+        NON-REENTRANT per thread: a handler's read (Connection
+        .doc_changed reads clock_of, whose post-read drain lands back
+        here) must NOT start an inner drain — the inner pass would
+        deliver a LATER admission of the same doc first, record its
+        newer clock on the connection, and hand the outer doc_changed
+        frame a clock the old-state guard then rejects ("Cannot pass an
+        old state object"). The outermost frame's loop is still
+        running, so anything a handler's callback admits or re-queues
+        is delivered by IT, after the current handler returns — in
+        admission order. (missing_changes(drain=False) solves the same
+        hazard for the one caller that holds a non-reentrant lock; this
+        guard covers every read a handler may reach.)"""
+        self._drain_lag_records()
+        if not self._admit_notify:
+            # unlocked fast path (GIL-atomic list peek): nothing queued,
+            # so don't touch the service lock at all — the locked loop
+            # below stays authoritative when the peek sees entries
+            return
+        if getattr(self._drain_local, "draining", False):
+            return
+        self._drain_local.draining = True
+        try:
+            while True:
+                with self._lock:
+                    if self._batch_depth or not self._admit_notify:
+                        return
+                    doc_id = self._admit_notify.pop(0)
+                    handle = self.get_doc(doc_id)
+                for handler in list(self.handlers):
+                    handler(doc_id, handle)
+        finally:
+            self._drain_local.draining = False
+
+    def _drain_notifications(self) -> None:
+        """Deliver queued diff batches to view subscribers in ingress order.
+        Whichever thread holds _notify_lock drains everything pending
+        (including batches enqueued by other ingress threads, which then
+        find the queue empty — their batch was delivered for them, still in
+        order)."""
+        with self._notify_lock:
+            while True:
+                with self._lock:
+                    if not self._notify_queue:
+                        return
+                    doc_id, records = self._notify_queue.pop(0)
+                for sub in list(self._view_subs):
+                    sub(doc_id, records)
+
+    # -- live views -----------------------------------------------------------
+
+    def subscribe_views(self, callback: Callable) -> None:
+        """callback(doc_id, records): the engine's diff stream, per round —
+        the surface a remote frontend folds into its own mirror."""
+        if callback not in self._view_subs:
+            self._view_subs.append(callback)
+
+    def view(self, doc_id: str):
+        """Current materialized view from the incrementally-maintained
+        mirror (live_views mode): no device work, no log replay."""
+        from ..core.ids import ROOT_ID
+        with self._lock:
+            if not self.live_views:
+                raise RuntimeError("EngineDocSet(live_views=True) required")
+            m = self._views.get(doc_id)
+            if m is None:
+                return {"data": {}, "conflicts": {}}
+            return m.snapshot(ROOT_ID)
+
+    # -- protocol reads -------------------------------------------------------
+
+    def _maybe_flush_locked(self) -> None:
+        """Reads must observe pending coalesced ingress (rows backend).
+        Epoch mode: seal any buffered entries first and resolve their
+        tickets with the flush outcome — the inline twin of the
+        flusher's drain, so a read's recency never depends on flusher
+        scheduling."""
+        if self.backend != "rows":
+            return
+        tickets = (self._seal_epochs_locked()
+                   if self._epoch is not None else [])
+        if not self._pending:
+            epochs.EpochIngestBuffer.resolve(tickets)
+            return
+        self._inflight_tickets = tickets
+        try:
+            self._flush_locked()
+        except BaseException as e:
+            leftover, self._inflight_tickets = self._inflight_tickets, []
+            epochs.EpochIngestBuffer.resolve(leftover, e)
+            raise
+        leftover, self._inflight_tickets = self._inflight_tickets, []
+        epochs.EpochIngestBuffer.resolve(leftover)
+
+    def _read_key(self, doc_id: str) -> tuple[int, int]:
+        """Validity key of a doc's snapshot read cache: the rebuild
+        generation plus the per-doc admission version (the read-surface
+        twin of the engine's hash epoch)."""
+        return (self._read_gen, self._doc_ver.get(doc_id, 0))
+
+    def _snap_fresh(self, doc_id: str, snap) -> bool:
+        """True when a cached per-doc snapshot may serve lock-free: the
+        key still matches, nothing is pending a flush, and no buffered
+        epoch entries exist for this doc. All reads here are GIL-atomic
+        dict peeks; any race with a concurrent flush either serves the
+        pre-flush snapshot (the read linearizes before the write) or
+        routes to the locked fill path."""
+        return snap is not None and snap[0] == self._read_key(doc_id) \
+            and not self._pending \
+            and (self._epoch is None or not self._epoch.has(doc_id))
+
+    def clock_of(self, doc_id: str) -> dict[str, int]:
+        snap = self._clock_cache.get(doc_id)
+        if self._snap_fresh(doc_id, snap):
+            metrics.bump("sync_reads_cached")
+            return dict(snap[1])
+        try:
+            with self._lock:
+                self._maybe_flush_locked()
+                i = self._resident.doc_index[doc_id]
+                out = dict(self._resident.tables[i].clock)
+                self._clock_cache[doc_id] = (self._read_key(doc_id), out)
+        except BaseException:
+            self._drain_admitted_shielded()
+            raise
+        self._drain_admitted()  # a read-triggered flush may have admitted
+        return dict(out)
+
+    def missing_changes(self, doc_id: str, clock: dict[str, int],
+                        drain: bool = True) -> list[Change]:
+        """Per-actor suffixes newer than `clock` (op_set.js:299-306). Log
+        entries may be lazy frame refs; they materialize here, only for the
+        changes a lagging peer actually needs.
+
+        drain=False skips the read-triggered notification drain: a caller
+        running INSIDE an admission-gossip handler (PerOpDiffStream's fold,
+        which holds a non-reentrant lock) must not re-enter the handler
+        chain from its own read — the outer drain loop delivers whatever
+        this read's flush admitted."""
+        if self.backend == "rows":
+            # Rows path: served from the per-doc log snapshot (immutable
+            # — archive_log_prefix REBINDS change_log[i], so a captured
+            # tuple never mutates under a reader). The per-peer seq
+            # filter and any archive cold read run OUTSIDE the service
+            # lock: one lagging peer's O(history) cold parse no longer
+            # stalls flushes (logarchive.py additionally caches the
+            # parsed prefix keyed by file size).
+            snap = self._log_cache.get(doc_id)
+            if self._snap_fresh(doc_id, snap):
+                metrics.bump("sync_reads_cached")
+            else:
+                snap = self._fill_log_cache_locked(doc_id, drain)
+            if snap is None:
+                return []
+            _key, log, hz, archive = snap
+            out = [c if isinstance(c, Change) else c.change()
+                   for c in log if c.seq > clock.get(c.actor, 0)]
+            if hz and archive is not None \
+                    and any(clock.get(a, 0) < s for a, s in hz.items()):
+                # peer is behind the log horizon: transparent cold read
+                # of the archived prefix — the reference {docId, clock,
+                # changes} protocol is unchanged, the serving side just
+                # pays a (cached) file read. Clipped to the snapshotted
+                # horizon: after a rebuild restored the full log to RAM,
+                # a later partial re-archive can leave the archive
+                # holding more than the horizon covers — the RAM tail
+                # already serves that overlap.
+                metrics.bump("sync_archive_cold_reads")
+                reader = getattr(archive, "read_since", None)
+                src = (reader(doc_id, clock) if reader is not None
+                       else archive.read(doc_id))
+                cold = [c for c in src
+                        if clock.get(c.actor, 0) < c.seq
+                        <= hz.get(c.actor, 0)]
+                out = cold + out
+            return out
+        try:
+            with self._lock:
+                self._maybe_flush_locked()
+                out = []
+                for actor, changes in self._log.get(doc_id, {}).items():
+                    have = clock.get(actor, 0)
+                    out.extend(c if isinstance(c, Change) else c.change()
+                               for c in changes if c.seq > have)
+        except BaseException:
+            if drain:
+                self._drain_admitted_shielded()
+            raise
+        if drain:
+            self._drain_admitted()
+        return out
+
+    def _fill_log_cache_locked(self, doc_id: str, drain: bool = True):
+        """Refresh one doc's log snapshot under the service lock: flush
+        pending ingress, then capture (validity key, log tuple, horizon
+        copy, archive handle). The capture is O(log tail) pointer
+        copies; every later read of the doc until its next admission is
+        lock-free. Returns None for unknown docs."""
+        try:
+            with self._lock:
+                self._maybe_flush_locked()
+                rset = self._resident
+                i = rset.doc_index.get(doc_id)
+                if i is None:
+                    snap = None
+                else:
+                    hz = rset.log_horizon[i]
+                    snap = (self._read_key(doc_id),
+                            tuple(rset.change_log[i]),
+                            dict(hz) if hz else {},
+                            rset.log_archive if hz else None)
+                    self._log_cache[doc_id] = snap
+        except BaseException:
+            if drain:
+                self._drain_admitted_shielded()
+            raise
+        if drain:
+            self._drain_admitted()
+        return snap
+
+    # -- engine reads ---------------------------------------------------------
+
+    def hashes(self) -> dict[str, int]:
+        """Converged per-doc state hashes, O(dirty) not O(fleet): the
+        engine serves clean docs from its host hash mirror and reconciles
+        only docs touched since the last read (engine/resident_rows.py
+        `_reconcile_lanes`); a clean read does zero device work."""
+        return self.hashes_snapshot()[0]
+
+    def hashes_snapshot(self) -> tuple[dict[str, int], int]:
+        """hashes() plus the engine hash epoch the result corresponds to —
+        the pair ShardedEngineDocSet caches per shard: the cached dict
+        stays servable while `hashes_dirty_since(epoch)` is False."""
+        try:
+            with metrics.trace("sync_hashes", **self._metric_labels()), \
+                    self._lock:
+                self._maybe_flush_locked()
+                h = self._resident.hashes()
+                epoch = self._resident.hash_epoch
+                out = {d: int(h[i])
+                       for d, i in self._resident.doc_index.items()}
+        except BaseException:
+            self._drain_admitted_shielded()
+            raise
+        self._drain_admitted()
+        # trace plane: this converged-hash read makes every admitted
+        # change visible — complete the awaiting lifecycle traces (after
+        # _drain_admitted, so a round flushed by THIS read gossips its
+        # traces out before visibility can claim them locally)
+        tracer.visible(None)
+        flightrec.record("hash_read", shard=self._shard, docs=len(out))
+        rb = getattr(self._resident, "resident_bytes", None)
+        if callable(rb):    # per-shard memory footprint for post-mortems
+            metrics.gauge("sync_shard_resident_bytes", rb(),
+                          shard=str(self._shard))
+        return out, epoch
+
+    def hashes_dirty_since(self, epoch: int) -> bool:
+        """True when a hashes() read could differ from one taken at
+        `epoch`: either the engine mutated since (admission, compaction,
+        rebuild, new docs — engine.hash_epoch moved) or coalesced ingress
+        is pending (a read flushes it first)."""
+        with self._lock:
+            return bool(self._pending) \
+                or (self._epoch is not None
+                    and not self._epoch.empty()) \
+                or self._resident.hash_epoch != epoch
+
+    def hashes_for(self, doc_ids) -> dict[str, int]:
+        """Partial convergence read: hashes for ONLY the named docs,
+        reconciling nothing else (engine hashes_for is O(requested ∩
+        dirty)). Unknown ids are silently absent from the result — the
+        auditor compares the shared-doc intersection anyway."""
+        try:
+            with metrics.trace("sync_hashes", **self._metric_labels()), \
+                    self._lock:
+                self._maybe_flush_locked()
+                rset = self._resident
+                known = [d for d in doc_ids if d in rset.doc_index]
+                vals = rset.hashes_for([rset.doc_index[d] for d in known])
+                out = {d: int(v) for d, v in zip(known, vals)}
+        except BaseException:
+            self._drain_admitted_shielded()
+            raise
+        self._drain_admitted()
+        tracer.visible(out)   # partial read: only the named docs turn visible
+        flightrec.record("hash_read", shard=self._shard, docs=len(out))
+        return out
+
+    # -- convergence audit surface (sync/audit.py) ----------------------------
+
+    @property
+    def _audit_label(self) -> str:
+        return self._shard if self._shard is not None else "0"
+
+    def audit_state(self) -> dict[str, dict]:
+        """Per-shard audit digests: `{shard: {"digest": crc32, "docs": n}}`
+        over the engine's converged per-doc hashes. A standalone node is
+        its own single shard (label "0"); inside a ShardedEngineDocSet the
+        label is the shard index, so the auditor's divergence report names
+        the shard that owns the offending doc."""
+        from .audit import state_digest
+        h = self.hashes()
+        return {self._audit_label: {"digest": state_digest(h),
+                                    "docs": len(h)}}
+
+    def audit_shard_state(self, shard: str) -> dict:
+        """Doc-level audit detail for one shard: the engine's per-doc
+        convergence hashes plus each doc's clock frontier (the auditor
+        only alarms where clocks are EQUAL but hashes differ)."""
+        if shard != self._audit_label:
+            raise KeyError(f"not shard {shard!r} (this is "
+                           f"{self._audit_label!r})")
+        h = self.hashes()
+        return {"hashes": h,
+                "clocks": {d: self.clock_of(d) for d in h}}
+
+    def materialize(self, doc_id: str):
+        """Decode one document's converged state from the device."""
+        try:
+            with self._lock:
+                self._maybe_flush_locked()
+                out = self._resident.materialize(doc_id)
+        except BaseException:
+            self._drain_admitted_shielded()
+            raise
+        self._drain_admitted()
+        return out

@@ -10,7 +10,8 @@ the rows engine (`ResidentRowsDocSet.apply_round_frames`, `apply_rounds`,
 `apply_changes`, `hashes_for`, `batchdoc.apply_batch`) and its diff plane
 (`apply_and_reconcile_columns(..., diffs=True)`, `diffs.MirrorDoc`), and the
 document API with the interpretive OpSet (`api.load`, `OpSet.add_changes`,
-`ResidentRowsDocSet.materialize`, `dispatch.apply_batch_adaptive`). Ingress
+`ResidentRowsDocSet.materialize`, `dispatch.apply_batch_adaptive`), and
+the sync service (`sync.service.EngineDocSet`, `Connection`). Ingress
 runs the native C++ encoder, built with g++ at first use, unless a line says
 native=False.
 
@@ -156,7 +157,26 @@ Phases:
      device route, hashes equal to apply_batch's) and on a batch small
      enough to plan the host (documents equal to apply_batch's decode).
      The kernels line adds (a) and (b)'s B4 launches and (f)'s B5 and
-     linearize launches.
+     linearize launches;
+ 13. the sync service, EngineDocSet, on the card: (a) bench config 20's
+     map storm (phase 2's streams) through EngineDocSet(backend="rows")
+     in the default epoch mode, each round one svc.batch() of
+     apply_changes and a hashes() read (the flush and read walls, p50 and
+     p99), hashes equal to phase 2 (a)'s; then 100 late docs and a
+     minority hashes_for of 110 docs on the megabatch route, equal to
+     phase 2 (c)'s engine; (b) bench config 9's concurrent writers (1 and
+     4 threads, 400 one-op changes each over 8 docs, depth 2,
+     apply_columns_async) in epoch and locked mode: admission ops/s, the
+     service-lock wait, the commit wait, rounds (the `writers` line); the
+     first and last doc of each writer equal to apply_batch of its log;
+     (c) bench config 5's docset fleet, cut to its first 2,000 docs and 4
+     rounds, written round by round into a rows hub and gossiped over
+     Connection(wire="columnar") through in-process queues to an
+     EngineDocSet(backend="resident", live_views=True): the gossip wall
+     and the records a round, both nodes' hashes equal to each other and
+     to phase 9's, 64 views equal to the hub's materialize. The kernels
+     line adds (a) and (b)'s B1 launches and (c)'s B5 and linearize
+     launches.
 Then the kernel timings (each kernel's launches timed three ways:
 `kernel_ms` from CUDA events around a host loop of launches, the host's
 `enqueue_ms` per launch in that loop, and `graph_ms` from a replay of the
@@ -736,6 +756,15 @@ def phase_linearize_parity(torch, dev, report):
               f"equal to the plain version")
 
 
+def admission_rounds() -> dict:
+    """The rows engine's rounds by admission route so far (its metrics
+    counters): the whole micro-batch vectorized, or round by round."""
+    from automerge_tpu_torch.utils import metrics
+    snap = metrics.snapshot()
+    return {k: snap.get(k, 0)
+            for k in ("rows_rounds_batched", "rows_rounds_fallback")}
+
+
 def p50(xs) -> float:
     return sorted(xs)[len(xs) // 2]
 
@@ -956,7 +985,6 @@ def drive_map_storm(torch, dev):
     the route's megabatch account."""
     from automerge_tpu_torch.engine import cuda_kernels as ck
     from automerge_tpu_torch.engine import dispatchledger
-    from automerge_tpu_torch.engine import resident_rows as rr
     from automerge_tpu_torch.engine.resident_rows import ResidentRowsDocSet
     from automerge_tpu_torch.sync.frames import encode_round_frame
     from automerge_tpu_torch.workloads import map_storm
@@ -976,10 +1004,10 @@ def drive_map_storm(torch, dev):
         ds.apply_round_frames([heavy_frame])
         ds.hashes()
         heavy_s = time.perf_counter() - t0
-        before = dict(rr.ROUNDS)
+        before = admission_rounds()
         final, walls, per_round = frame_rounds(ds, frames)
     launches = ck.LAUNCHES["reconcile_rows_hash"]
-    moved = {k: rr.ROUNDS[k] - before[k] for k in before}
+    moved = {k: admission_rounds()[k] - before[k] for k in before}
     check(moved == {"rows_rounds_batched": len(frames),
                     "rows_rounds_fallback": 0},
           f"map storm frames: rounds not all batched: {moved}")
@@ -989,13 +1017,13 @@ def drive_map_storm(torch, dev):
     mb = ResidentRowsDocSet(ids, device=dev)
     mb.apply_round_frames([heavy_frame])
     mb.hashes()
-    before = dict(rr.ROUNDS)
+    before = admission_rounds()
     t0 = time.perf_counter()
     h = mb.apply_round_frames(frames)
     t1 = time.perf_counter()
     mb_final = ck.hashes_to_numpy(h)[:n]
     mb_s, mb_read_s = t1 - t0, time.perf_counter() - t1
-    mb_moved = {k: rr.ROUNDS[k] - before[k] for k in before}
+    mb_moved = {k: admission_rounds()[k] - before[k] for k in before}
     check(mb_moved["rows_rounds_fallback"] == 0,
           f"map storm micro-batch fell back: {mb_moved}")
 
@@ -1098,7 +1126,6 @@ def drive_text_fleet(torch, dev):
     main path through apply_round_frames (a frame a call, each read
     back), then apply_rounds with the native and the Python encoder."""
     from automerge_tpu_torch.engine import cuda_kernels as ck
-    from automerge_tpu_torch.engine import resident_rows as rr
     from automerge_tpu_torch.engine.pack import rows_dims_eligible
     from automerge_tpu_torch.engine.resident_rows import ResidentRowsDocSet
     from automerge_tpu_torch.sync.frames import encode_round_frame
@@ -1111,11 +1138,11 @@ def drive_text_fleet(torch, dev):
     t0 = time.perf_counter()
     ds.hashes()                      # startup read: full-buffer branch
     t1 = time.perf_counter()
-    before = dict(rr.ROUNDS)
+    before = admission_rounds()
     with recorded_plans() as frame_plans:
         final, walls, per_round = frame_rounds(ds, frames)
     launches = ck.LAUNCHES["reconcile_rows_hash"]
-    moved = {k: rr.ROUNDS[k] - before[k] for k in before}
+    moved = {k: admission_rounds()[k] - before[k] for k in before}
     check(rows_dims_eligible(*ds.dims()[:3]), "text dims off the envelope")
     check(not frame_plans, "text fleet frames: a frame round was planned")
 
@@ -2487,6 +2514,315 @@ def drive_api(torch, dev, report, text_ds, docs_ds, long_keep):
           f"{time.perf_counter() - t_phase:.1f} s")
     return n_b4, n_dom, n_lin
 
+# Phase 13 (c) holds the first LIVE_DOCS docs of the docset fleet and its
+# first LIVE_ROUNDS rounds: each message the live node receives runs one
+# docs-major apply over its whole fleet, so the gossip costs grow with the
+# square of the fleet (at 2,000 docs a round takes seconds, and all 12
+# rounds ran past the phase's time budget).
+LIVE_DOCS = 2_000
+LIVE_ROUNDS = 4
+# The live node's views compared with the hub's materialize.
+LIVE_SAMPLE = 64
+
+
+def storm_through_service(dev, ids, heavy, storm):
+    """Phase 13 (a): bench config 20's storm through EngineDocSet(backend=
+    "rows") on the card in the default (epoch) mode: the heavy round, then
+    each storm round as one svc.batch() of apply_changes, each followed by
+    a hashes() read. Returns the service, its hashes after the storm, the
+    flush walls and the read walls."""
+    from automerge_tpu_torch.sync.service import EngineDocSet
+    svc = EngineDocSet(ids, backend="rows", device=dev)
+    check(svc.ingest_mode == "epoch", "the rows service is not in epoch mode")
+    with svc.batch():
+        for d, chs in heavy.items():
+            svc.apply_changes(d, chs)
+    svc.hashes()
+    check(svc._resident.lazy_dispatch is False,
+          "a service on the card deferred its reconcile")
+    flush_walls, read_walls = [], []
+    for rnd in storm:
+        t0 = time.perf_counter()
+        with svc.batch():
+            for d, chs in rnd.items():
+                svc.apply_changes(d, chs)
+        t1 = time.perf_counter()
+        h = svc.hashes()
+        read_walls.append(time.perf_counter() - t1)
+        flush_walls.append(t1 - t0)
+    return svc, h, flush_walls, read_walls
+
+
+def pct(xs, q) -> float:
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))]
+
+
+def drive_service_storm(torch, dev, map_final, rounds_ds):
+    """Phase 13 (a) and the minority read after it. Returns the reconcile
+    launches of the path (the storm's flushes and reads, the read's
+    buckets)."""
+    import numpy as np
+    from automerge_tpu_torch.engine import cuda_kernels as ck
+    from automerge_tpu_torch.engine import dispatchledger
+    from automerge_tpu_torch.workloads import map_storm
+
+    ids, heavy, storm = map_storm()
+    ck.LAUNCHES["reconcile_rows_hash"] = 0
+    svc, h, flush_walls, read_walls = storm_through_service(
+        dev, ids, heavy, storm)
+    storm_launches = ck.LAUNCHES["reconcile_rows_hash"]
+    got = np.array([h[d] for d in ids], np.uint32)
+    check((got == map_final).all(),
+          "phase 13 (a): the service's hashes != phase 2 (a)'s")
+    # late docs fill padding lanes, as in phase 2 (c): a read of them and
+    # a few storm docs is a minority of dirty lanes
+    rset = svc._resident
+    late = [f"late{k:03d}"
+            for k in range(min(100, rset.n_pad - len(rset.doc_ids)))]
+    for d in late:
+        svc.add_doc(d)
+    old = ids[::len(ids) // 10][:10]     # ten storm-fleet docs, spread
+    want = late + old
+    ck.LAUNCHES["reconcile_rows_hash"] = 0
+    with recorded_plans() as plans, \
+            dispatchledger.round_scope(len(want)):
+        t0 = time.perf_counter()
+        minority = svc.hashes_for(want)
+        read_s = time.perf_counter() - t0
+    read_launches = ck.LAUNCHES["reconcile_rows_hash"]
+    check(plans and plans[0].route == "megabatch",
+          f"phase 13 (a): the minority read did not take the route "
+          f"({plans_text(plans)})")
+    ref = rounds_ds.hashes_for([rounds_ds.doc_index[d] for d in want])
+    check([minority[d] for d in want] == ref.tolist(),
+          "phase 13 (a): the minority read != phase 2 (c)'s engine")
+    svc.close()
+    print(f"phase 13: (a) map storm through EngineDocSet(backend='rows', "
+          f"device={dev}, epoch mode): {len(ids)} docs, {len(storm)} rounds "
+          f"of one svc.batch() each, dirty a round "
+          f"{[len(r) for r in storm]}; flush walls s {walls_text(flush_walls)}"
+          f" p99 {pct(flush_walls, 0.99):.4f}; hashes() read walls s "
+          f"{walls_text(read_walls)}; launches {storm_launches}; hashes "
+          f"equal to phase 2 (a) [{card()}]")
+    print(f"phase 13: (a) minority hashes_for of {len(want)} docs "
+          f"{read_s:.4f} s ({plans_text(plans)}; launches {read_launches}); "
+          f"equal to phase 2 (c)'s engine")
+    return storm_launches + read_launches
+
+
+def writer_wire(w: int, ops: int = 400, docs: int = 8):
+    """Bench config 9's per-writer wire: `docs` docs with a seq-1 base
+    change each (untimed), then `ops` one-op changes round-robin over them,
+    as wire columns."""
+    from automerge_tpu_torch.core.change import Change, Op
+    from automerge_tpu_torch.core.ids import ROOT_ID
+    from automerge_tpu_torch.native.wire import changes_to_columns
+    names = [f"w{w}d{j}" for j in range(docs)]
+    base = [(d, changes_to_columns([Change(
+        f"A{w}", 1, {}, [Op("set", ROOT_ID, key="f0", value=w)])]))
+        for d in names]
+    seqs = {d: 1 for d in names}
+    stream = []
+    for k in range(ops):
+        d = names[k % docs]
+        seqs[d] += 1
+        stream.append((d, changes_to_columns([Change(
+            f"A{w}", seqs[d], {}, [Op("set", ROOT_ID, key=f"f{k % 4}",
+                                      value=k * 31 + w)])])))
+    return names, base, stream
+
+
+def writers_load(dev, n_writers: int, mode: str, depth: int = 2) -> dict:
+    """One bench config 9 sub-run on the card: `n_writers` threads, each
+    streaming its wire through apply_columns_async with `depth` ingresses
+    in flight; the first and last doc of each writer held to apply_batch
+    of its log."""
+    import threading
+    from collections import deque
+
+    from automerge_tpu_torch.core.change import Change
+    from automerge_tpu_torch.engine import cuda_kernels as ck
+    from automerge_tpu_torch.engine.batchdoc import apply_batch
+    from automerge_tpu_torch.sync.service import EngineDocSet
+    from automerge_tpu_torch.utils import metrics
+
+    svc = EngineDocSet(backend="rows", device=dev, ingest_mode=mode)
+    wires = [writer_wire(w) for w in range(n_writers)]
+    for _names, base, _stream in wires:
+        for d, cols in base:
+            svc.apply_columns(d, cols)
+    m0 = metrics.snapshot()
+    errors = []
+
+    def writer(w):
+        try:
+            inflight = deque()
+            for d, cols in wires[w][2]:
+                inflight.append(svc.apply_columns_async(d, cols))
+                if len(inflight) >= depth:
+                    inflight.popleft().wait()
+            while inflight:
+                inflight.popleft().wait()
+        except BaseException as e:   # reported after the join
+            errors.append(e)
+
+    threads = [threading.Thread(target=writer, args=(w,),
+                                name=f"smoke-writer-{w}")
+               for w in range(n_writers)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    check(not errors, f"phase 13 (b): a writer failed: {errors[:1]}")
+    m1 = metrics.snapshot()
+
+    def delta(key):
+        return (m1.get(key, 0) or 0) - (m0.get(key, 0) or 0)
+
+    n_ops = n_writers * len(wires[0][2])
+    rounds = delta("rows_rounds_batched") + delta("rows_rounds_fallback")
+    h = svc.hashes()
+    rset = svc._resident
+    for names, _base, _stream in wires:
+        for d in (names[0], names[-1]):
+            chs = [c if isinstance(c, Change) else c.change()
+                   for c in rset.change_log[rset.doc_index[d]]]
+            _e, _b, out = apply_batch([chs], device=dev)
+            check(int(ck.hashes_to_numpy(out["hash"])[0]) == h[d],
+                  f"phase 13 (b): {d} != apply_batch of its log")
+    svc.close()
+    return {"mode": mode, "writers": n_writers, "depth": depth,
+            "ops": n_ops, "wall_s": round(wall, 4),
+            "admission_ops_per_s": round(n_ops / wall),
+            "service_lock_wait_s": round(
+                delta("sync_lock_wait_s{lock=service}_sum"), 6),
+            "commit_wait_s": round(delta("sync_commit_wait_s_sum"), 4),
+            "rounds_flushed": int(rounds),
+            "ops_per_round": round(n_ops / max(1, rounds), 1)}
+
+
+def drive_writers(dev):
+    """Phase 13 (b): bench config 9 at 1 and 4 writers, epoch and locked.
+    Returns the reconcile launches of the runs."""
+    from automerge_tpu_torch.engine import cuda_kernels as ck
+    ck.LAUNCHES["reconcile_rows_hash"] = 0
+    runs = [writers_load(dev, n, mode)
+            for mode in ("epoch", "locked") for n in (1, 4)]
+    launches = ck.LAUNCHES["reconcile_rows_hash"]
+    for r in runs:
+        print(f"phase 13: (b) {r['writers']} writer(s) {r['mode']}: "
+              f"{r['ops']} ops in {r['wall_s']} s, admission "
+              f"{r['admission_ops_per_s']} ops/s, service-lock wait "
+              f"{r['service_lock_wait_s']} s, commit wait "
+              f"{r['commit_wait_s']} s, rounds {r['rounds_flushed']} "
+              f"({r['ops_per_round']} ops a round) [{card()}]")
+    print("writers " + json.dumps(runs))
+    print(f"phase 13: (b) launches {launches}; the first and last doc of "
+          f"each writer equal to apply_batch of its log")
+    return launches
+
+
+def drive_live_view(dev, fleets, n_docs=LIVE_DOCS, n_rounds=LIVE_ROUNDS):
+    """Phase 13 (c): bench config 5's docset fleet (its first `n_docs`
+    docs, the initial round and `n_rounds` rounds) written round by round
+    into a rows hub on the card, gossiped
+    over Connection(wire="columnar") through in-process queues to an
+    EngineDocSet(backend="resident", live_views=True) on the card.
+    Returns the launches of dominated and linearize on the live node."""
+    import random
+    from collections import deque
+
+    from automerge_tpu_torch import Connection
+    from automerge_tpu_torch.engine import cuda_kernels as ck
+    from automerge_tpu_torch.sync.service import EngineDocSet
+    from automerge_tpu_torch.workloads import docset_fleet
+
+    all_ids, initial, rounds = docset_fleet(rounds=12)
+    keep = set(all_ids[:n_docs])
+    ids = all_ids[:n_docs]
+    stream = [{d: c for d, c in rnd.items() if d in keep}
+              for rnd in [initial] + rounds[:n_rounds]]
+    hub = EngineDocSet(ids, backend="rows", device=dev)
+    live = EngineDocSet(backend="resident", device=dev, live_views=True)
+    to_live, to_hub = deque(), deque()
+    c_hub = Connection(hub, to_live.append, wire="columnar")
+    c_live = Connection(live, to_hub.append, wire="columnar")
+    records = []
+    live.subscribe_views(lambda d, recs: records.append(len(recs)))
+
+    def pump():
+        n = 0
+        while to_live or to_hub:
+            while to_live:
+                c_live.receive_msg(to_live.popleft())
+                n += 1
+            while to_hub:
+                c_hub.receive_msg(to_hub.popleft())
+                n += 1
+        return n
+
+    c_hub.open()
+    c_live.open()
+    pump()
+    ck.LAUNCHES["dominated"] = ck.LAUNCHES["linearize"] = 0
+    walls, recs, msgs = [], [], []
+    for rnd in stream:
+        del records[:]
+        t0 = time.perf_counter()
+        with hub.batch():
+            for d, chs in rnd.items():
+                hub.apply_changes(d, chs)
+        msgs.append(pump())
+        walls.append(time.perf_counter() - t0)
+        recs.append(sum(records))
+    n_dom, n_lin = ck.LAUNCHES["dominated"], ck.LAUNCHES["linearize"]
+    check(n_dom > 0 and n_lin > 0,
+          "phase 13 (c): the live node skipped dominated or linearize")
+    hub_h, live_h = hub.hashes(), live.hashes()
+    check(hub_h == live_h, "phase 13 (c): the live node != the hub")
+    want = fleets["docset_hashes"][n_rounds]   # after the same rounds
+    index = {d: i for i, d in enumerate(fleets["ids"])}
+    check(all(hub_h[d] == int(want[index[d]]) for d in ids),
+          "phase 13 (c): the hub's hashes != phase 9's")
+    sample = random.Random(13).sample(ids, LIVE_SAMPLE)
+    for d in sample:
+        check(live.view(d) == hub.materialize(d),
+              f"phase 13 (c): view({d}) != the hub's materialize")
+    hub.close()
+    live.close()
+    print(f"phase 13: (c) live view: the docset fleet's first {n_docs} docs "
+          f"(cut from {len(all_ids)}) and the first {n_rounds} of its "
+          f"{len(rounds)} rounds (each message runs one docs-major apply "
+          f"over the live node's fleet), a rows hub -> Connection("
+          f"wire='columnar') -> EngineDocSet(backend='resident', "
+          f"live_views=True), both on the card; the initial round "
+          f"({len(stream[0])} docs) {walls[0]:.3f} s, {msgs[0]} messages, "
+          f"{recs[0]} records; {len(stream) - 1} rounds of "
+          f"{[len(r) for r in stream[1:]]} docs: gossip walls s "
+          f"{walls_text(walls[1:])}, messages {msgs[1:]}, records "
+          f"{recs[1:]}; hashes of both nodes equal to phase 9's; "
+          f"{LIVE_SAMPLE} views equal to the hub's materialize; launches "
+          f"dominated {n_dom} linearize {n_lin} [{card()}]")
+    return n_dom, n_lin
+
+
+def drive_service(torch, dev, map_final, rounds_ds, fleets):
+    """Phase 13: the EngineDocSet sync service on the card. Returns the
+    launches of the reconcile kernel ((a) and (b)) and of dominated and
+    linearize ((c))."""
+    t_phase = time.perf_counter()
+    b1 = drive_service_storm(torch, dev, map_final, rounds_ds)
+    b1 += drive_writers(dev)
+    n_dom, n_lin = drive_live_view(dev, fleets)
+    print(f"phase 13: launches reconcile_rows_hash {b1}, dominated {n_dom}, "
+          f"linearize {n_lin}; phase 13 took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return b1, n_dom, n_lin
+
+
 def time_docs_round(torch, ds):
     """Device milliseconds of one full apply_doc over the text fleet's
     state, of its linearize step (the kernel) and of linearize_plain."""
@@ -2847,6 +3183,9 @@ def main() -> int:
         shutil.rmtree(long_keep["root"], ignore_errors=True)
         del long_keep
 
+    svc_b1, svc_dom, svc_lin = drive_service(torch, dev, map_final,
+                                             rounds_ds, fleets)
+
     rows_times = time_kernel(torch, map_ds, "map storm")
     time_kernel(torch, text_ds, "text fleet")
     span_times = {k: time_span_kernel(torch, *v, k)
@@ -2866,12 +3205,15 @@ def main() -> int:
           f"(dominated); linearize {lin9} (phase 9) + {lin10} (phase 10, "
           f"the diff plane); rows engine durability {long_launches} "
           f"(phase 11); the document API and the OpSet: resolve_moves "
-          f"{api_b4}, dominated {api_dom}, linearize {api_lin} (phase 12)")
+          f"{api_b4}, dominated {api_dom}, linearize {api_lin} (phase 12); "
+          f"the sync service: reconcile_rows_hash {svc_b1}, dominated "
+          f"{svc_dom}, linearize {svc_lin} (phase 13)")
     print(json.dumps({"kernels": [
         kernel_entry("reconcile_rows_hash",
                      "automerge_tpu_torch/csrc/reconcile_rows.cu",
                      "automerge_tpu/engine/pallas_kernels.py:499",
-                     map_launches + text_launches + long_launches,
+                     map_launches + text_launches + long_launches
+                     + svc_b1,
                      report["reconcile_rows_hash"], rows_times),
         kernel_entry("span_rank_hash",
                      "automerge_tpu_torch/csrc/span_rank_hash.cu",
@@ -2886,13 +3228,13 @@ def main() -> int:
         kernel_entry("dominated",
                      "automerge_tpu_torch/csrc/dominated.cu",
                      "automerge_tpu/engine/pallas_kernels.py:578",
-                     docs_launches + api_dom, report["dominated"],
+                     docs_launches + api_dom + svc_dom, report["dominated"],
                      dom_times),
         kernel_entry("linearize",
                      "automerge_tpu_torch/csrc/linearize.cu",
                      "automerge_tpu/engine/kernels.py:102-137 (plain XLA, "
                      "no Pallas kernel)",
-                     lin9 + lin10 + api_lin, report["linearize"],
+                     lin9 + lin10 + api_lin + svc_lin, report["linearize"],
                      lin_times)],
         "mega": mega.as_dict()}))
     print(f"total {time.perf_counter() - t_all:.1f} s")

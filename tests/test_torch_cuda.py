@@ -583,3 +583,100 @@ def test_apply_batch_adaptive_routes_decode_equal_on_the_card(
     assert hashes.tolist() == hashes_to_numpy(out["hash"]).tolist()
     assert [oracle_state(d) for d in docs] == \
         [decode_doc(encs[i], doc_outputs(out, i)) for i in range(len(ids))]
+
+
+def _service_streams(n_docs: int = 48, rounds: int = 4):
+    """The docset fleet as per-round {doc: [Change]} ingress."""
+    from automerge_tpu_torch.workloads import docset_fleet
+    ids, initial, later = docset_fleet(n_docs=n_docs, rounds=rounds)
+    return ids, [initial] + list(later)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ingest_mode", ["epoch", "locked"])
+def test_rows_service_on_the_card_equals_the_cpu(cuda_device, ingest_mode):
+    """EngineDocSet(backend="rows") on the card: each flush launches the
+    reconcile kernel (eager dispatch on a card), and the hashes, clocks
+    and a minority hashes_for equal a CPU service's."""
+    from automerge_tpu_torch.sync.service import EngineDocSet
+    ids, rounds = _service_streams()
+    out = {}
+    for dev in (cuda_device, "cpu"):
+        svc = EngineDocSet(backend="rows", device=dev,
+                           ingest_mode=ingest_mode)
+        before = cuda_kernels.LAUNCHES["reconcile_rows_hash"]
+        for rnd in rounds:
+            with svc.batch():
+                for d, chs in rnd.items():
+                    svc.apply_changes(d, chs)
+        if dev != "cpu":
+            assert svc._resident.lazy_dispatch is False
+            assert cuda_kernels.LAUNCHES["reconcile_rows_hash"] \
+                >= before + len(rounds)
+        out[str(dev)] = (svc.hashes(), svc.hashes_for(ids[:5]),
+                         {d: svc.clock_of(d) for d in ids})
+        svc.close()
+    assert out[str(cuda_device)] == out["cpu"]
+
+
+@pytest.mark.cuda
+def test_live_views_on_the_card_equal_the_cpu(cuda_device):
+    """EngineDocSet(backend="resident", live_views=True) on the card: the
+    diff records each subscriber receives, the views and the hashes equal
+    a CPU service's, and each ingress launches B5 and linearize."""
+    from automerge_tpu_torch.sync.service import EngineDocSet
+    ids, rounds = _service_streams(n_docs=16, rounds=3)
+    out = {}
+    for dev in (cuda_device, "cpu"):
+        svc = EngineDocSet(backend="resident", device=dev, live_views=True)
+        seen = []
+        svc.subscribe_views(lambda d, recs: seen.append((d, recs)))
+        before = dict(cuda_kernels.LAUNCHES)
+        for rnd in rounds:
+            for d, chs in rnd.items():
+                svc.apply_changes(d, chs)
+        if dev != "cpu":
+            for k in ("dominated", "linearize"):
+                assert cuda_kernels.LAUNCHES[k] > before[k], k
+        out[str(dev)] = (seen, {d: svc.view(d) for d in ids}, svc.hashes())
+        svc.close()
+    assert out[str(cuda_device)] == out["cpu"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["json", "columnar"])
+def test_card_and_cpu_nodes_converge_over_a_connection(cuda_device, wire):
+    """A node on the card and a node on the CPU, each written to, joined
+    by Connections over in-process queues, converge to equal hashes,
+    clocks and materialized documents."""
+    from collections import deque
+    from automerge_tpu_torch import Connection
+    from automerge_tpu_torch.sync.service import EngineDocSet
+    ids, rounds = _service_streams(n_docs=24, rounds=2)
+    card = EngineDocSet(backend="rows", device=cuda_device)
+    cpu = EngineDocSet(backend="rows", device="cpu")
+    qa, qb = deque(), deque()
+    ca = Connection(card, qa.append, wire=wire)
+    cb = Connection(cpu, qb.append, wire=wire)
+    ca.open()
+    cb.open()
+
+    def pump():
+        while qa or qb:
+            while qa:
+                cb.receive_msg(qa.popleft())
+            while qb:
+                ca.receive_msg(qb.popleft())
+
+    for k, rnd in enumerate(rounds):
+        node = card if k % 2 == 0 else cpu
+        for d, chs in rnd.items():
+            node.apply_changes(d, chs)
+        pump()
+    assert card.hashes() == cpu.hashes()
+    for d in ids:
+        assert card.clock_of(d) == cpu.clock_of(d)
+    for d in ids[:4]:
+        assert card.materialize(d) == cpu.materialize(d)
+    card.close()
+    cpu.close()

@@ -19,7 +19,7 @@ from automerge_tpu.sync.frames import (
     decode_frame as ref_decode_frame,
     encode_round_frame as ref_encode_round_frame)
 
-from automerge_tpu_torch.engine import cuda_kernels, resident_rows
+from automerge_tpu_torch.engine import cuda_kernels
 from automerge_tpu_torch.engine.cuda_kernels import hashes_to_numpy
 from automerge_tpu_torch.engine.resident import ResidentDocSet
 from automerge_tpu_torch.engine.resident_rows import ResidentRowsDocSet
@@ -27,6 +27,7 @@ from automerge_tpu_torch.native.wire import changes_to_columns
 from automerge_tpu_torch.sync.frames import (decode_frame, decode_round_frame,
                                              encode_frame, encode_round_frame,
                                              round_from_columns)
+from automerge_tpu_torch.utils import metrics
 from automerge_tpu_torch.workloads import docset_fleet, text_fleet
 
 from torch_port_helpers import rounds_to_port, to_port
@@ -37,6 +38,14 @@ NATIVE = pytest.mark.parametrize("native", [True, False],
 
 def rows(ids, native):
     return ResidentRowsDocSet(ids, device="cpu", native=native)
+
+
+def admission_rounds() -> dict:
+    """The rows engine's rounds by admission route so far (its metrics
+    counters)."""
+    snap = metrics.snapshot()
+    return {k: snap.get(k, 0)
+            for k in ("rows_rounds_batched", "rows_rounds_fallback")}
 
 
 def frame_hashes(engine, frames) -> np.ndarray:
@@ -240,10 +249,10 @@ class TestRoundFrames:
         # the boot merge leaves two heads, which the dense cache cannot
         # check coverage against: this first micro-batch may fall back
         frame_hashes(a, [encode_round_frame(port_rounds[0])])
-        before = dict(resident_rows.ROUNDS)
+        before = admission_rounds()
         h = frame_hashes(a, [encode_round_frame(r)
                              for r in port_rounds[1:]])
-        moved = {k: resident_rows.ROUNDS[k] - before[k] for k in before}
+        moved = {k: v - before[k] for k, v in admission_rounds().items()}
         if native:
             assert moved == {"rows_rounds_batched": 4,
                              "rows_rounds_fallback": 0}

@@ -38,7 +38,10 @@ def test_every_module_imports_with_jax_and_reference_blocked():
               "frontend.text", "frontend.cursors", "frontend.snapshots",
               "frontend.materialize", "frontend.immutable_view",
               "sync.docset", "sync.watchable", "utils.persist",
-              "utils.uuid"):
+              "utils.uuid", "utils.flightrec", "utils.oplag",
+              "utils.tracer", "utils.perfscope", "sync.tenantledger",
+              "sync.docledger", "sync.epochs", "sync.service",
+              "sync.connection", "sync.audit"):
         assert f"automerge_tpu_torch.{m}" in mods, m
     code = "\n".join([
         "import importlib, sys",
@@ -92,6 +95,23 @@ def test_every_module_imports_with_jax_and_reference_blocked():
         "m = api.merge(a, b)",
         "assert api.inspect(api.load(api.save(m), device='cpu')) == "
         "{'k': [1, 2, 3]}",
+        "from automerge_tpu_torch import Connection",
+        "from automerge_tpu_torch.sync.service import EngineDocSet",
+        "from automerge_tpu_torch.core.change import Change, Op",
+        "from automerge_tpu_torch.core.ids import ROOT_ID",
+        "x = EngineDocSet(backend='rows', device='cpu')",
+        "y = EngineDocSet(backend='rows', device='cpu')",
+        "for s in (1, 2):",
+        "    x.apply_changes('d', [Change('A', s, {}, [Op('set', ROOT_ID, "
+        "key='k', value=s)])])",
+        "qx, qy = [], []",
+        "cx, cy = Connection(x, qx.append), Connection(y, qy.append)",
+        "cx.open(); cy.open()",
+        "while qx or qy:",
+        "    while qx: cy.receive_msg(qx.pop(0))",
+        "    while qy: cx.receive_msg(qy.pop(0))",
+        "assert y.hashes() == x.hashes() and y.clock_of('d') == {'A': 2}",
+        "x.close(); y.close()",
         "print('ok')",
     ])
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -118,7 +138,10 @@ def test_default_device_without_a_card_raises():
         return
     from automerge_tpu_torch import api
     from automerge_tpu_torch.core.opset import OpSet
-    for make in (lambda: ResidentRowsDocSet(["a"]),
+    from automerge_tpu_torch.sync.service import EngineDocSet
+    for make in (EngineDocSet, lambda: EngineDocSet(backend="rows"),
+                 lambda: EngineDocSet(["a"], backend="resident"),
+                 lambda: ResidentRowsDocSet(["a"]),
                  lambda: ResidentRowsDocSet(["a"], device="cuda:0"),
                  resolve_device, api.init, lambda: api.init("A"),
                  api.init_immutable, OpSet.init,
@@ -128,6 +151,10 @@ def test_default_device_without_a_card_raises():
     assert ResidentRowsDocSet(["a"], device="cpu").device.type == "cpu"
     assert api.init("A", device="cpu")._doc.opset.device.type == "cpu"
     assert OpSet.init("cpu").device.type == "cpu"
+    for backend in ("rows", "resident"):
+        svc = EngineDocSet(backend=backend, device="cpu")
+        assert svc._resident.device.type == "cpu"
+        svc.close()
 
 
 def test_docs_major_entry_points_default_to_the_card():

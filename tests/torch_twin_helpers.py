@@ -20,6 +20,13 @@ documents are compared pair by pair:
   `OpSet.add_changes` giving equal diff records.
 
 A test that makes more than MAX_RECORDS documents has them sampled.
+
+The sync service is held the same way: every `EngineDocSet` (and every
+`ConvergenceAuditor`) a case makes is recorded on both runs, and the
+pairs must give equal `hashes()`, and per document equal `clock_of` and
+`missing_changes` against the empty clock (`hold_services`). Each side
+closes its services and stops its auditors when its run ends, so no
+flusher or auditor thread outlives the case (`threads_settled`).
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import importlib
 import inspect
 import itertools
 import tempfile
+import threading
 import types
 from pathlib import Path
 
@@ -39,6 +47,8 @@ from automerge_tpu import api as ref_api
 from automerge_tpu import storage as ref_storage
 from automerge_tpu.core.opset import OpSet as RefOpSet
 from automerge_tpu.engine.batchdoc import oracle_state as ref_oracle_state
+from automerge_tpu.sync.audit import ConvergenceAuditor as RefAuditor
+from automerge_tpu.sync.service import EngineDocSet as RefEngineDocSet
 from automerge_tpu.utils import uuid as ref_uuid
 
 from automerge_tpu_torch import api as port_api
@@ -46,15 +56,19 @@ from automerge_tpu_torch import storage as port_storage
 from automerge_tpu_torch.core.opset import OpSet as PortOpSet
 from automerge_tpu_torch.engine.batchdoc import (
     oracle_state as port_oracle_state)
+from automerge_tpu_torch.sync.audit import ConvergenceAuditor as PortAuditor
+from automerge_tpu_torch.sync.service import (
+    EngineDocSet as PortEngineDocSet)
 from automerge_tpu_torch.utils import uuid as port_uuid
 
 # API calls whose result is a document root (recorded on both runs)
 DOC_CALLS = ("init", "init_immutable", "change", "empty_change", "merge",
              "load", "load_immutable", "apply_changes", "undo", "redo",
              "load_binary")
-# The package surface `import automerge_tpu as am` gives a test. Left out
-# of the port's: Connection, flightrec and save_transit / load_transit
-# (not ported yet); a case that reaches them is not collected.
+# The package surface `import automerge_tpu as am` gives a test (with
+# Connection and flightrec, below). Left out of the port's: save_transit
+# / load_transit (not ported yet); a case that reaches them is not
+# collected.
 SURFACE = ("init", "init_immutable", "change", "empty_change", "merge",
            "diff", "assign", "load", "load_immutable", "save", "equals",
            "inspect", "get_history", "get_conflicts", "get_changes",
@@ -174,10 +188,11 @@ def facade(side: str, records: list) -> types.ModuleType:
         for name in ("save_binary", "load_binary", "changes_from_binary"):
             setattr(m, name, getattr(ref_storage, name))
         for name in ("Change", "Op", "ROOT_ID", "Text", "DocSet",
-                     "WatchableDoc", "uuid", "metrics", "__version__"):
+                     "WatchableDoc", "Connection", "uuid", "metrics",
+                     "flightrec", "__version__"):
             setattr(m, name, getattr(ref_am, name))
     else:
-        from automerge_tpu_torch import __version__
+        from automerge_tpu_torch import Connection, __version__, flightrec
         from automerge_tpu_torch.core.change import Change, Op
         from automerge_tpu_torch.core.ids import ROOT_ID
         from automerge_tpu_torch.frontend.text import Text
@@ -191,6 +206,7 @@ def facade(side: str, records: list) -> types.ModuleType:
         m.Change, m.Op, m.ROOT_ID, m.Text = Change, Op, ROOT_ID, Text
         m.DocSet, m.WatchableDoc = _cpu(DocSet), WatchableDoc
         m.uuid, m.metrics, m.__version__ = _Uuid(), metrics, __version__
+        m.Connection, m.flightrec = Connection, flightrec
     for name in DOC_CALLS:
         setattr(m, name, _recording(getattr(m, name), records))
     return m
@@ -204,7 +220,8 @@ def _surface_origins() -> dict:
         out[id(getattr(ref_api, name))] = name
     for name in ("save_binary", "load_binary", "changes_from_binary"):
         out[id(getattr(ref_storage, name))] = name
-    for name in ("Change", "Op", "Text", "DocSet", "WatchableDoc"):
+    for name in ("Change", "Op", "Text", "DocSet", "WatchableDoc",
+                 "Connection"):
         out[id(getattr(ref_am, name))] = name
     return out
 
@@ -263,11 +280,19 @@ class Rebinder:
     Imports of `automerge_tpu` inside a test's body go through the same
     mapping (the rebound globals carry their own `__import__`)."""
 
-    def __init__(self, side: str, am: types.ModuleType):
+    def __init__(self, side: str, am: types.ModuleType,
+                 adapters: dict | None = None):
         self.side = side
         self.am = am
+        # id(reference object) -> what the port side binds in its place
+        self._adapters = {id(k): v for k, v in (adapters or {}).items()}
         self._globals: dict[str, dict] = {}
         self._builtins = dict(vars(builtins), __import__=self._import)
+        # every EngineDocSet and ConvergenceAuditor the case makes, in
+        # the order it makes them
+        self.services: list = []
+        self.auditors: list = []
+        self._recorders: dict = {}
 
     def _import(self, name, globals=None, locals=None, fromlist=(),
                 level=0):
@@ -282,17 +307,48 @@ class Rebinder:
             return _ModView(self, ref_am)
         return _ModView(self, mod)
 
+    def _recorder(self, cls, into: list):
+        """A subclass of `cls` (the side's service or auditor class, on
+        the CPU) whose instances are appended to `into`."""
+        out = self._recorders.get(cls)
+        if out is None:
+            base = _cpu(cls)
+
+            def __init__(obj, *a, **k):
+                base.__init__(obj, *a, **k)
+                into.append(obj)
+            out = self._recorders[cls] = type(
+                cls.__name__, (base,), {"__init__": __init__})
+            out.__qualname__ = cls.__qualname__
+        return out
+
     def value(self, name, val):
         if val is ref_am or val is ref_api:
             return self.am
+        if val is RefEngineDocSet:
+            return self._recorder(RefEngineDocSet if self.side == "ref"
+                                  else PortEngineDocSet, self.services)
+        if val is RefAuditor:
+            return self._recorder(RefAuditor if self.side == "ref"
+                                  else PortAuditor, self.auditors)
         if _SURFACE_ORIGINS.get(id(val)) is not None:
             return getattr(self.am, _SURFACE_ORIGINS[id(val)])
         if isinstance(val, types.FunctionType) \
                 and _is_test_module(val.__module__) \
                 and val.__globals__.get("__name__") == val.__module__:
             return self.function(val)
+        if isinstance(val, type) and _is_test_module(val.__module__) \
+                and not issubclass(val, BaseException):
+            # a helper class of the test module (a connection pair, ...)
+            # runs with the side's globals too
+            out = self._recorders.get(val)
+            if out is None:
+                out = self._recorders[val] = self.klass(val)
+            return out
         if self.side == "ref":
             return val
+        if id(val) in self._adapters:
+            return self._adapters[id(val)]
         if isinstance(val, types.ModuleType):
             return _port_module(val.__name__) if _is_ref(val.__name__) \
                 else val
@@ -346,13 +402,16 @@ class Case:
     """One reference test case: module, class (or None), function name and
     its parametrized arguments."""
 
-    def __init__(self, module, cls, name, params, fixtures, fn=None):
+    def __init__(self, module, cls, name, params, fixtures, fn=None,
+                 adapters=None):
         self.module = module
         self.cls = cls
         self.name = name
         self.params = params
         self.fixtures = fixtures
         self.fn = fn          # a function of the module to call instead
+        # reference object -> the port's stand-in for it in this case
+        self.adapters = adapters or {}
 
     @property
     def id(self) -> str:
@@ -398,11 +457,13 @@ def _expand(marks) -> list[dict]:
     return combos
 
 
-def collect(module_name: str, exclude: dict[str, str] = ()) -> list[Case]:
+def collect(module_name: str, exclude: dict[str, str] = (),
+            adapters: dict | None = None) -> list[Case]:
     """Every test case of the reference module `module_name`, parametrize
     expanded; `exclude` maps a test name (`Class::name` or `name`) to why
-    it is not run here. Hypothesis tests and `slow` tests are never
-    collected."""
+    it is not run here; `adapters` maps a reference object to what the
+    port's run binds in its place. Hypothesis tests and `slow` tests are
+    never collected."""
     module = importlib.import_module(module_name)
     _TEST_MODULES.add(module.__name__)
     cases: list[Case] = []
@@ -424,7 +485,8 @@ def collect(module_name: str, exclude: dict[str, str] = ()) -> list[Case]:
         params = inspect.signature(fn).parameters
         for combo in _expand(marks):
             fixtures = [p for p in params if p != "self" and p not in combo]
-            cases.append(Case(module, cls, name, combo, fixtures))
+            cases.append(Case(module, cls, name, combo, fixtures,
+                              adapters=adapters))
 
     for name, val in vars(module).items():
         if name.startswith("test") and isinstance(val, types.FunctionType):
@@ -459,10 +521,10 @@ def _autouse(module):
     return out
 
 
-def _run_side(case: Case, side: str, given: dict) -> list:
+def _run_side(case: Case, side: str, given: dict) -> tuple[list, Rebinder]:
     records: list = []
     am = facade(side, records)
-    rb = Rebinder(side, am)
+    rb = Rebinder(side, am, case.adapters)
     factory = counter_factory("00000000-twin-")
     ref_uuid.set_factory(factory) if side == "ref" else \
         port_uuid.set_factory(factory)
@@ -510,7 +572,8 @@ def _run_side(case: Case, side: str, given: dict) -> list:
             assert not with_stop, "fixture yielded twice"
         ref_uuid.reset()
         port_uuid.reset()
-    return records
+        close_all(rb)
+    return records, rb
 
 
 def run_twin(case: Case, tmp_path, monkeypatch) -> None:
@@ -519,13 +582,18 @@ def run_twin(case: Case, tmp_path, monkeypatch) -> None:
     dirs = {}
     for side in ("ref", "port"):
         dirs[side] = Path(tempfile.mkdtemp(prefix=side, dir=tmp_path))
-    ref_docs = _run_side(case, "ref", {"tmp_path": dirs["ref"],
-                                       "monkeypatch": monkeypatch})
+    reload_caches()
+    ref_docs, ref_rb = _run_side(case, "ref", {"tmp_path": dirs["ref"],
+                                               "monkeypatch": monkeypatch})
     monkeypatch.undo()
-    port_docs = _run_side(case, "port", {"tmp_path": dirs["port"],
-                                         "monkeypatch": monkeypatch})
+    reload_caches()
+    port_docs, port_rb = _run_side(case, "port",
+                                   {"tmp_path": dirs["port"],
+                                    "monkeypatch": monkeypatch})
     monkeypatch.undo()
+    reload_caches()
     hold_docs(ref_docs, port_docs)
+    hold_services(ref_rb.services, port_rb.services)
 
 
 def helper_case(module_name: str, fn, params: dict,
@@ -603,3 +671,111 @@ def hold_docs(ref_docs: list, port_docs: list) -> None:
             assert replay_diffs(PortOpSet, list(p._doc.opset.history),
                                 device="cpu") \
                 == replay_diffs(RefOpSet, history)
+
+
+# ---------------------------------------------------------------------------
+# the sync service: parity, teardown and thread hygiene
+
+
+def _outcome(fn):
+    """(True, value) or (False, exception type name) of `fn()`."""
+    try:
+        return True, fn()
+    except Exception as e:  # noqa: BLE001 - compared across packages
+        return False, type(e).__name__
+
+
+def service_state(svc) -> dict:
+    """What a node serves its peers: `hashes()`, and per document its
+    clock and its changes above the empty clock (as dicts)."""
+    ok, hashes = _outcome(svc.hashes)
+    out = {"hashes": (ok, hashes)}
+    for d in sorted(svc.doc_ids):
+        out[d] = (_outcome(lambda d=d: svc.clock_of(d)),
+                  _outcome(lambda d=d: sorted(
+                      (c.to_dict() for c in svc.missing_changes(d, {})),
+                      key=lambda c: (c["actor"], c["seq"]))))
+    return out
+
+
+def hold_services(ref_services: list, port_services: list) -> None:
+    """The port's services give the reference's hashes, clocks and
+    missing changes, pair by pair (made in the same order)."""
+    assert len(port_services) == len(ref_services)
+    for r, p in zip(ref_services, port_services):
+        assert service_state(p) == service_state(r)
+
+
+def close_all(rb: Rebinder) -> None:
+    """Stop every auditor and close every service a run made."""
+    for a in rb.auditors:
+        a.stop()
+    for svc in rb.services:
+        svc.close()
+
+
+# threads either package starts; the port's all carry the first prefix
+THREAD_PREFIXES = ("amtpu-torch-", "amtpu-flusher-", "amtpu-auditor",
+                   "amtpu-watchdog", "amtpu-chaos-")
+
+
+def threads_settled(timeout: float = 10.0) -> list[str]:
+    """Join every live thread either package started (a service's
+    flusher, an auditor, the metrics watchdog, which exits after its
+    idle linger) and return the names of those still alive."""
+    for t in threading.enumerate():
+        if t.name.startswith(THREAD_PREFIXES):
+            t.join(timeout=timeout)
+    return [t.name for t in threading.enumerate()
+            if t.name.startswith(THREAD_PREFIXES) and t.is_alive()]
+
+
+def reload_caches() -> None:
+    """Re-read every environment switch both packages cache in module
+    globals (a test sets them only through monkeypatch; this runs at
+    setup and after each `monkeypatch.undo()`)."""
+    from automerge_tpu.engine import dispatch as rd, dispatchledger as rdl
+    from automerge_tpu.sync import docledger as rdoc, tenantledger as rten
+    from automerge_tpu.utils import chaos as rchaos, oplag as roplag
+    from automerge_tpu.utils import tracer as rtracer
+    from automerge_tpu_torch.engine import dispatch, dispatchledger
+    from automerge_tpu_torch.sync import audit, docledger, epochs
+    from automerge_tpu_torch.sync import tenantledger
+    from automerge_tpu_torch.utils import chaos, flightrec, oplag, tracer
+    for mod in (rd, rdl, rdoc, rten, rtracer, dispatch, dispatchledger,
+                audit, docledger, epochs, tenantledger, flightrec, oplag,
+                tracer):
+        mod._reload_for_tests()
+    roplag.set_sample_rate(None)
+    rchaos.reload()
+    chaos.reload()
+
+
+def hygiene_teardown() -> None:
+    """Each new test file's autouse teardown: both flight recorders'
+    hooks uninstalled, every package thread joined (none may outlive the
+    test), every cache re-read, and both packages' metrics and flight
+    recorder rings emptied, so a later test in the same worker finds them
+    as a fresh process would (the reference's cases run here record into
+    the reference's planes too)."""
+    from automerge_tpu.utils import flightrec as ref_flightrec
+    from automerge_tpu.utils import metrics as ref_metrics
+    from automerge_tpu_torch.utils import flightrec, metrics
+    ref_flightrec.uninstall()
+    flightrec.uninstall()
+    alive = threads_settled()
+    reload_caches()
+    for mod in (ref_metrics, metrics, ref_flightrec, flightrec):
+        mod.reset()
+    assert not alive, f"threads alive after the test: {alive}"
+
+
+def port_apply_batch(doc_changes, actors=None, device="cpu"):
+    """The port's `batchdoc.apply_batch` with `out["hash"]` read back as
+    np.uint32, the reference's dtype (the port keeps the uint32 bits in
+    an int32 tensor: `cuda_kernels.hashes_to_numpy`)."""
+    from automerge_tpu_torch.engine import batchdoc
+    from automerge_tpu_torch.engine.cuda_kernels import hashes_to_numpy
+    encodings, arrays, out = batchdoc.apply_batch(doc_changes, actors,
+                                                  device=device)
+    return encodings, arrays, dict(out, hash=hashes_to_numpy(out["hash"]))
