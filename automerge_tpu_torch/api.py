@@ -12,8 +12,9 @@ This is the port's copy of `automerge_tpu/api.py`. A document lives on a
 device (`init`, `init_immutable`, `load`, `load_immutable` take `device=`,
 default the card; "cpu" runs without one): its OpSet resolves move realms
 there (core/moves.py). `merge`, `apply_changes`, `change` and the rest keep
-the local document's device. Left out: `save_transit` / `load_transit`
-(they come with `interop/transit.py`).
+the local document's device. `save_transit` / `load_transit` read and
+write Automerge's own save format (`interop/transit.py`); `load_transit`
+takes `device=` like `load`.
 """
 
 from __future__ import annotations
@@ -324,6 +325,26 @@ def save(doc) -> str:
         "automerge_tpu": SAVE_FORMAT_VERSION,
         "changes": [c.to_dict() for c in doc._doc.opset.history],
     })
+
+
+def save_transit(doc) -> str:
+    """Serialize the history in Automerge's own save format: transit
+    JSON of the change list (automerge.js:223-226, transit-immutable-js).
+    The output is loadable by Automerge's ``Automerge.load``."""
+    from .interop.transit import changes_to_transit
+    _check_target("save_transit", doc)
+    return changes_to_transit(doc._doc.opset.history)
+
+
+def load_transit(data: str | bytes, actor_id: str | None = None,
+                 device="cuda") -> RootMap:
+    """Load a save file produced by Automerge (``Automerge.save``,
+    automerge.js:223-226) or by :func:`save_transit`, on `device`."""
+    from .interop.transit import changes_from_transit
+    doc = init(actor_id, device=device)
+    return apply_changes_to_doc(doc, doc._doc.opset,
+                                changes_from_transit(data),
+                                incremental=False, emit_diffs=False)
 
 
 def load(data: str, actor_id: str | None = None, device="cuda") -> RootMap:

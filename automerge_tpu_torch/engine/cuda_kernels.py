@@ -80,6 +80,9 @@ _XL_BI = 32
 _XL_BJ = 32
 
 _lock = threading.Lock()
+# guards LAUNCHES: several threads launch at once (a sharded node's
+# flushers and its hash fan-out), and `+=` on a dict item is not atomic
+_count_lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 BUILD_LOG: dict[str, str] = {}
 
@@ -197,7 +200,8 @@ def launch(source: str, fn: str, counter: str, *args) -> None:
         raise RuntimeError(f"{fn} launch failed: "
                            f"{lib.amt_cuda_error_string(err).decode()} "
                            f"({err})")
-    LAUNCHES[counter] += 1
+    with _count_lock:
+        LAUNCHES[counter] += 1
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -20,7 +20,22 @@ is inert unless its variable is set:
   tenant's epoch-path ingress as extra un-waited entries (duplicates
   dedup at admission);
 - **disk-stall** (`AMTPU_CHAOS_DISK_STALL_S=<seconds>`): every archive,
-  seal, manifest and snapshot fsync sleeps that long first.
+  seal, manifest and snapshot fsync sleeps that long first;
+- **frame-drop** (`AMTPU_CHAOS_DROP_FRAMES=<probability>`): outgoing
+  change-bearing transport messages are dropped before the socket write
+  (sync/tcp.py `_Peer._send`, counted as `sync_frames_dropped`);
+  telemetry, audit and clock messages are never dropped;
+- **conn-kill** (`AMTPU_CHAOS_CONN_KILL_AFTER=<n>`): the n-th outgoing
+  transport message of an affected peer hard-closes its socket instead
+  of being written (sync/tcp.py `_Peer._send`); it fires once per node
+  key until `reload()`, so a reconnect supervisor
+  (`sync/tcp.SupervisedTcpClient`) must bring the link back;
+- **peer-hang** (`AMTPU_CHAOS_PEER_HANG_S=<seconds>`, onset
+  `AMTPU_CHAOS_PEER_HANG_AFTER=<n>`, default 1): for that many seconds
+  from the n-th eligible receive, an affected peer's transport reader
+  swallows every incoming message unprocessed (sync/tcp.py
+  `_Peer._read_loop`); only an idle detector that watches processed
+  inbound messages notices.
 
 Targeting: with `AMTPU_CHAOS_NODE=<label>` set, only owners whose
 `_chaos_node` / `chaos_node` is that label are affected; unset, every
@@ -29,14 +44,12 @@ cached attribute check and returns. `reload()` re-reads the environment
 (tests flip knobs per case). Every injection is disclosed as
 `obs_chaos_injected{fault=...}` and a `chaos_inject` flight-recorder
 event.
-
-Not here yet: the transport hooks (frame-drop, conn-kill, peer-hang),
-which come with the TCP transport.
 """
 
 from __future__ import annotations
 
 import os
+import random
 import threading
 import time
 
@@ -60,9 +73,10 @@ DEFAULT_FLAP_EVERY = 4
 
 class _Config:
     __slots__ = ("slow_apply_s", "lock_hold_s", "lock_hold_every_s",
-                 "stall_doc_id", "sub_flap_doc_id", "sub_flap_every",
-                 "disk_stall_s", "tenant_storm_id", "tenant_storm_x",
-                 "node", "any")
+                 "drop_frames", "stall_doc_id", "sub_flap_doc_id",
+                 "sub_flap_every", "conn_kill_after", "peer_hang_s",
+                 "peer_hang_after", "disk_stall_s", "tenant_storm_id",
+                 "tenant_storm_x", "node", "any")
 
     def __init__(self):
         def _f(name, default=0.0):
@@ -74,11 +88,16 @@ class _Config:
         self.lock_hold_s = max(0.0, _f("AMTPU_CHAOS_LOCK_HOLD_S"))
         self.lock_hold_every_s = max(
             0.001, _f("AMTPU_CHAOS_LOCK_HOLD_EVERY_S", DEFAULT_HOLD_EVERY_S))
+        self.drop_frames = min(1.0, max(0.0, _f("AMTPU_CHAOS_DROP_FRAMES")))
         self.stall_doc_id = os.environ.get("AMTPU_CHAOS_STALL_DOC") or None
         self.sub_flap_doc_id = (os.environ.get("AMTPU_CHAOS_SUB_FLAP_DOC")
                                 or None)
         self.sub_flap_every = max(
             1, int(_f("AMTPU_CHAOS_SUB_FLAP_EVERY", DEFAULT_FLAP_EVERY)))
+        self.conn_kill_after = max(0, int(_f("AMTPU_CHAOS_CONN_KILL_AFTER")))
+        self.peer_hang_s = max(0.0, _f("AMTPU_CHAOS_PEER_HANG_S"))
+        self.peer_hang_after = max(1, int(_f("AMTPU_CHAOS_PEER_HANG_AFTER",
+                                             1)))
         self.disk_stall_s = max(0.0, _f("AMTPU_CHAOS_DISK_STALL_S"))
         self.tenant_storm_id = (os.environ.get("AMTPU_CHAOS_TENANT_STORM")
                                 or None)
@@ -86,8 +105,10 @@ class _Config:
                                             8)))
         self.node = os.environ.get("AMTPU_CHAOS_NODE") or None
         self.any = bool(self.slow_apply_s or self.lock_hold_s
-                        or self.stall_doc_id or self.sub_flap_doc_id
-                        or self.disk_stall_s or self.tenant_storm_id)
+                        or self.drop_frames or self.stall_doc_id
+                        or self.sub_flap_doc_id or self.conn_kill_after
+                        or self.peer_hang_s or self.disk_stall_s
+                        or self.tenant_storm_id)
 
 
 _config: _Config | None = None
@@ -108,6 +129,9 @@ def reload() -> None:
     global _config
     _config = None
     _flap_counts.clear()
+    _kill_counts.clear()
+    _hang_counts.clear()
+    _hang_started.clear()
 
 
 def enabled() -> bool:
@@ -135,6 +159,22 @@ def slow_apply(node: str | None = None) -> None:
         return
     _disclose("slow_apply", node, s=c.slow_apply_s)
     _sleep(c.slow_apply_s)
+
+
+def drop_frame(node: str | None = None, kind: str = "frame") -> bool:
+    """True when the transport should drop this outgoing message.
+    Only change-bearing kinds ("frame"/"changes") are ever dropped —
+    metrics pulls, audit digests, and clock adverts always pass, so the
+    health plane keeps observing the node it is degrading."""
+    c = _cfg()
+    if not c.drop_frames or not _match(c, node):
+        return False
+    if kind not in ("frame", "changes"):
+        return False
+    if random.random() >= c.drop_frames:
+        return False
+    _disclose("frame_drop", node, kind=kind)
+    return True
 
 
 def disk_stall(node: str | None = None) -> None:
@@ -219,6 +259,66 @@ def tenant_storm(node: str | None, doc_id: str) -> int:
         return 0
     _disclose("tenant_storm", node, tenant=tid, x=c.tenant_storm_x)
     return c.tenant_storm_x - 1
+
+
+# per-node outgoing-message counters for conn_kill; the sentinel -1
+# marks "already fired" (one transport death per node key per reload)
+_kill_counts: dict = {}
+
+# per-node peer_hang state: receive count until onset, then the wall
+# clock the window opened at; cleared by reload()
+_hang_counts: dict = {}
+_hang_started: dict = {}
+
+
+def conn_kill(node: str | None = None) -> bool:
+    """True exactly ONCE per node key, on the n-th eligible outgoing
+    transport message (`AMTPU_CHAOS_CONN_KILL_AFTER=<n>`): the caller
+    (sync/tcp.py `_Peer._send`) hard-closes the socket instead of
+    writing — an established connection torn down mid-stream, the
+    reconnect supervisor's acceptance input. Inert unset; fires once
+    and then stays quiet until reload() (the fault under test is a
+    single transport death, not flapping — churn is sub_flap's job)."""
+    c = _cfg()
+    if not c.conn_kill_after or not _match(c, node):
+        return False
+    n = _kill_counts.get(node, 0)
+    if n < 0:
+        return False            # already fired for this node key
+    n += 1
+    if n < c.conn_kill_after:
+        _kill_counts[node] = n
+        return False
+    _kill_counts[node] = -1
+    _disclose("conn_kill", node, after=c.conn_kill_after)
+    return True
+
+
+def peer_hang(node: str | None = None) -> bool:
+    """True while the hang window is open (`AMTPU_CHAOS_PEER_HANG_S=
+    <seconds>`, opening at the `AMTPU_CHAOS_PEER_HANG_AFTER`-th
+    eligible receive — default 1, i.e. immediately): the caller
+    (sync/tcp.py `_Peer._read_loop`) swallows the incoming message
+    unprocessed — an accepted but unresponsive peer. The socket stays
+    open and keeps delivering, so nothing times out at the transport;
+    only an idle detector watching PROCESSED inbound activity
+    (SupervisedTcpClient `idle_reconnect_s`) can tell this apart from a
+    quiet link. Every swallow is disclosed."""
+    c = _cfg()
+    if not c.peer_hang_s or not _match(c, node):
+        return False
+    now = time.monotonic()
+    started = _hang_started.get(node)
+    if started is None:
+        n = _hang_counts.get(node, 0) + 1
+        _hang_counts[node] = n
+        if n < c.peer_hang_after:
+            return False        # window not open yet
+        _hang_started[node] = started = now
+    if now - started >= c.peer_hang_s:
+        return False            # window expired: responsive again
+    _disclose("peer_hang", node, s=c.peer_hang_s)
+    return True
 
 
 class LockHolder:

@@ -25,9 +25,11 @@ port of `automerge_tpu/utils/lockprof.py`).
 - **InstrumentedCondition**: the same wait accounting for condition
   variables.
 
-Not here yet: the reference's runtime lock-order sanitizer hooks
-(`utils/locksan.py`), which come with the TCP transport, its only other
-caller.
+Runtime sanitizer: with `AMTPU_LOCKSAN=1` (utils/locksan.py) every
+outermost acquire and release also reports to the lock-order sanitizer,
+which checks live acquisition order against the committed
+`locks_manifest.json`. The disabled path costs one module-attribute
+truth test per acquire.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ import threading
 import time
 import weakref
 
-from . import metrics
+from . import locksan, metrics
 
 # every live instrumented lock/condition (weak: a dropped service must
 # not pin its locks in the holder table forever)
@@ -93,10 +95,16 @@ class InstrumentedLock:
             metrics.bump("sync_lock_contended_total", lock=self.name)
             if not blocking:
                 return False
+            if locksan.on:
+                locksan.note_wait(self.name)
             t0 = time.perf_counter()
-            acquired = (self._lock.acquire()
-                        if timeout is None or timeout < 0
-                        else self._lock.acquire(timeout=timeout))
+            try:
+                acquired = (self._lock.acquire()
+                            if timeout is None or timeout < 0
+                            else self._lock.acquire(timeout=timeout))
+            finally:
+                if locksan.on:
+                    locksan.note_wait_done(self.name)
             wait_s = time.perf_counter() - t0
             if not acquired:
                 metrics.observe("sync_lock_wait_s", wait_s, lock=self.name)
@@ -107,6 +115,10 @@ class InstrumentedLock:
         self._holder = (threading.current_thread().name, me, fn, ln,
                         time.perf_counter())
         metrics.observe("sync_lock_wait_s", wait_s, lock=self.name)
+        if locksan.on:
+            # strict mode can raise here: the lock is held at that point
+            # (the sanitizer is a test and storm harness, not production)
+            locksan.note_acquire(self.name)
         return True
 
     def release(self) -> None:
@@ -119,6 +131,8 @@ class InstrumentedLock:
         self._holder = None
         self._owner = None
         self._depth = 0
+        if locksan.on:
+            locksan.note_release(self.name)
         self._lock.release()
         if holder is not None:
             metrics.observe("sync_lock_hold_s",
@@ -146,6 +160,8 @@ class InstrumentedLock:
         self._holder = None
         self._owner = None
         self._depth = 0
+        if locksan.on:
+            locksan.note_release(self.name)
         for _ in range(depth):
             self._lock.release()
         if holder is not None:

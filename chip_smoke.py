@@ -11,7 +11,9 @@ the rows engine (`ResidentRowsDocSet.apply_round_frames`, `apply_rounds`,
 (`apply_and_reconcile_columns(..., diffs=True)`, `diffs.MirrorDoc`), and the
 document API with the interpretive OpSet (`api.load`, `OpSet.add_changes`,
 `ResidentRowsDocSet.materialize`, `dispatch.apply_batch_adaptive`), and
-the sync service (`sync.service.EngineDocSet`, `Connection`). Ingress
+the sync service (`sync.service.EngineDocSet`, `Connection`), the sharded
+node (`sync.sharded_service.ShardedEngineDocSet`) and the TCP transport
+(`sync.tcp.TcpSyncServer`, `TcpSyncClient`, `SupervisedTcpClient`). Ingress
 runs the native C++ encoder, built with g++ at first use, unless a line says
 native=False.
 
@@ -118,7 +120,7 @@ Phases:
      linearize kernel once;
  11. rows-engine durability on the long-lived fleet of the reference's
      bench config 15 (1,024 docs, 4 writers, 64 overwritten fields; the
-     depth cut from 10,000 changes a doc to 2,560): 10 micro-batches of
+     depth cut from 10,000 changes a doc to 1,536): 6 micro-batches of
      256 round frames through apply_round_frames under the sync service's
      rule (on RowsBudgetError compact every doc to its causal floor and
      retry once), each followed by the horizon pass (archive_log_prefix
@@ -176,6 +178,35 @@ Phases:
      and the records a round, both nodes' hashes equal to each other and
      to phase 9's, 64 views equal to the hub's materialize. The kernels
      line adds (a) and (b)'s B1 launches and (c)'s B5 and linearize
+     launches;
+ 14. the sharded node and the TCP transport on the card: (a) bench config
+     8's fleet (bench.py:571-640) at its width, 100,000 docs behind one
+     ShardedEngineDocSet(n_shards=8, devices=None), so every shard is on
+     the card: one 4-`set` change a doc as wire columns in one svc.batch()
+     burst (one flush a shard), then 6 rounds that each give one change to
+     the same 2% of the fleet (2,000 docs; the bench's warm-up round and
+     its quarter-size fleet left out), the first hashes() (every shard
+     dirty, fanned out on amtpu-torch-hashfan-<k> threads), a clean
+     re-read (every shard from its cache, no launch), and a minority
+     hashes_for after one more round of 200 docs; load ops/s, round walls,
+     both reads' walls with their clean and dirty shard counts, flushes a
+     shard a burst, launches and resident bytes a doc; 512 docs spread
+     over the shards equal to apply_batch of their changes and every
+     shard's buffer to the plain version; (b) phase 2's map storm (the
+     heavy round and its first 2 rounds) written round by round into a rows
+     EngineDocSet and carried by TcpSyncClient(wire="columnar") over
+     127.0.0.1 to a second rows node behind a TcpSyncServer, both on the
+     card (open()'s clock adverts drained before the first round): the
+     wall from each round's write until the server's hashes() equal the
+     writer's, the wire bytes and messages a round, the launches on each
+     side; both nodes' hashes equal to phase 2 (a)'s after the same
+     rounds; then the
+     first 2 storm rounds again (no heavy round) over a
+     SupervisedTcpClient, with chaos conn_kill tearing the writer's socket
+     down halfway through the second: one kill, a reconnect, the gap
+     backfilled, the hashes equal. (b) is cut from the storm's 8 rounds to
+     2 for the run's time: a TCP reader admits one message a flush, 8 to
+     17 s a storm round. The kernels line adds (a) and (b)'s B1
      launches.
 Then the kernel timings (each kernel's launches timed three ways:
 `kernel_ms` from CUDA events around a host loop of launches, the host's
@@ -840,10 +871,11 @@ def timed_calls(ds, spec, calls):
     return out, walls, per_call
 
 
-def frame_rounds(ds, frames):
+def frame_rounds(ds, frames, keep=None):
     """The main path: one round frame a call, then the hash read, each
     round split into its host legs. Returns the final hashes, the walls
-    and the legs of each round."""
+    and the legs of each round; `keep`, a list, gets each round's
+    hashes."""
     from automerge_tpu_torch.sync.frames import decode_round_frame
     legs = time_legs(ds)
     walls, per_round = [], []
@@ -858,6 +890,8 @@ def frame_rounds(ds, frames):
         t2 = time.perf_counter()
         final = ds.hashes()
         t3 = time.perf_counter()
+        if keep is not None:
+            keep.append(final)
         split = {"decode": t1 - t0, **legs, "readback": t3 - t2}
         split["other"] = (t2 - t1) - sum(legs.values())
         walls.append(t3 - t0)
@@ -981,8 +1015,9 @@ def drive_map_storm(torch, dev):
     (native) with the late docs and a minority read (the megabatch route
     on and off, in turns), and through apply_rounds with native=False.
     Returns the main path's engine, its final hashes and its launches
-    with the route's, the apply_rounds engine with its final hashes, and
-    the route's megabatch account."""
+    with the route's, the apply_rounds engine with its final hashes, the
+    route's megabatch account, and the main path's hashes after each
+    storm round."""
     from automerge_tpu_torch.engine import cuda_kernels as ck
     from automerge_tpu_torch.engine import dispatchledger
     from automerge_tpu_torch.engine.resident_rows import ResidentRowsDocSet
@@ -1005,7 +1040,8 @@ def drive_map_storm(torch, dev):
         ds.hashes()
         heavy_s = time.perf_counter() - t0
         before = admission_rounds()
-        final, walls, per_round = frame_rounds(ds, frames)
+        round_hashes = []
+        final, walls, per_round = frame_rounds(ds, frames, round_hashes)
     launches = ck.LAUNCHES["reconcile_rows_hash"]
     moved = {k: admission_rounds()[k] - before[k] for k in before}
     check(moved == {"rows_rounds_batched": len(frames),
@@ -1118,7 +1154,8 @@ def drive_map_storm(torch, dev):
     check_routes("phase 2: (c) minority read", on_s, off_s)
     print(f"phase 2: (d) apply_rounds native=False storm round walls s "
           f"{walls_text(py_walls)}; final hashes of (a)-(d) equal")
-    return (ds, final, launches + minority_launches, rd, rd_final, c_mega)
+    return (ds, final, launches + minority_launches, rd, rd_final, c_mega,
+            round_hashes)
 
 
 def drive_text_fleet(torch, dev):
@@ -1830,11 +1867,12 @@ def drive_diff_plane(torch, dev, fleets):
 
 # Phase 11's long-lived fleet: bench config 15's corpus (1,024 docs, 4
 # writers, 64 fields) with its depth cut from 10,000 changes a doc to
-# LONG_ROUNDS x LONG_PER_ROUND, delivered as micro-batches of round frames
-# (one change a doc a frame); the snapshot covers all but the last
-# LONG_TAIL changes of each doc.
+# LONG_ROUNDS x LONG_PER_ROUND (10 rounds until phase 14 came; 6 keep the
+# whole run inside its time limit on a slower host), delivered as
+# micro-batches of round frames (one change a doc a frame); the snapshot
+# covers all but the last LONG_TAIL changes of each doc.
 LONG_DOCS = 1024
-LONG_ROUNDS = 10
+LONG_ROUNDS = 6
 LONG_PER_ROUND = 256
 LONG_TAIL = 50
 
@@ -2823,6 +2861,437 @@ def drive_service(torch, dev, map_final, rounds_ds, fleets):
     return b1, n_dom, n_lin
 
 
+# Phase 14 (a): bench config 8's fleet (bench.py:571-640) at its published
+# width: 100,000 documents behind one ShardedEngineDocSet of 8 shards, one
+# 4-`set` change a doc, 6 streamed rounds giving one change each to 2% of
+# the fleet (the same 2,000 docs every round, as the bench does).
+FLEET_DOCS = 100_000
+FLEET_SHARDS = 8
+FLEET_ROUNDS = 6
+FLEET_FRACTION = 0.02
+# Documents held to apply_batch (spread over every shard), and the
+# minority hashes_for after one more round of FLEET_MINORITY docs.
+FLEET_SAMPLE = 512
+FLEET_MINORITY = 200
+# Phase 14 (b): rounds of phase 2's storm carried over TCP, and the storm
+# rounds of the conn_kill run: cut from 8 (before the storm's width) for
+# the phase's budget, since a TCP reader admits one message a flush (8 to
+# 17 s a storm round on an H100 80GB HBM3 at 700 W).
+TCP_ROUNDS = 2
+KILL_ROUNDS = 2
+
+
+def fleet_base(i):
+    from automerge_tpu_torch.core.change import Change, Op
+    from automerge_tpu_torch.core.ids import ROOT_ID
+    return Change(actor=f"W{i % 257}", seq=1, deps={}, ops=[
+        Op("set", ROOT_ID, key=f"f{j}", value=(i * 7 + j) % 1000)
+        for j in range(4)])
+
+
+def fleet_round_change(i, seq):
+    from automerge_tpu_torch.core.change import Change, Op
+    from automerge_tpu_torch.core.ids import ROOT_ID
+    return Change(actor=f"W{i % 257}", seq=seq, deps={}, ops=[
+        Op("set", ROOT_ID, key=f"f{seq % 4}", value=seq * 31 + i)])
+
+
+def fleet_burst(svc, msgs) -> tuple[float, list, int]:
+    """One svc.batch() of apply_columns; its wall, each shard's flushes in
+    it (the shard's round counter before and after) and the garbage
+    collections that ran in it."""
+    import gc
+    seq0 = [s._round_seq for s in svc.shards]
+    gc0 = sum(st["collections"] for st in gc.get_stats())
+    t0 = time.perf_counter()
+    with svc.batch():
+        for did, cols in msgs:
+            svc.apply_columns(did, cols)
+    wall = time.perf_counter() - t0
+    gcs = sum(st["collections"] for st in gc.get_stats()) - gc0
+    return wall, [s._round_seq - q for s, q in zip(svc.shards, seq0)], gcs
+
+
+def drive_fleet(torch, dev, report, n_docs=FLEET_DOCS, n_shards=FLEET_SHARDS,
+                n_rounds=FLEET_ROUNDS, fraction=FLEET_FRACTION,
+                n_sample=FLEET_SAMPLE, n_minority=FLEET_MINORITY):
+    """Phase 14 (a). Returns the reconcile launches of the path."""
+    import gc
+    import random
+
+    import numpy as np
+
+    from automerge_tpu_torch.engine import cuda_kernels as ck
+    from automerge_tpu_torch.engine.batchdoc import apply_batch
+    from automerge_tpu_torch.native.wire import changes_to_columns
+    from automerge_tpu_torch.sync.sharded_service import ShardedEngineDocSet
+
+    rng = random.Random(11)
+    ids = [f"d{i}" for i in range(n_docs)]
+    # on the card every shard takes the default device (devices=None)
+    svc = ShardedEngineDocSet(n_shards=n_shards,
+                              devices=None if dev.type == "cuda" else [dev])
+    launches = {}
+    try:
+        for s in svc.shards:
+            check(s._resident.device.type == dev.type,
+                  f"phase 14 (a): a shard is on {s._resident.device}")
+        wire = [(ids[i], changes_to_columns([fleet_base(i)]))
+                for i in range(n_docs)]
+        ck.LAUNCHES["reconcile_rows_hash"] = 0
+        load_s, load_flushes, _gcs = fleet_burst(svc, wire)
+        launches["load"] = ck.LAUNCHES["reconcile_rows_hash"]
+        del wire
+        gc.collect()
+        check(all(f == 1 for f in load_flushes),
+              f"phase 14 (a): the load flushed {load_flushes} times a shard "
+              f"(one a burst)")
+        changed = rng.sample(range(n_docs), max(1, int(n_docs * fraction)))
+        seqs = {i: 1 for i in changed}
+        walls, round_flushes, round_gcs, caps = [], [], [], []
+        ck.LAUNCHES["reconcile_rows_hash"] = 0
+        for _ in range(n_rounds):
+            msgs = []
+            for i in changed:
+                seqs[i] += 1
+                msgs.append((ids[i], changes_to_columns(
+                    [fleet_round_change(i, seqs[i])])))
+            wall, flushes, gcs = fleet_burst(svc, msgs)
+            walls.append(wall)
+            round_flushes.append(max(flushes))
+            round_gcs.append(gcs)
+            caps.append(max(s._resident.dims()[0] for s in svc.shards))
+        launches["rounds"] = ck.LAUNCHES["reconcile_rows_hash"]
+        check(max(round_flushes) == 1,
+              f"phase 14 (a): a round flushed a shard {round_flushes} times")
+
+        ck.LAUNCHES["reconcile_rows_hash"] = 0
+        t0 = time.perf_counter()
+        h = svc.hashes()
+        first_s = time.perf_counter() - t0
+        launches["first_read"] = ck.LAUNCHES["reconcile_rows_hash"]
+        first = (svc.last_hashes_clean_shards, svc.last_hashes_dirty_shards)
+        check(first == (0, n_shards),
+              f"phase 14 (a): the first read's clean/dirty shards {first}")
+        ck.LAUNCHES["reconcile_rows_hash"] = 0
+        t0 = time.perf_counter()
+        h2 = svc.hashes()
+        clean_s = time.perf_counter() - t0
+        launches["clean_read"] = ck.LAUNCHES["reconcile_rows_hash"]
+        again = (svc.last_hashes_clean_shards, svc.last_hashes_dirty_shards)
+        check(h2 == h and again == (n_shards, 0),
+              f"phase 14 (a): the clean re-read ({again}) != the first")
+        check(launches["clean_read"] == 0,
+              f"phase 14 (a): the clean re-read launched the kernel "
+              f"{launches['clean_read']} times")
+        check(len(h) == n_docs, "phase 14 (a): the read missed documents")
+
+        # a minority hashes_for: one more round of n_minority docs, then
+        # a read of those and as many clean ones
+        late = rng.sample(changed, min(n_minority, len(changed)))
+        msgs = []
+        for i in late:
+            seqs[i] += 1
+            msgs.append((ids[i], changes_to_columns(
+                [fleet_round_change(i, seqs[i])])))
+        clean_ids = [ids[i] for i in rng.sample(range(n_docs), len(late))]
+        want = [ids[i] for i in late] + clean_ids
+        ck.LAUNCHES["reconcile_rows_hash"] = 0
+        fleet_burst(svc, msgs)
+        t0 = time.perf_counter()
+        minority = svc.hashes_for(want)
+        minority_s = time.perf_counter() - t0
+        launches["minority"] = ck.LAUNCHES["reconcile_rows_hash"]
+        final = svc.hashes()
+        check(all(minority[d] == final[d] for d in want),
+              "phase 14 (a): the minority hashes_for != the full read")
+        check(all(final[d] == h[d] for d in clean_ids if d not in
+                  {ids[i] for i in late}),
+              "phase 14 (a): a clean doc moved")
+
+        # parity: a sample spread over every shard against apply_batch of
+        # its changes, and every shard's buffer against the plain version
+        by_shard = {}
+        for i in range(n_docs):
+            by_shard.setdefault(svc.shards.index(svc.shard_of(ids[i])),
+                                []).append(i)
+        check(len(by_shard) == n_shards, "phase 14 (a): an empty shard")
+        per = max(1, n_sample // n_shards)
+        sample = [i for k in sorted(by_shard)
+                  for i in rng.sample(by_shard[k], min(per, len(by_shard[k])))]
+        doc_changes = [[fleet_base(i)] + [fleet_round_change(i, q)
+                                          for q in range(2, seqs.get(i, 1) + 1)]
+                       for i in sample]
+        _e, _a, out = apply_batch(doc_changes, device=dev)
+        got = ck.hashes_to_numpy(out["hash"])[:len(sample)]
+        check(all(int(got[k]) == int(np.uint32(final[ids[i]]))
+                  for k, i in enumerate(sample)),
+              "phase 14 (a): the sample != apply_batch of its changes")
+        resident = 0
+        for k, s in enumerate(svc.shards):
+            rset = s._resident
+            order = sorted(rset.doc_index, key=rset.doc_index.get)
+            hold_to_plain(rset, np.array([final[d] for d in order],
+                                         np.uint32),
+                          f"fleet shard {k} ({len(order)} docs)", report,
+                          phase="14")
+            resident += rset.rows_dev.numel() * rset.rows_dev.element_size()
+        mem = (torch.cuda.memory_allocated(dev) if dev.type == "cuda"
+               else 0)
+    finally:
+        svc.close()
+    n_ops = 4 * n_docs
+    print(f"phase 14: (a) bench config 8's fleet through ShardedEngineDocSet("
+          f"n_shards={n_shards}, devices=None: every shard on {dev}): "
+          f"{n_docs} docs loaded in one svc.batch() burst ({n_ops} ops, "
+          f"wire columns made before the clock) in {load_s:.3f} s = "
+          f"{n_ops / load_s:.0f} ops/s, flushes a shard {load_flushes}; "
+          f"{n_rounds} rounds of {len(changed)} docs: walls s "
+          f"{walls_text(walls)} p99 "
+          f"{pct(walls, 0.99):.4f} (garbage collections a round "
+          f"{round_gcs}, op capacity I after each round {caps}), at most {max(round_flushes)} flush a "
+          f"shard a round; first hashes() {first_s:.4f} s (clean/dirty "
+          f"shards {first[0]}/{first[1]}), clean re-read {clean_s:.6f} s "
+          f"({again[0]}/{again[1]}); minority hashes_for of {len(want)} "
+          f"docs ({len(late)} dirty) {minority_s:.4f} s; resident rows "
+          f"{resident / n_docs:.1f} B a doc ({resident} B), "
+          f"torch.cuda.memory_allocated {mem} B [{card()}]")
+    print(f"phase 14: (a) launches load {launches['load']}, rounds "
+          f"{launches['rounds']}, first read {launches['first_read']}, "
+          f"clean re-read {launches['clean_read']}, minority round and "
+          f"read {launches['minority']}; {len(sample)} docs over {n_shards} "
+          f"shards equal to apply_batch of their changes, every shard "
+          f"equal to the plain version")
+    return sum(launches.values())
+
+
+@contextlib.contextmanager
+def launches_by_node(nodes: dict):
+    """Count the reconcile kernel's launches by the node whose row buffer
+    each one reads (the buffer's address at launch time); yields the
+    counts, with "other" for buffers of no named node."""
+    from automerge_tpu_torch.engine import cuda_kernels as ck
+    counts = dict.fromkeys(list(nodes) + ["other"], 0)
+    launch = ck.launch
+
+    def counting(source, fn, counter, *args):
+        launch(source, fn, counter, *args)
+        if counter != "reconcile_rows_hash":
+            return
+        for name, node in nodes.items():
+            rows = node._resident.rows_dev
+            if rows is not None and rows.data_ptr() == args[0]:
+                counts[name] += 1
+                return
+        counts["other"] += 1
+
+    ck.launch = counting
+    try:
+        yield counts
+    finally:
+        ck.launch = launch
+
+
+def wait_until(pred, what: str, timeout: float = 300.0,
+               every: float = 0.002) -> None:
+    deadline = time.monotonic() + timeout
+    while not pred():
+        check(time.monotonic() < deadline, f"{what} (waited {timeout} s)")
+        time.sleep(every)
+
+
+def quiet(seconds: float):
+    """A predicate that holds once no message has been read off a socket
+    in this process for `seconds` (a lost message, as with a killed
+    socket, never arrives, so the sent and received counts are not
+    compared). Reads the counter under the registry's lock, not a whole
+    snapshot, which would hold that lock against the reader threads'
+    bumps for milliseconds."""
+    from automerge_tpu_torch.utils import metrics
+    reg = metrics._global
+    seen = [None, time.monotonic()]
+
+    def pred() -> bool:
+        with reg.lock:
+            n = reg.counters.get(("sync_msgs_received", ()), 0)
+        now = time.monotonic()
+        if n != seen[0]:
+            seen[:] = [n, now]
+            return False
+        return now - seen[1] >= seconds
+    return pred
+
+
+
+def tcp_storm(torch, dev, ids, rounds, wire="columnar", supervised=False,
+              before_round=None):
+    """Write `rounds` into a rows node on `dev`, carried over TCP on
+    127.0.0.1 (TcpSyncClient, or a SupervisedTcpClient) to a second rows
+    node behind a TcpSyncServer; after each round wait until the server's
+    hashes() equal the writer's. `before_round(k)` runs before round k.
+    Returns (walls, wire bytes, messages a round, launches by node, final
+    hashes of both, the client, the seconds open()'s adverts took to
+    drain)."""
+    from automerge_tpu_torch.sync.service import EngineDocSet
+    from automerge_tpu_torch.sync.tcp import (SupervisedTcpClient,
+                                              TcpSyncClient, TcpSyncServer)
+    from automerge_tpu_torch.utils import metrics
+
+    writer = EngineDocSet(ids, backend="rows", device=dev)
+    node = EngineDocSet(ids, backend="rows", device=dev)
+    writer._chaos_node = "smoke-writer"
+    server = TcpSyncServer(node, host="127.0.0.1", port=0, wire=wire).start()
+    client = (SupervisedTcpClient(writer, "127.0.0.1", server.port,
+                                  wire=wire, backoff_s=0.05)
+              if supervised else
+              TcpSyncClient(writer, "127.0.0.1", server.port, wire=wire))
+    client.start()
+    walls, nbytes, msgs = [], [], []
+    last_read = [0.0]
+
+    def caught_up(want, settled) -> bool:
+        """The server's hashes equal `want`. They are read once the wire
+        has been quiet for a moment, or every 0.5 s: a read takes the
+        server's service lock, and reading while its reader thread admits
+        slows the admission being timed."""
+        now = time.monotonic()
+        if not settled() and now - last_read[0] < 0.5:
+            return False
+        last_read[0] = now
+        return node.hashes() == want
+
+    try:
+        if supervised:
+            wait_until(lambda: client.connection is not None,
+                       "phase 14 (b): the supervisor never connected")
+        wait_until(lambda: node.hashes() == writer.hashes(),
+                   "phase 14 (b): the nodes never agreed after open()")
+        t0 = time.perf_counter()
+        wait_until(quiet(0.2),
+                   "phase 14 (b): open()'s clock adverts never drained",
+                   every=0.005)
+        open_s = time.perf_counter() - t0
+        with launches_by_node({"writer": writer, "server": node}) as counts:
+            for k, rnd in enumerate(rounds):
+                if before_round is not None:
+                    before_round(k)
+                m0 = metrics.snapshot()
+                t0 = time.perf_counter()
+                with writer.batch():
+                    for d, chs in rnd.items():
+                        writer.apply_changes(d, chs)
+                want = writer.hashes()
+                settled = quiet(0.02)
+                wait_until(lambda: caught_up(want, settled),
+                           "phase 14 (b): the server never caught up",
+                           every=0.005)
+                walls.append(time.perf_counter() - t0)
+                m1 = metrics.snapshot()
+                nbytes.append(m1.get("sync_wire_bytes_sent", 0)
+                              - m0.get("sync_wire_bytes_sent", 0))
+                msgs.append(m1.get("sync_msgs_sent", 0)
+                            - m0.get("sync_msgs_sent", 0))
+        hw, hs = writer.hashes(), node.hashes()
+    finally:
+        client.close()
+        server.close()
+        writer.close()
+        node.close()
+    return walls, nbytes, msgs, dict(counts), (hw, hs), client, open_s
+
+
+def drive_tcp_pair(torch, dev, map_rounds, n_rounds=TCP_ROUNDS,
+                   kill_rounds=KILL_ROUNDS, storm=None):
+    """Phase 14 (b); `map_rounds` holds phase 2 (a)'s hashes after each
+    storm round. Returns the reconcile launches of the path."""
+    import threading
+
+    import numpy as np
+
+    from automerge_tpu_torch.utils import chaos, metrics
+    from automerge_tpu_torch.workloads import map_storm
+
+    ids, heavy, rounds = storm or map_storm()
+    rounds = [heavy] + rounds[:n_rounds]
+    walls, nbytes, msgs, counts, (hw, hs), _, open_s = tcp_storm(
+        torch, dev, ids, rounds)
+    for name, h in (("writer", hw), ("server", hs)):
+        got = np.array([h[d] for d in ids], np.uint32)
+        check((got == map_rounds[n_rounds - 1]).all(),
+              f"phase 14 (b): the {name}'s hashes != phase 2 (a)'s after "
+              f"round {n_rounds}")
+    check(dev.type != "cuda" or (counts["writer"] > 0
+                                 and counts["server"] > 0),
+          f"phase 14 (b): a node skipped the kernel ({counts})")
+    print(f"phase 14: (b) map storm over TCP on 127.0.0.1: a rows "
+          f"EngineDocSet on {dev} -> TcpSyncClient(wire='columnar') -> "
+          f"TcpSyncServer -> a rows EngineDocSet on {dev}; {len(ids)} docs, "
+          f"the heavy round then {len(rounds) - 1} storm rounds of "
+          f"{[len(r) for r in rounds[1:]]} docs; open()'s clock adverts "
+          f"drained in {open_s:.2f} s; write-to-equal-hashes "
+          f"walls s {walls_text(walls[1:])} (heavy round "
+          f"{walls[0]:.4f}); wire bytes a round {nbytes[1:]}, messages "
+          f"{msgs[1:]}; launches writer {counts['writer']} server "
+          f"{counts['server']} other {counts['other']}; both nodes' hashes "
+          f"equal to phase 2 (a)'s after round {n_rounds} [{card()}]")
+
+    # conn_kill once, mid-stream, on a supervised link (the storm rounds
+    # without the heavy one): armed before the second storm round, it
+    # tears the writer's socket down halfway through that round's messages
+    k_rounds = rounds[1:1 + kill_rounds]
+    kill_after = max(1, len(k_rounds[1]) // 2)
+
+    def arm(k):
+        if k == 1:
+            os.environ["AMTPU_CHAOS_CONN_KILL_AFTER"] = str(kill_after)
+            os.environ["AMTPU_CHAOS_NODE"] = "smoke-writer"
+            chaos.reload()
+
+    m0 = metrics.snapshot()
+    try:
+        k_walls, _b, _m, k_counts, (kw, ks), sup, k_open_s = tcp_storm(
+            torch, dev, ids, k_rounds, supervised=True, before_round=arm)
+    finally:
+        os.environ.pop("AMTPU_CHAOS_CONN_KILL_AFTER", None)
+        os.environ.pop("AMTPU_CHAOS_NODE", None)
+        chaos.reload()
+    m1 = metrics.snapshot()
+    kills = (m1.get("obs_chaos_injected{fault=conn_kill}", 0)
+             - m0.get("obs_chaos_injected{fault=conn_kill}", 0))
+    reconnects = m1.get("sync_reconnects", 0) - m0.get("sync_reconnects", 0)
+    check(kills == 1 and reconnects >= 1 and sup.generation >= 2,
+          f"phase 14 (b): conn_kill {kills}, reconnects {reconnects}, "
+          f"generation {sup.generation}")
+    check(kw == ks, "phase 14 (b): after conn_kill the nodes differ")
+    check(not [t for t in threading.enumerate()
+               if t.name.startswith("amtpu-torch-tcp")],
+          "phase 14 (b): a TCP thread outlived its close()")
+    print(f"phase 14: (b) conn_kill at the writer's {kill_after}th message "
+          f"of storm round 2 on a SupervisedTcpClient: {kills} kill, "
+          f"{reconnects} reconnect(s), open() drained in {k_open_s:.2f} s, "
+          f"generation {sup.generation}; {len(k_rounds)} storm rounds "
+          f"(no heavy round): write-to-equal-hashes walls s "
+          f"{walls_text(k_walls)} (the second pays the reconnect, the "
+          f"re-advert of every doc and the backfill); hashes equal after "
+          f"the backfill; launches "
+          f"writer {k_counts['writer']} server {k_counts['server']} other "
+          f"{k_counts['other']} [{card()}]")
+    return sum(counts.values()) + sum(k_counts.values())
+
+
+def drive_fleet_and_tcp(torch, dev, report, map_rounds):
+    """Phase 14: the sharded fleet and the TCP pair on the card. Returns
+    the reconcile kernel's launches."""
+    t_phase = time.perf_counter()
+    b1_fleet = drive_fleet(torch, dev, report)
+    t_mid = time.perf_counter()
+    b1_tcp = drive_tcp_pair(torch, dev, map_rounds)
+    print(f"phase 14: launches reconcile_rows_hash {b1_fleet + b1_tcp} "
+          f"((a) {b1_fleet}, (b) {b1_tcp}); (a) took {t_mid - t_phase:.1f} "
+          f"s, (b) {time.perf_counter() - t_mid:.1f} s")
+    return b1_fleet + b1_tcp
+
+
 def time_docs_round(torch, ds):
     """Device milliseconds of one full apply_doc over the text fleet's
     state, of its linearize step (the kernel) and of linearize_plain."""
@@ -3158,7 +3627,7 @@ def main() -> int:
     phase_dominated_parity(torch, dev, report)
     phase_linearize_parity(torch, dev, report)
     (map_ds, map_final, map_launches,
-     rounds_ds, rounds_final, mega) = drive_map_storm(torch, dev)
+     rounds_ds, rounds_final, mega, map_rounds) = drive_map_storm(torch, dev)
     text_ds, text_final, text_launches = drive_text_fleet(torch, dev)
     check(map_launches > 0 and text_launches > 0, "a path skipped the kernel")
     hold_to_plain(map_ds, map_final, "map storm", report)
@@ -3185,6 +3654,7 @@ def main() -> int:
 
     svc_b1, svc_dom, svc_lin = drive_service(torch, dev, map_final,
                                              rounds_ds, fleets)
+    fleet_b1 = drive_fleet_and_tcp(torch, dev, report, map_rounds)
 
     rows_times = time_kernel(torch, map_ds, "map storm")
     time_kernel(torch, text_ds, "text fleet")
@@ -3207,13 +3677,14 @@ def main() -> int:
           f"(phase 11); the document API and the OpSet: resolve_moves "
           f"{api_b4}, dominated {api_dom}, linearize {api_lin} (phase 12); "
           f"the sync service: reconcile_rows_hash {svc_b1}, dominated "
-          f"{svc_dom}, linearize {svc_lin} (phase 13)")
+          f"{svc_dom}, linearize {svc_lin} (phase 13); the sharded fleet "
+          f"and the TCP pair: reconcile_rows_hash {fleet_b1} (phase 14)")
     print(json.dumps({"kernels": [
         kernel_entry("reconcile_rows_hash",
                      "automerge_tpu_torch/csrc/reconcile_rows.cu",
                      "automerge_tpu/engine/pallas_kernels.py:499",
                      map_launches + text_launches + long_launches
-                     + svc_b1,
+                     + svc_b1 + fleet_b1,
                      report["reconcile_rows_hash"], rows_times),
         kernel_entry("span_rank_hash",
                      "automerge_tpu_torch/csrc/span_rank_hash.cu",

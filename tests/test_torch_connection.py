@@ -36,21 +36,11 @@ from automerge_tpu_torch.sync.audit import ConvergenceAuditor
 from automerge_tpu_torch.sync.connection import Connection
 from automerge_tpu_torch.sync.service import EngineDocSet
 
-RELAY = "needs the relay hub (sync/relay.py), which is not ported"
 PERF = "needs a perf plane (automerge_tpu/perf), which is not ported"
-SHARDED = "needs ShardedEngineDocSet, which is not ported"
 
 CASES = (
     collect("test_connection")
     + collect("test_subscriptions", exclude={
-        "test_interest_composes_with_chaos_doc_stall": RELAY,
-        "test_relay_cover_merge_and_upward_dedup": RELAY,
-        "test_relay_fan_down_filtered_and_dedup_proven_by_lanes": RELAY,
-        "test_relay_prefix_absorbs_doc_subscriptions_upstream": RELAY,
-        "test_relay_crash_rehomes_downstream_interest": RELAY,
-        "test_relay_detach_child_releases_cover": RELAY,
-        "test_reset_resubscribe_does_not_inflate_hub_refcounts": RELAY,
-        "test_prefix_removal_restores_absorbed_upstream_doc_subs": RELAY,
         "test_explain_names_doc_unsubscribed_not_a_stall": PERF,
         "test_slo_engine_drives_governor": PERF,
         "test_perf_top_hot_doc_panel_states_truncation": PERF,
@@ -58,10 +48,7 @@ CASES = (
         "test_governor_delays_low_priority_only_and_discloses":
             "asserts on wall-clock delays",
     })
-    + collect("test_convergence_audit", exclude={
-        "test_injected_divergence_detected_with_shard_and_doc": SHARDED,
-        "test_divergence_detected_across_different_shard_counts": SHARDED,
-    })
+    + collect("test_convergence_audit")
 )
 
 

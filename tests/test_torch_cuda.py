@@ -680,3 +680,104 @@ def test_card_and_cpu_nodes_converge_over_a_connection(cuda_device, wire):
         assert card.materialize(d) == cpu.materialize(d)
     card.close()
     cpu.close()
+
+
+# ---------------------------------------------------------------------------
+# the sharded node and the TCP transport on the card
+
+
+@pytest.mark.cuda
+def test_sharded_node_on_the_card_equals_the_cpu(cuda_device):
+    """ShardedEngineDocSet with devices=None puts every shard on the card;
+    its bursts and first read launch the reconcile kernel, a clean re-read
+    launches nothing; hashes, the reads' clean and dirty shard counts,
+    clocks and a minority hashes_for equal a sharded node on the CPU."""
+    from automerge_tpu_torch.sync.sharded_service import ShardedEngineDocSet
+    ids, rounds = _service_streams(n_docs=96, rounds=3)
+    out = {}
+    for devices in (None, ["cpu"]):
+        svc = ShardedEngineDocSet(n_shards=4, devices=devices)
+        if devices is None:
+            assert all(s._resident.device.type == "cuda" for s in svc.shards)
+        before = cuda_kernels.LAUNCHES["reconcile_rows_hash"]
+        for rnd in rounds:
+            with svc.batch():
+                for d, chs in rnd.items():
+                    svc.apply_changes(d, chs)
+        h = svc.hashes()
+        launched = cuda_kernels.LAUNCHES["reconcile_rows_hash"] - before
+        first = (svc.last_hashes_clean_shards, svc.last_hashes_dirty_shards)
+        before = cuda_kernels.LAUNCHES["reconcile_rows_hash"]
+        assert svc.hashes() == h
+        clean = cuda_kernels.LAUNCHES["reconcile_rows_hash"] - before
+        out[devices is None] = (h, first,
+                                (svc.last_hashes_clean_shards,
+                                 svc.last_hashes_dirty_shards),
+                                {d: svc.clock_of(d) for d in ids},
+                                svc.hashes_for(ids[::7]))
+        svc.close()
+        if devices is None:
+            assert launched >= 1 and clean == 0
+    assert out[True] == out[False]
+
+
+@pytest.mark.cuda
+def test_sharded_shards_bind_to_every_card(cuda_device):
+    """One shard on each card of the machine (devices round-robin): each
+    shard's rows live on its own card, and the hashes equal a CPU node's."""
+    from automerge_tpu_torch.sync.sharded_service import ShardedEngineDocSet
+    n = torch.cuda.device_count()
+    devs = [torch.device("cuda", k) for k in range(n)]
+    ids, rounds = _service_streams(n_docs=16 * n, rounds=2)
+    card = ShardedEngineDocSet(n_shards=n, devices=devs)
+    cpu = ShardedEngineDocSet(n_shards=n, devices=["cpu"])
+    try:
+        for rnd in rounds:
+            for node in (card, cpu):
+                for d, chs in rnd.items():
+                    node.apply_changes(d, chs)
+        assert card.hashes() == cpu.hashes()
+        for k, s in enumerate(card.shards):
+            assert s._resident.device == devs[k]
+            assert s._resident.rows_dev.device == devs[k]
+    finally:
+        card.close()
+        cpu.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["json", "columnar"])
+def test_tcp_pair_on_the_card_equals_the_cpu(cuda_device, wire):
+    """A rows node written on the card carried over TCP on 127.0.0.1 to a
+    rows node on the card, and the same pair on the CPU: both pairs
+    converge, and the card's hashes, clocks and documents equal the
+    CPU's."""
+    import time
+    from automerge_tpu_torch.sync.service import EngineDocSet
+    from automerge_tpu_torch.sync.tcp import TcpSyncClient, TcpSyncServer
+    ids, rounds = _service_streams(n_docs=48, rounds=3)
+    out = {}
+    for dev in (cuda_device, "cpu"):
+        writer = EngineDocSet(backend="rows", device=dev)
+        node = EngineDocSet(backend="rows", device=dev)
+        server = TcpSyncServer(node, wire=wire).start()
+        client = TcpSyncClient(writer, server.host, server.port,
+                               wire=wire).start()
+        try:
+            for rnd in rounds:
+                with writer.batch():
+                    for d, chs in rnd.items():
+                        writer.apply_changes(d, chs)
+            want = writer.hashes()
+            deadline = time.monotonic() + 120
+            while node.hashes() != want:
+                assert time.monotonic() < deadline, "no convergence"
+                time.sleep(0.01)
+            out[str(dev)] = (want, {d: node.clock_of(d) for d in ids},
+                             {d: node.materialize(d) for d in ids[:6]})
+        finally:
+            client.close()
+            server.close()
+            writer.close()
+            node.close()
+    assert out[str(cuda_device)] == out["cpu"]

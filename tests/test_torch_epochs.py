@@ -38,12 +38,10 @@ CASES = collect("test_epoch_ingest", exclude={
     "test_refill_probe_waits_on_growth_never_on_a_clock": CLOCKED,
     "test_seal_is_one_atomic_cut_across_stripes": CLOCKED,
     "test_reads_mid_flush_equal_quiesced_reread": CLOCKED,
-    "test_flusher_thread_named_and_joined_on_close":
-        "ShardedEngineDocSet is not ported; "
-        "test_flusher_named_and_joined_on_close below is the port's",
     "test_flusher_exits_after_idle_linger_and_respawns": CLOCKED,
-    "test_sharded_concurrent_writers_audit_green":
-        "ShardedEngineDocSet is not ported",
+    "test_flusher_thread_named_and_joined_on_close":
+        "asserts the reference's thread name (amtpu-flusher-<k>); "
+        "test_flusher_named_and_joined_on_close below is the port's",
 })
 
 
@@ -270,6 +268,24 @@ def test_flusher_named_and_joined_on_close():
     assert e._flusher._name_fn() == "amtpu-torch-flusher-3"
     e.close()
     assert not t.is_alive()
+
+
+def test_sharded_flushers_named_per_shard_and_joined_on_close():
+    """A sharded node's shards each spawn `amtpu-torch-flusher-<k>` on
+    their first ingress; the node's close() joins them all."""
+    from automerge_tpu_torch.sync import ShardedEngineDocSet
+    pkg = Pkg(False)
+    s = ShardedEngineDocSet(n_shards=2, devices=["cpu"])
+    docs = ["doc-a", "doc-b", "doc-c", "doc-d"]
+    for d in docs:
+        s.apply_changes(d, [pkg.change("A", 1)])
+    threads = [sh._flusher._thread for sh in s.shards
+               if sh._flusher._thread is not None]
+    assert sorted({t.name for t in threads}) == sorted(
+        f"amtpu-torch-flusher-{k}" for k, sh in enumerate(s.shards)
+        if sh.doc_ids)
+    s.close()
+    assert not any(t.is_alive() for t in threads)
 
 
 def test_flusher_exits_after_idle_linger_and_respawns():

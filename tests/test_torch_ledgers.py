@@ -29,10 +29,7 @@ from automerge_tpu_torch.sync.service import EngineDocSet
 from automerge_tpu_torch.utils import flightrec, metrics
 
 CASES = (
-    collect("test_docledger", exclude={
-        "test_tcp_per_kind_byte_accounting":
-            "TCP transport (sync/tcp.py) is not ported",
-    })
+    collect("test_docledger")
     + collect("test_tenantledger", exclude={
         "test_attribution_check_sums_to_totals":
             "needs automerge_tpu.perf.tenantplane, which is not ported",

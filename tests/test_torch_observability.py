@@ -43,18 +43,16 @@ CLOCKED = "waits on the wall clock or sleeps; replaced below"
 
 CASES = (
     collect("test_oplag", exclude={
-        "test_full_lineage_across_real_tcp_pair":
-            "TCP transport (sync/tcp.py) is not ported",
         "test_stale_token_retired_by_ttl": CLOCKED,
         "test_causal_queue_stage_via_opset": CLOCKED,
     })
     + collect("test_tracer", exclude={
         "test_tcp_stitch_one_trace_covers_both_processes":
-            "TCP transport (sync/tcp.py) is not ported",
+            "a race in the reference (the trace can complete on its origin "
+            "before the send path pops it); test_tcp_stitch_waits_on_the_"
+            "hand_off below is the port's",
     })
     + collect("test_flightrec", exclude={
-        "test_stalled_sharded_fanout_dumps_postmortem":
-            "needs ShardedEngineDocSet, which is not ported",
         "test_excepthook_dump": CLOCKED,
     })
 )
@@ -399,3 +397,83 @@ def test_package_root_exports():
         "automerge_tpu_torch.sync.connection"
     assert automerge_tpu_torch.flightrec is flightrec
     assert ref_flightrec is not flightrec
+
+
+# ---------------------------------------------------------------------------
+# the trace plane's stitch over a real socket, waiting on the hand-off
+
+
+def test_tcp_stitch_waits_on_the_hand_off(monkeypatch):
+    """test_tracer.py::test_tcp_stitch_one_trace_covers_both_processes on
+    the port, with its race taken out: a sampled change on node A crosses
+    a loopback socket and completes as one stitched trace on node B. The
+    case waits for the send path to hand the trace off (an event set by
+    the sender's `wire_header`) before it reads A's hashes, since a read
+    on A can complete the trace at its origin first."""
+    import string
+    import time
+
+    import numpy as np
+
+    from automerge_tpu_torch.native.wire import changes_to_columns
+    from automerge_tpu_torch.sync.tcp import TcpSyncClient, TcpSyncServer
+
+    def cols(actor, seq, key, value):
+        return changes_to_columns([Change(
+            actor=actor, seq=seq, deps={},
+            ops=[Op("set", ROOT_ID, key=key, value=value)])])
+
+    def wait(predicate, timeout=30.0):
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            if predicate():
+                return True
+            time.sleep(0.01)
+        return False
+
+    tracer.set_sample_rate(2)
+    hot = next(a for a in string.ascii_uppercase if tracer.sampled(a, 1))
+    cold = next(a for a in string.ascii_uppercase
+                if not tracer.sampled(a, 1))
+    handed = threading.Event()
+    wire_header = tracer.wire_header
+
+    def spy(doc_id, serialize_s=0.0):
+        out = wire_header(doc_id, serialize_s)
+        if out and doc_id == "doc1":
+            handed.set()
+        return out
+    monkeypatch.setattr(tracer, "wire_header", spy)
+    a = EngineDocSet(backend="rows", device="cpu")
+    b = EngineDocSet(backend="rows", device="cpu")
+    server = TcpSyncServer(a).start()
+    client = TcpSyncClient(b, server.host, server.port).start()
+    try:
+        a.apply_columns("warm", cols(cold, 1, "w", 0))
+        assert wait(lambda: "warm" in a.hashes() and "warm" in b.hashes())
+        a.apply_columns("doc1", cols(hot, 1, "x", 1))
+        a.apply_columns("doc1", cols(cold, 2, "y", 2))
+        assert handed.wait(timeout=30.0)
+
+        def converged():
+            ha, hb = a.hashes(), b.hashes()
+            return ("doc1" in ha and "doc1" in hb
+                    and np.uint32(ha["doc1"]) == np.uint32(hb["doc1"]))
+        assert wait(converged)
+        assert wait(lambda: tracer.section()["stitched"] >= 1
+                    and tracer.section()["inflight"] == 0)
+        sec = tracer.section()
+        assert sec["sampled"] == 1
+        assert sec["handed_off"] >= 1 and sec["received"] >= 1
+        t = next(t for t in sec["exemplars"]
+                 if t["stitched"] and t["doc"] == "doc1")
+        assert t["actor"] == hot
+        stages = [s[0] for s in t["spans"]]
+        for st in ("finalize", "dispatch", "wire", "remote_admission",
+                   "visibility"):
+            assert st in stages, (st, stages)
+    finally:
+        client.close()
+        server.close()
+        a.close()
+        b.close()

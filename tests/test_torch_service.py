@@ -41,10 +41,8 @@ JIT_FAULT = ("injects its fault through metrics.dispatch_jit, which the "
 CASES = (
     collect("test_rows_service", adapters=ORACLE)
     + collect("test_incremental_hashes", exclude={
-        "test_single_dirty_shard_fans_out_to_one_shard":
-            "ShardedEngineDocSet is not ported",
         "test_clean_fleet_read_zero_reconcile_dispatches":
-            "reads a ShardedEngineDocSet and the JAX dispatch counters; "
+            "reads the JAX dispatch counters; "
             "test_clean_read_launches_nothing below is the port's",
         "test_dispatch_failure_then_retry_recovers": JIT_FAULT,
         "test_incremental_equals_full_recompute_seeded": JIT_FAULT,

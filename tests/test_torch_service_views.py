@@ -21,12 +21,8 @@ from torch_twin_helpers import (collect, hygiene_teardown, port_apply_batch,
 from automerge_tpu.engine.batchdoc import apply_batch as ref_apply_batch
 
 CASES = (
-    collect("test_engine_service", exclude={
-        "TestEngineService::test_two_peer_tcp_no_deadlock":
-            "TCP transport (sync/tcp.py) is not ported",
-        "TestEngineService::test_tcp_columnar_sync":
-            "TCP transport (sync/tcp.py) is not ported",
-    }, adapters={ref_apply_batch: port_apply_batch})
+    collect("test_engine_service",
+            adapters={ref_apply_batch: port_apply_batch})
     + collect("test_perop_stream")
 )
 

@@ -21,12 +21,14 @@ documents are compared pair by pair:
 
 A test that makes more than MAX_RECORDS documents has them sampled.
 
-The sync service is held the same way: every `EngineDocSet` (and every
-`ConvergenceAuditor`) a case makes is recorded on both runs, and the
-pairs must give equal `hashes()`, and per document equal `clock_of` and
-`missing_changes` against the empty clock (`hold_services`). Each side
-closes its services and stops its auditors when its run ends, so no
-flusher or auditor thread outlives the case (`threads_settled`).
+The sync service is held the same way: every `EngineDocSet` and
+`ShardedEngineDocSet` (and every `ConvergenceAuditor`) a case makes is
+recorded on both runs, and the pairs must give equal `hashes()`, and per
+document equal `clock_of` and `missing_changes` against the empty clock
+(`hold_services`). A port `ShardedEngineDocSet` made without `devices=`
+puts its shards on the CPU. Each side closes its services and stops its
+auditors when its run ends, so no flusher or auditor thread outlives the
+case (`threads_settled`).
 """
 
 from __future__ import annotations
@@ -49,6 +51,8 @@ from automerge_tpu.core.opset import OpSet as RefOpSet
 from automerge_tpu.engine.batchdoc import oracle_state as ref_oracle_state
 from automerge_tpu.sync.audit import ConvergenceAuditor as RefAuditor
 from automerge_tpu.sync.service import EngineDocSet as RefEngineDocSet
+from automerge_tpu.sync.sharded_service import (
+    ShardedEngineDocSet as RefShardedEngineDocSet)
 from automerge_tpu.utils import uuid as ref_uuid
 
 from automerge_tpu_torch import api as port_api
@@ -59,23 +63,24 @@ from automerge_tpu_torch.engine.batchdoc import (
 from automerge_tpu_torch.sync.audit import ConvergenceAuditor as PortAuditor
 from automerge_tpu_torch.sync.service import (
     EngineDocSet as PortEngineDocSet)
+from automerge_tpu_torch.sync.sharded_service import (
+    ShardedEngineDocSet as PortShardedEngineDocSet)
 from automerge_tpu_torch.utils import uuid as port_uuid
 
 # API calls whose result is a document root (recorded on both runs)
 DOC_CALLS = ("init", "init_immutable", "change", "empty_change", "merge",
              "load", "load_immutable", "apply_changes", "undo", "redo",
-             "load_binary")
+             "load_binary", "load_transit")
 # The package surface `import automerge_tpu as am` gives a test (with
-# Connection and flightrec, below). Left out of the port's: save_transit
-# / load_transit (not ported yet); a case that reaches them is not
-# collected.
+# Connection and flightrec, below).
 SURFACE = ("init", "init_immutable", "change", "empty_change", "merge",
            "diff", "assign", "load", "load_immutable", "save", "equals",
            "inspect", "get_history", "get_conflicts", "get_changes",
            "get_changes_for_actor", "apply_changes", "get_missing_changes",
            "get_missing_deps", "get_clock", "get_actor_id", "can_undo",
            "undo", "can_redo", "redo", "changes_from_json", "begin",
-           "Transaction", "SAVE_FORMAT_VERSION")
+           "Transaction", "SAVE_FORMAT_VERSION", "save_transit",
+           "load_transit")
 
 
 def counter_factory(prefix: str):
@@ -166,6 +171,19 @@ def _cpu(obj):
         k.setdefault("device", "cpu")
         return obj(*a, **k)
     return on_cpu
+
+
+def _sharded_on_cpu():
+    """The port's ShardedEngineDocSet with its shards on the CPU unless
+    the caller passes `devices=` (the reference's default is its
+    backend's device, the port's the card)."""
+    import torch
+
+    class ShardedEngineDocSet(PortShardedEngineDocSet):
+        def __init__(self, *a, devices=None, **k):
+            super().__init__(*a, devices=devices or [torch.device("cpu")],
+                             **k)
+    return ShardedEngineDocSet
 
 
 def _recording(fn, records: list):
@@ -297,6 +315,8 @@ class Rebinder:
     def _import(self, name, globals=None, locals=None, fromlist=(),
                 level=0):
         mod = builtins.__import__(name, globals, locals, fromlist, level)
+        if not level and fromlist and name in _HELPER_MODULES:
+            return _ModView(self, mod)
         if level or not _is_ref(name):
             return mod
         if not fromlist:
@@ -312,7 +332,8 @@ class Rebinder:
         the CPU) whose instances are appended to `into`."""
         out = self._recorders.get(cls)
         if out is None:
-            base = _cpu(cls)
+            base = (_sharded_on_cpu() if cls is PortShardedEngineDocSet
+                    else _cpu(cls))
 
             def __init__(obj, *a, **k):
                 base.__init__(obj, *a, **k)
@@ -328,6 +349,10 @@ class Rebinder:
         if val is RefEngineDocSet:
             return self._recorder(RefEngineDocSet if self.side == "ref"
                                   else PortEngineDocSet, self.services)
+        if val is RefShardedEngineDocSet:
+            return self._recorder(
+                RefShardedEngineDocSet if self.side == "ref"
+                else PortShardedEngineDocSet, self.services)
         if val is RefAuditor:
             return self._recorder(RefAuditor if self.side == "ref"
                                   else PortAuditor, self.auditors)
@@ -392,6 +417,20 @@ _TEST_MODULES: set = {"helpers"}
 
 def _is_test_module(name: str) -> bool:
     return name in _TEST_MODULES
+
+
+_HELPER_MODULES: set = set()
+
+
+def helper_modules(*names: str) -> None:
+    """Register reference test modules that a collected module imports
+    its helpers from under another name (`from tests.test_rows_service
+    import ...`, at the top or inside a test), so their functions run
+    with the side's globals too."""
+    for name in names:
+        importlib.import_module(name)
+        _TEST_MODULES.add(name)
+        _HELPER_MODULES.add(name)
 
 
 # ---------------------------------------------------------------------------
@@ -737,14 +776,16 @@ def reload_caches() -> None:
     from automerge_tpu.engine import dispatch as rd, dispatchledger as rdl
     from automerge_tpu.sync import docledger as rdoc, tenantledger as rten
     from automerge_tpu.utils import chaos as rchaos, oplag as roplag
+    from automerge_tpu.utils import locksan as rlocksan
     from automerge_tpu.utils import tracer as rtracer
     from automerge_tpu_torch.engine import dispatch, dispatchledger
     from automerge_tpu_torch.sync import audit, docledger, epochs
     from automerge_tpu_torch.sync import tenantledger
-    from automerge_tpu_torch.utils import chaos, flightrec, oplag, tracer
-    for mod in (rd, rdl, rdoc, rten, rtracer, dispatch, dispatchledger,
-                audit, docledger, epochs, tenantledger, flightrec, oplag,
-                tracer):
+    from automerge_tpu_torch.utils import chaos, flightrec, locksan, oplag
+    from automerge_tpu_torch.utils import tracer
+    for mod in (rd, rdl, rdoc, rten, rtracer, rlocksan, dispatch,
+                dispatchledger, audit, docledger, epochs, tenantledger,
+                flightrec, locksan, oplag, tracer):
         mod._reload_for_tests()
     roplag.set_sample_rate(None)
     rchaos.reload()
