@@ -50,8 +50,12 @@ SOURCES = {"reconcile_rows": CSRC / "reconcile_rows.cu",
 
 # Launches of each kernel by its wrapper: one per launch, counted nowhere
 # else, so a run can show that its main path went through the kernel.
-LAUNCHES = {"reconcile_rows_hash": 0, "span_rank_hash": 0, "move_round": 0,
-            "resolve_moves": 0, "dominated": 0, "linearize": 0}
+# "reconcile_rows_hash_xl" counts, of the reconcile launches, those that
+# take the reference's XL body (B2): dims past the base envelope, or
+# force_xl.
+LAUNCHES = {"reconcile_rows_hash": 0, "reconcile_rows_hash_xl": 0,
+            "span_rank_hash": 0, "move_round": 0, "resolve_moves": 0,
+            "dominated": 0, "linearize": 0}
 
 # The C entry points of each source: argument types (every pointer and the
 # stream as c_void_p, so ctypes never cuts a pointer to 32 bits); each
@@ -256,6 +260,9 @@ def reconcile_rows_hash(rows: torch.Tensor, dims: tuple,
             launch("reconcile_rows", "amt_reconcile_rows_hash",
                    "reconcile_rows_hash", rows.data_ptr(), out.data_ptr(),
                    d_pad, i, a, le, a_set, a_del, stream_of(rows))
+            if force_xl or not rows_dims_eligible(i, a, le):
+                with _count_lock:
+                    LAUNCHES["reconcile_rows_hash_xl"] += 1
     return out
 
 

@@ -11,7 +11,14 @@ column a static row range. It is the native layout of the fused reconcile
 kernel (`cuda_kernels.reconcile_rows_hash`) and of the resident rows
 engine.
 
-Both are byte-for-byte the reference's formats, so a buffer packed by
+The compact row wires (`pack_rows_compact`, `pack_rows_bytes`): the row
+buffer with each group at the narrowest dtype that holds it, widened to
+int32 on the device (`widen_rows`, `widen_bytes`) before the kernel. Field
+sharding (`select_field_sharding`, `shard_batch_by_fields`,
+`recombine_hashes`): a document too wide for the envelope split into
+field-disjoint virtual documents whose hashes sum back to its own.
+
+All are byte-for-byte the reference's formats, so a buffer packed by
 either package feeds the other.
 """
 
@@ -131,6 +138,19 @@ def rows_dims_eligible(i: int, a: int, le: int) -> bool:
             and working <= ROWS_VMEM_BUDGET)
 
 
+def rows_eligible(batch: dict, max_fids: int) -> bool:
+    """Whether a stacked batch fits the base envelope or, past it, the XL
+    envelope (`cuda_kernels.rows_dims_eligible_xl`): the batches the row
+    wires and the mesh's row reconcile take."""
+    i = batch["op_mask"].shape[1]
+    a = batch["clock"].shape[2]
+    l, e = batch["ins_mask"].shape[1:]
+    if rows_dims_eligible(i, a, l * e):
+        return True
+    from .cuda_kernels import rows_dims_eligible_xl
+    return rows_dims_eligible_xl(i, a, l * e)
+
+
 def pack_rows(batch: dict, max_fids: int) -> tuple[np.ndarray, tuple, int]:
     """Repack a stacked batch (docs-major dict of encode.stack_docs) into
     the docs-minor [ROWS, D_pad] int32 row buffer + static dims.
@@ -206,6 +226,345 @@ def apply_rows_hash(rows: torch.Tensor, dims: tuple,
     version for a CPU one."""
     from .cuda_kernels import reconcile_rows_hash
     return reconcile_rows_hash(rows, dims)[:n_docs]
+
+
+# ---------------------------------------------------------------------------
+# Compact wire: the row buffer at narrow dtypes
+#
+# The row buffer is int32 on the device, but most of its groups hold small
+# integers (masks, action codes, field ids, actor ranks, clock entries);
+# only the content-hash groups need 32 bits. The compact wire sends each
+# group at the narrowest dtype that holds it and widens on the device, so
+# fewer bytes cross to the card. Each group's width class comes from a
+# batch-stable policy (classify_row_groups), and the wire (bytes and meta)
+# is the reference's byte for byte.
+
+_DTYPES = (np.int8, np.int16, np.int32)
+_TORCH_DTYPES = (torch.int8, torch.int16, torch.int32)
+# Groups whose width is declared from a capacity bound with no look at the
+# data: the only ones a narrow cast could wrap, so the only ones
+# pack_rows_compact range-checks.
+_CAP_FIELDS = frozenset((
+    "op_mask", "action", "fid", "actor", "ins_mask", "ins_fid", "ins_pos"))
+_CAP_GROUPS = frozenset(ROW_FIELDS.index(f) for f in _CAP_FIELDS)
+# The content-hash groups: always int32.
+_HASH_GROUPS = frozenset((ROW_FIELDS.index("actor_hash"),
+                          ROW_FIELDS.index("fid_hash"),
+                          ROW_FIELDS.index("value_hash"),
+                          ROW_FIELDS.index("elem_objhash")))
+
+
+def _narrow_dtype(part: np.ndarray):
+    """(width class, dtype) of the narrowest dtype holding `part`."""
+    lo, hi = (int(part.min()), int(part.max())) if part.size else (0, 0)
+    idx = _width_of_bound(lo, hi)
+    return idx, _DTYPES[idx]
+
+
+def _width_of_bound(lo: int, hi: int) -> int:
+    if -128 <= lo and hi <= 127:
+        return 0
+    if -32768 <= lo and hi <= 32767:
+        return 1
+    return 2
+
+
+def _group_rows(dims: tuple) -> tuple:
+    """Rows of each ROW_FIELDS group, in wire order."""
+    i, a, le = dims[0], dims[1], dims[2]
+    return (i, i, i, i, i, i, i, i, a * i, le, le, le, le, le, a)
+
+
+def classify_row_groups(rows, dims: tuple, max_fids: int) -> tuple:
+    """The width class (0 int8, 1 int16, 2 int32) of each ROW_FIELDS group,
+    stable across the batches of a stream:
+
+    - from the layout's capacity where it bounds the values (masks 0/1,
+      the action enum, fid < max_fids, actor rank < A, ins_pos < LE): no
+      look at the data;
+    - int32 for the content-hash groups;
+    - from the observed range with 2x headroom for the data-dependent
+      counters (seq, change_idx, clock_op, elem_list): the class changes
+      only when a counter crosses half a dtype's bound."""
+    i, a, le = dims[0], dims[1], dims[2]
+    cap_bound = {
+        "op_mask": 1,
+        "action": 32,
+        "fid": max(max_fids, 1),
+        "actor": max(a, 1),
+        "ins_mask": 1,
+        "ins_fid": max(max_fids, 1),
+        "ins_pos": max(le, 1),
+    }
+    assert set(cap_bound) == _CAP_FIELDS
+    cap_hi = {ROW_FIELDS.index(f): v for f, v in cap_bound.items()}
+    widths = []
+    off = 0
+    for g, r in enumerate(_group_rows(dims)):
+        part = rows[off:off + r]
+        off += r
+        if g in _HASH_GROUPS:
+            widths.append(2)
+        elif g in cap_hi:
+            widths.append(_width_of_bound(-1, cap_hi[g]))
+        else:
+            lo, hi = ((int(part.min()), int(part.max())) if part.size
+                      else (0, 0))
+            widths.append(_width_of_bound(min(lo, -1), max(2 * hi, 1)))
+    return tuple(widths)
+
+
+def pack_rows_compact(batch: dict, max_fids: int):
+    """The row wire with a narrow dtype per group.
+
+    Returns ((b8, b16, b32), meta, dims, n_docs): three [rows_dt, D_pad]
+    numpy buffers (any may have 0 rows) holding the groups of their width
+    class in wire order, and meta = ((width class, n_rows), ...) per
+    ROW_FIELDS group, which widen_rows needs to rebuild the int32 buffer.
+    Raises ValueError where a capacity-declared group holds a value its
+    dtype cannot."""
+    rows, dims, d = pack_rows(batch, max_fids)
+    widths = classify_row_groups(rows, dims, max_fids)
+    parts: tuple[list, list, list] = ([], [], [])
+    meta = []
+    off = 0
+    for g, (r, idx) in enumerate(zip(_group_rows(dims), widths)):
+        part = rows[off:off + r]
+        off += r
+        if idx < 2 and part.size and g in _CAP_GROUPS:
+            info = np.iinfo(_DTYPES[idx])
+            lo, hi = int(part.min()), int(part.max())
+            if lo < info.min or hi > info.max:
+                raise ValueError(
+                    f"row group {g} [{lo}, {hi}] exceeds its declared "
+                    f"{_DTYPES[idx].__name__} capacity — layout invariant "
+                    f"violated (classify_row_groups)")
+        parts[idx].append(part.astype(_DTYPES[idx]))
+        meta.append((idx, r))
+    d_pad = rows.shape[1]
+    bufs = tuple(np.concatenate(p, axis=0) if p else np.zeros((0, d_pad), dt)
+                 for p, dt in zip(parts, _DTYPES))
+    return bufs, tuple(meta), dims, d
+
+
+def widen_rows(b8: torch.Tensor, b16: torch.Tensor, b32: torch.Tensor,
+               meta: tuple) -> torch.Tensor:
+    """The [ROWS, D_pad] int32 row buffer of a compact wire, on the wire's
+    device: each group a slice of its dtype's buffer cast to int32, then
+    one concatenation."""
+    bufs = (b8, b16, b32)
+    offs = [0, 0, 0]
+    parts = []
+    for idx, r in meta:
+        parts.append(bufs[idx].narrow(0, offs[idx], r).to(torch.int32))
+        offs[idx] += r
+    return torch.cat(parts, 0)
+
+
+def _wire_tensor(x, dev: torch.device) -> torch.Tensor:
+    """A wire buffer (numpy or tensor) as a tensor on `dev`."""
+    if isinstance(x, np.ndarray):
+        x = np.ascontiguousarray(x)
+        x = torch.from_numpy(x if x.flags.writeable else x.copy())
+    return x.to(dev)
+
+
+def apply_rows_hash_compact(b8, b16, b32, meta: tuple, dims: tuple,
+                            device="cuda") -> torch.Tensor:
+    """Per-lane state hashes of a compact wire ([D_pad] int32 holding the
+    uint32 bits): the narrow buffers (numpy or tensors) go to `device` as
+    they are, are widened there, and the reconcile kernel runs on the
+    widened buffer (cuda_kernels.reconcile_rows_hash; the plain version on
+    the CPU)."""
+    from .cuda_kernels import reconcile_rows_hash
+    dev = resolve_device(device)
+    rows = widen_rows(*(_wire_tensor(b, dev) for b in (b8, b16, b32)), meta)
+    return reconcile_rows_hash(rows, dims)
+
+
+def pack_rows_bytes(batch: dict, max_fids: int):
+    """The compact wire as one contiguous uint8 buffer (the three dtype
+    buffers back to back, row-major, little-endian). Returns (wire_u8
+    [n_bytes], bmeta, dims, n_docs); bmeta = (meta, (r8, r16, r32),
+    d_pad)."""
+    (b8, b16, b32), meta, dims, n = pack_rows_compact(batch, max_fids)
+    wire = np.concatenate(
+        [np.ascontiguousarray(b).view(np.uint8).ravel()
+         for b in (b8, b16, b32)])
+    bmeta = (meta, (b8.shape[0], b16.shape[0], b32.shape[0]), b8.shape[1])
+    return wire, bmeta, dims, n
+
+
+def narrow_groups(g8: torch.Tensor, g16: torch.Tensor,
+                  g32: torch.Tensor) -> tuple:
+    """The (b8, b16, b32) buffers of the byte wire's dtype groups, each a
+    little-endian uint8 tensor [rows_dt, lanes, itemsize], viewed as their
+    dtype ([rows_dt, lanes]) without a copy."""
+    out = []
+    for g, dt in zip((g8, g16, g32), _TORCH_DTYPES):
+        if not g.is_contiguous():
+            g = g.contiguous()
+        out.append(g.view(dt).squeeze(-1) if g.shape[0]
+                   else torch.zeros((0, g.shape[1]), dtype=dt,
+                                    device=g.device))
+    return tuple(out)
+
+
+def widen_bytes(wire_u8: torch.Tensor, bmeta: tuple) -> torch.Tensor:
+    """[n_bytes] uint8 tensor -> [ROWS, D_pad] int32, on its device: each
+    dtype group a [r, d_pad, itemsize] slice viewed as its dtype."""
+    meta, (r8, r16, r32), d_pad = bmeta
+    o8 = r8 * d_pad
+    o16 = o8 + r16 * d_pad * 2
+    end = o16 + r32 * d_pad * 4
+    groups = (wire_u8[:o8].view(r8, d_pad, 1),
+              wire_u8[o8:o16].view(r16, d_pad, 2),
+              wire_u8[o16:end].view(r32, d_pad, 4))
+    return widen_rows(*narrow_groups(*groups), meta)
+
+
+def apply_rows_hash_bytes(wire_u8, bmeta: tuple, dims: tuple,
+                          device="cuda") -> torch.Tensor:
+    """apply_rows_hash_compact over the single-buffer byte wire: the uint8
+    wire (numpy or tensor) goes to `device`, is widened there, and the
+    reconcile kernel runs on the widened buffer."""
+    from .cuda_kernels import reconcile_rows_hash
+    dev = resolve_device(device)
+    return reconcile_rows_hash(widen_bytes(_wire_tensor(wire_u8, dev),
+                                           bmeta), dims)
+
+
+# ---------------------------------------------------------------------------
+# Field sharding: a wide document split into field-disjoint virtual docs
+#
+# Survivor analysis joins only ops that share a field id, and the state
+# hash is a uint32 sum over surviving assigns, so a wide document
+# partitioned by field into virtual documents has hashes that add back to
+# the real document's exactly. List objects are atomic (their elements'
+# rank join spans the list), so every list field rides virtual doc 0 with
+# the document's insertion tables; make and ins op rows carry no kernel
+# state and are dropped.
+
+def select_field_sharding(batch: dict, max_fids: int):
+    """Try a field split at each op target of the ladder (512, 256, 128;
+    the largest first, so the fewest virtual docs that fit win) and return
+    (sharded_batch, owner, target_ops) for the first that fits the row
+    envelopes, or (None, None, None) where the actors or elements, which a
+    split by field cannot shrink, keep every split out."""
+    a0 = batch["clock"].shape[2]
+    le0 = batch["ins_mask"].shape[1] * batch["ins_mask"].shape[2]
+    for target in (512, 256, 128):
+        if not rows_dims_eligible(target, a0, le0):
+            continue
+        cand, owner = shard_batch_by_fields(batch, max_fids, target)
+        if rows_eligible(cand, max_fids):
+            return cand, owner, target
+    return None, None, None
+
+
+def _field_bins(om, action, fid, ins_mask, ins_fid, target_ops: int) -> list:
+    """One document's virtual docs as lists of op index arrays: the list
+    fields' assigns in bin 0, then the map fields' groups, largest first,
+    each into the first bin with room (a new bin where none has)."""
+    assigns = np.nonzero(om & (action >= A_SET))[0]
+    list_fids = set(ins_fid[ins_mask].tolist())
+    list_fids.discard(-1)
+    f_of = fid[assigns]
+    is_list_op = (np.isin(f_of, list(list_fids)) if list_fids
+                  else np.zeros(len(assigns), bool))
+    bins = [[assigns[is_list_op]]]
+    sizes = [int(is_list_op.sum())]
+    map_ops = assigns[~is_list_op]
+    if len(map_ops):
+        mf = fid[map_ops]
+        order = np.argsort(mf, kind="stable")
+        srt = map_ops[order]
+        fs = mf[order]
+        bounds = np.nonzero(np.r_[True, fs[1:] != fs[:-1]])[0]
+        groups = [srt[lo:hi] for lo, hi in
+                  zip(bounds, np.r_[bounds[1:], len(srt)])]
+        groups.sort(key=len, reverse=True)
+        for g in groups:
+            for b in range(len(bins)):
+                if sizes[b] + len(g) <= target_ops:
+                    bins[b].append(g)
+                    sizes[b] += len(g)
+                    break
+            else:
+                bins.append([g])
+                sizes.append(len(g))
+    return bins
+
+
+def shard_batch_by_fields(batch: dict, max_fids: int, target_ops: int = 512):
+    """Split the docs of more than `target_ops` assigns into field-disjoint
+    virtual docs of at most `target_ops` assigns each.
+
+    Returns (sharded_batch, owner): owner[v] is the real doc of virtual
+    doc v, and a real doc's hash is the uint32 sum of its virtual docs'
+    (recombine_hashes)."""
+    d = batch["op_mask"].shape[0]
+    om = np.asarray(batch["op_mask"])
+    action = np.asarray(batch["action"])
+    fid = np.asarray(batch["fid"])
+    ins_mask = np.asarray(batch["ins_mask"])
+    ins_fid = np.asarray(batch["ins_fid"])
+
+    virtuals: list[tuple[int, np.ndarray, bool]] = []  # (owner, ops, ins)
+    max_bin = 1
+    for dd in range(d):
+        assigns = np.nonzero(om[dd] & (action[dd] >= A_SET))[0]
+        if len(assigns) <= target_ops:
+            virtuals.append((dd, assigns, True))
+            max_bin = max(max_bin, len(assigns))
+            continue
+        bins = _field_bins(om[dd], action[dd], fid[dd], ins_mask[dd],
+                           ins_fid[dd], target_ops)
+        for b, parts in enumerate(bins):
+            idx = np.concatenate(parts) if parts else np.zeros(0, np.int64)
+            virtuals.append((dd, idx, b == 0))
+            max_bin = max(max_bin, len(idx))
+
+    i_t = 8
+    while i_t < max_bin:
+        i_t *= 2
+    owner = np.fromiter((v[0] for v in virtuals), np.int64, len(virtuals))
+    n_v = len(virtuals)
+
+    out = {}
+    fills = {"op_mask": False, "action": -1, "fid": -1, "value": -1}
+    for name in ("op_mask", "action", "fid", "actor", "seq", "change_idx",
+                 "value", "fid_hash", "value_hash"):
+        src = np.asarray(batch[name])
+        arr = np.full((n_v, i_t), fills.get(name, 0), dtype=src.dtype)
+        for v, (dd, idx, _ins) in enumerate(virtuals):
+            arr[v, :len(idx)] = src[dd, idx]
+        out[name] = arr
+    out["clock"] = np.asarray(batch["clock"])[owner]
+    out["actor_hash"] = np.asarray(batch["actor_hash"])[owner]
+    for name in ("ins_mask", "ins_elem", "ins_actor", "ins_parent",
+                 "ins_fid", "ins_pos", "list_obj", "list_obj_hash"):
+        src = np.asarray(batch[name])
+        fill = {"ins_mask": False, "ins_elem": 0, "ins_actor": 0}.get(
+            name, -1)
+        arr = np.full((n_v,) + src.shape[1:], fill, dtype=src.dtype)
+        for v, (dd, _idx, takes_ins) in enumerate(virtuals):
+            if takes_ins:
+                arr[v] = src[dd]
+        out[name] = arr
+    return out, owner
+
+
+def recombine_hashes(virtual_hashes, owner: np.ndarray,
+                     n_docs: int) -> np.ndarray:
+    """real_hash[d] = uint32 wraparound sum of its virtual docs' hashes.
+    `virtual_hashes` is np.uint32, or a tensor of the uint32 bits."""
+    if isinstance(virtual_hashes, torch.Tensor):
+        virtual_hashes = virtual_hashes.cpu().numpy().view(np.uint32)
+    out = np.zeros(n_docs, np.uint32)
+    np.add.at(out, owner, np.asarray(virtual_hashes)[:len(owner)]
+              .astype(np.uint32))
+    return out
 
 
 # ---------------------------------------------------------------------------

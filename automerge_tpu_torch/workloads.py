@@ -38,6 +38,13 @@ The docs-major engine's workload:
   is derived from the document's index, where the bench's frontend draws
   a random UUID.
 
+- `lww_storm`, `trellis`, `text_trace`, `tombstone_list`
+  (`BENCH_CONFIGS`): the reference's bench configs 1-4 (`bench.py:123-205`)
+  replayed through the port's document API on the CPU: one document of
+  2,000 LWW `set`s over 50 keys, a nested card board of 8 actors, a
+  3-actor text trace of 300 edits, a 400-op tombstone-heavy list. The row
+  wires and field sharding run on them.
+
 The batched planes' workloads (span tables and move realms):
 
 - `span_bulk_merge`: the reference's bench config 10 (`bench.py::
@@ -260,6 +267,115 @@ def docset_fleet(n_docs: int = 10_000, rounds: int = 12,
                 "action": "set", "obj": ROOT_ID, "key": "n",
                 "value": r * 1000 + i}]})] for i in changed})
     return doc_ids, initial, out
+
+
+# ---------------------------------------------------------------------------
+# The reference's bench configs 1-4 (`bench.py:123-205`), built through the
+# port's document API on the CPU (the changes are the workload; where a
+# run sends them is the caller's). Each returns a list of per-document
+# change lists, as the bench's generators do; with both packages' uuid
+# factories set alike, the changes are the bench's own.
+
+
+def _doc_api():
+    from . import api
+    from .frontend.text import Text
+
+    def init(actor):
+        return api.init(actor, device="cpu")
+    return api, init, Text
+
+
+def lww_storm(n_ops_per_actor: int = 1000) -> list:
+    """Config 1: one document, 2 actors x N concurrent `set`s over 50 keys
+    (LWW registers)."""
+    api, init, _ = _doc_api()
+    docs = []
+    for actor in ("A", "B"):
+        d = init(actor)
+        for i in range(n_ops_per_actor):
+            d = api.change(d, lambda doc, i=i, actor=actor: doc.__setitem__(
+                f"k{i % 50}", f"{actor}{i}"))
+        docs.append(d)
+    merged = api.merge(docs[0], docs[1])
+    return [merged._doc.opset.get_missing_changes({})]
+
+
+def trellis(n_docs: int = 1) -> list:
+    """Config 2: a nested JSON card board, 8 actors adding cards to one
+    list concurrently, half of them marking the first card done."""
+    api, init, _ = _doc_api()
+    out = []
+    for _ in range(n_docs):
+        base = api.change(init("base"), lambda d: d.__setitem__(
+            "board", {"lists": [{"title": "todo", "cards": []},
+                                {"title": "done", "cards": []}]}))
+        replicas = []
+        for i in range(8):
+            r = api.merge(init(f"actor{i}"), base)
+            for j in range(5):
+                r = api.change(r, lambda d, i=i, j=j: d["board"]["lists"][0][
+                    "cards"].append({"title": f"card {i}.{j}", "done": False}))
+            if i % 2 == 0:
+                r = api.change(r, lambda d: d["board"]["lists"][0]["cards"][0]
+                               .__setitem__("done", True))
+            replicas.append(r)
+        m = replicas[0]
+        for r in replicas[1:]:
+            m = api.merge(m, r)
+        out.append(m._doc.opset.get_missing_changes({}))
+    return out
+
+
+def text_trace(n_edits: int = 300) -> list:
+    """Config 3: a 3-actor concurrent character insert/delete trace on one
+    text object, the replicas merging now and then."""
+    api, init, Text = _doc_api()
+    rng = random.Random(42)
+
+    def mk(doc):
+        doc["t"] = Text()
+        doc["t"].insert_at(0, *"the quick brown fox")
+    base = api.change(init("base"), mk)
+    replicas = {a: api.merge(init(a), base) for a in ("A", "B", "C")}
+    for step in range(n_edits):
+        a = rng.choice("ABC")
+        d = replicas[a]
+        n = len(d["t"])
+        if rng.random() < 0.7 or n == 0:
+            pos = rng.randint(0, n)
+            ch = rng.choice("abcdefgh ")
+            d = api.change(d, lambda doc: doc["t"].insert_at(pos, ch))
+        else:
+            pos = rng.randint(0, n - 1)
+            d = api.change(d, lambda doc: doc["t"].delete_at(pos))
+        replicas[a] = d
+        if step % 40 == 0:
+            other = rng.choice([x for x in "ABC" if x != a])
+            replicas[a] = api.merge(replicas[a], replicas[other])
+    m = api.merge(api.merge(replicas["A"], replicas["B"]), replicas["C"])
+    return [m._doc.opset.get_missing_changes({})]
+
+
+def tombstone_list(n_ops: int = 400) -> list:
+    """Config 4: a tombstone-heavy list history by one actor."""
+    api, init, _ = _doc_api()
+    rng = random.Random(7)
+    d = api.change(init("A"), lambda doc: doc.__setitem__("xs", []))
+    for _ in range(n_ops):
+        n = len(d["xs"])
+        if rng.random() < 0.55 or n < 2:
+            pos = rng.randint(0, n)
+            d = api.change(d, lambda doc: doc["xs"].insert_at(
+                pos, rng.randint(0, 99)))
+        else:
+            pos = rng.randint(0, n - 1)
+            d = api.change(d, lambda doc: doc["xs"].delete_at(pos))
+    return [d._doc.opset.get_missing_changes({})]
+
+
+#: bench configs 1-4 by number (config 5 is `docset` / `docset_fleet`)
+BENCH_CONFIGS = {1: lww_storm, 2: trellis, 3: text_trace, 4: tombstone_list}
 
 
 def random_rows(rng: np.random.Generator, i: int, a: int, le: int,

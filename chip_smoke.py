@@ -13,7 +13,10 @@ document API with the interpretive OpSet (`api.load`, `OpSet.add_changes`,
 `ResidentRowsDocSet.materialize`, `dispatch.apply_batch_adaptive`), and
 the sync service (`sync.service.EngineDocSet`, `Connection`), the sharded
 node (`sync.sharded_service.ShardedEngineDocSet`) and the TCP transport
-(`sync.tcp.TcpSyncServer`, `TcpSyncClient`, `SupervisedTcpClient`). Ingress
+(`sync.tcp.TcpSyncServer`, `TcpSyncClient`, `SupervisedTcpClient`), and the
+compact row wires and the mesh (`pack.apply_rows_hash_compact`,
+`apply_rows_hash_bytes`, `select_field_sharding`; `parallel.mesh`,
+`parallel.collective.global_clock_union`, `parallel.multihost`). Ingress
 runs the native C++ encoder, built with g++ at first use, unless a line says
 native=False.
 
@@ -207,7 +210,34 @@ Phases:
      backfilled, the hashes equal. (b) is cut from the storm's 8 rounds to
      2 for the run's time: a TCP reader admits one message a flush, 8 to
      17 s a storm round. The kernels line adds (a) and (b)'s B1
-     launches.
+     launches;
+ 15. the compact row wires, field sharding and the mesh on the card: (a)
+     bench configs 1-5 at their own widths (workloads.BENCH_CONFIGS;
+     config 5 docset_fleet's 10,000 docs) through apply_rows_hash_compact
+     and apply_rows_hash_bytes, one launch a wire, the hashes equal to
+     the wide path's, to the plain version's and to apply_batch's;
+     configs 3 and 4 sit past the base envelope, so their launches take
+     the XL body (B2, counted by cuda_kernels.LAUNCHES
+     ["reconcile_rows_hash_xl"]); for each config the bytes to the card
+     of the wide buffer, the compact wire and the byte wire, their
+     upload times, the widen's ms and the kernel's; (b) config 1 (2,048
+     op slots, past both envelopes) split by select_field_sharding, the
+     recombined hashes equal to apply_batch's; (c) config 5's fleet
+     through reconcile_sharded (lists ordered on the device, then on the
+     host), reconcile_rows_sharded and reconcile_rows_sharded_bytes on
+     make_mesh() and on a mesh of MESH_SHARDS shards of the one card, all
+     equal to the unsharded engine; bench config 8's 100,000 docs (one
+     4-`set` change a doc, as phase 14 (a) builds them) through
+     reconcile_rows_sharded_bytes on that mesh, its legs (encode, pack,
+     widen, kernel) and bytes a doc, MESH_SAMPLE docs held to
+     apply_batch; global_clock_union of config 8's [100,000, 257] clocks;
+     (d) two processes started here (chip_smoke.py --mesh-worker RANK
+     PORT DEVICE), a gloo group on 127.0.0.1, each a global_mesh shard on
+     cuda:0, reconcile_global of its half of config 5's lanes and the
+     clock union; joined with a deadline, their halves concatenated equal
+     to (c)'s. The kernels line adds the phase's B1, B2, B5 and linearize
+     launches (the two processes' counted in each and reported back), and
+     a reconcile_rows_hash_xl entry for B2, timed on config 3.
 Then the kernel timings (each kernel's launches timed three ways:
 `kernel_ms` from CUDA events around a host loop of launches, the host's
 `enqueue_ms` per launch in that loop, and `graph_ms` from a replay of the
@@ -3292,6 +3322,423 @@ def drive_fleet_and_tcp(torch, dev, report, map_rounds):
     return b1_fleet + b1_tcp
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the compact row wires, field sharding and the mesh on the card
+
+#: bench config 5's fleet through the wires and the mesh, at its own width
+WIRE_DOCSET_DOCS = 10_000
+#: bench config 8's fleet through the byte wire on the one-card mesh
+MESH_FLEET_DOCS = FLEET_DOCS
+#: shards of the one-card mesh beside make_mesh()'s one device
+MESH_SHARDS = 4
+#: config 8 documents held to apply_batch, spread over the fleet
+MESH_SAMPLE = 512
+#: seconds the two processes of (d) may take, start to exit
+MESH_WORKER_DEADLINE_S = 240
+#: the reconcile kernel's counters: all its launches, and the XL body's
+RECONCILE_COUNTERS = ("reconcile_rows_hash", "reconcile_rows_hash_xl")
+
+
+def wire_changes(config: int) -> list:
+    """The per-document change lists of bench config `config` (1-5)."""
+    from automerge_tpu_torch import workloads
+    if config == 5:
+        ids, initial, _ = workloads.docset_fleet(n_docs=WIRE_DOCSET_DOCS)
+        return [initial[d] for d in ids]
+    return workloads.BENCH_CONFIGS[config]()
+
+
+def stacked(doc_changes):
+    """(batch, max_fids) of encode.stack_docs over the change lists."""
+    from automerge_tpu_torch.engine.encode import encode_doc, stack_docs
+    actors = sorted({c.actor for chs in doc_changes for c in chs})
+    batch = stack_docs([encode_doc(chs, actors) for chs in doc_changes])
+    return batch, int(batch.pop("max_fids"))
+
+
+def zero_counts(names) -> None:
+    from automerge_tpu_torch.engine import cuda_kernels as ck
+    for k in names:
+        ck.LAUNCHES[k] = 0
+
+
+def read_counts(torch, names) -> dict:
+    from automerge_tpu_torch.engine import cuda_kernels as ck
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return {k: ck.LAUNCHES[k] for k in names}
+
+
+def upload_ms(torch, dev, arrays) -> float:
+    """Device ms to copy numpy arrays (pageable, as the entry points send
+    them) to the card, by CUDA events."""
+    return cuda_ms(lambda: [torch.from_numpy(a).to(dev) for a in arrays], 5)
+
+
+def drive_wires(torch, dev, report) -> dict:
+    """Phase 15 (a) and (b). Returns the launches of the wire path (B1,
+    B2), config 5's changes and hashes, and the XL body's times on
+    config 3."""
+    from automerge_tpu_torch.engine import cuda_kernels as ck
+    from automerge_tpu_torch.engine import pack
+    from automerge_tpu_torch.engine.batchdoc import apply_batch
+
+    out = {"b1": 0, "b2": 0, "b2_by_config": {}}
+    for config in (1, 2, 3, 4, 5):
+        t0 = time.perf_counter()
+        dc = wire_changes(config)
+        batch, mf = stacked(dc)
+        t_enc = time.perf_counter() - t0
+        _, _, ref = apply_batch(dc, device=dev)
+        want = ck.hashes_to_numpy(ref["hash"])[:len(dc)]
+        owner = None
+        if config == 1:
+            check(not pack.rows_eligible(batch, mf),
+                  "phase 15 (b): config 1 fits an envelope unsplit")
+            sharded, owner, target = pack.select_field_sharding(batch, mf)
+            check(sharded is not None, "phase 15 (b): no field split fits")
+            ops = sharded["op_mask"].sum(1)
+            print(f"phase 15: (b) config 1: {batch['op_mask'].shape[1]} op "
+                  f"slots, past both envelopes; the ladder split it at "
+                  f"target {target} into {len(owner)} virtual docs of "
+                  f"{sorted(int(x) for x in ops)} assigns (op axis "
+                  f"{sharded['op_mask'].shape[1]})")
+            batch = sharded
+        else:
+            check(pack.rows_eligible(batch, mf),
+                  f"phase 15 (a): config {config} past both envelopes")
+        rows, dims, n = pack.pack_rows(batch, mf)
+        bufs, meta, _, _ = pack.pack_rows_compact(batch, mf)
+        wire, bmeta, _, _ = pack.pack_rows_bytes(batch, mf)
+        xl = not pack.rows_dims_eligible(*dims[:3])
+
+        zero_counts(RECONCILE_COUNTERS)
+        h_c = pack.apply_rows_hash_compact(*bufs, meta, dims, device=dev)
+        h_b = pack.apply_rows_hash_bytes(wire, bmeta, dims, device=dev)
+        got = read_counts(torch, RECONCILE_COUNTERS)
+        check(got["reconcile_rows_hash"] == 2
+              and got["reconcile_rows_hash_xl"] == (2 if xl else 0),
+              f"phase 15 (a): config {config} launched {got} (one a wire, "
+              f"the XL body past the base envelope)")
+        out["b2"] += got["reconcile_rows_hash_xl"]
+        out["b1"] += got["reconcile_rows_hash"] - got["reconcile_rows_hash_xl"]
+        out["b2_by_config"][config] = got["reconcile_rows_hash_xl"]
+
+        rows_dev = pack.rows_from_numpy(rows, dims, dev)
+        wide = ck.hashes_to_numpy(ck.reconcile_rows_hash(rows_dev, dims))[:n]
+        plain = ck.hashes_to_numpy(
+            ck.reconcile_rows_hash_plain(rows_dev, dims))[:n]
+        err = max_abs_err(ck.hashes_to_numpy(h_b)[:n], plain)
+        report["reconcile_rows_hash_xl" if xl
+               else "reconcile_rows_hash"].append(err)
+        for name, h in (("compact", h_c), ("bytes", h_b)):
+            h = ck.hashes_to_numpy(h)[:n]
+            check((h == wide).all() and (h == plain).all(),
+                  f"phase 15 (a): config {config} {name} wire != the wide "
+                  f"path or the plain version")
+        real = (pack.recombine_hashes(h_b, owner, len(dc))
+                if owner is not None else ck.hashes_to_numpy(h_b)[:n])
+        check((real == want).all(),
+              f"phase 15: config {config} wire hashes != apply_batch's")
+        if config == 5:
+            out["changes5"], out["hashes5"] = dc, want
+
+        wire_dev = torch.from_numpy(wire).to(dev)
+        widen = cuda_ms(lambda: pack.widen_bytes(wire_dev, bmeta), 10)
+        t = launch_times(lambda: ck.reconcile_rows_hash(rows_dev, dims), 20,
+                         cold=True)
+        p_ms = cuda_ms(lambda: ck.reconcile_rows_hash_plain(rows_dev, dims),
+                       2)
+        b_ms, b_by = bound(rows_dev, dims)[:2]
+        if config == 3:
+            out["xl_times"] = (t["graph_cold_ms"], p_ms, b_ms, b_by)
+        compact = sum(b.nbytes for b in bufs)
+        up = [upload_ms(torch, dev, a)
+              for a in ([rows], list(bufs), [wire])]
+        lanes = rows.shape[1]
+        print(f"phase 15: (a) config {config}: {len(dc)} docs"
+              + (f" ({n} virtual)" if owner is not None else "")
+              + f", dims {dims[:3]}, lanes {lanes}, body "
+              f"{'B2 (XL)' if xl else 'B1 (base)'}; to the card: wide "
+              f"{rows.nbytes} B, compact {compact} B, bytes {wire.nbytes} B "
+              f"({rows.nbytes / wire.nbytes:.2f}x fewer; "
+              f"{wire.nbytes / lanes:.1f} B a lane), upload ms wide "
+              f"{up[0]:.4f} compact {up[1]:.4f} bytes {up[2]:.4f}; back "
+              f"{4 * lanes} B; widen_ms={widen:.4f} {times_text(t)} "
+              f"plain_ms={p_ms:.3f} bound_ms={b_ms:.5f} ({b_by}); launches "
+              f"{got}; hashes equal the wide path, the plain version and "
+              f"apply_batch ({time.perf_counter() - t0:.1f} s, encode "
+              f"{t_enc:.2f} s) [{card()}]")
+    check(out["b2_by_config"][3] > 0 and out["b2_by_config"][4] > 0,
+          "phase 15 (a): configs 3 and 4 did not launch the XL body")
+    return out
+
+
+@contextlib.contextmanager
+def mesh_legs():
+    """Wall seconds of the legs of parallel.mesh's row reconciles, by
+    wrapping the module functions they call: encode (encode_padded_batch),
+    pack (pack_rows_compact or pack_rows; it also gives the bytes sent),
+    widen and kernel (each shard's, synchronised). What is left of the
+    wall is the shards' copies to the card and the readbacks."""
+    import torch
+    from automerge_tpu_torch.parallel import mesh as pmesh
+    legs = {"encode": 0.0, "pack": 0.0, "widen": 0.0, "kernel": 0.0,
+            "bytes": 0}
+    saved = {}
+
+    def wrap(name, leg, sync=False):
+        fn = saved[name] = getattr(pmesh, name)
+
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            if sync:
+                torch.cuda.synchronize()
+            legs[leg] += time.perf_counter() - t0
+            if name.startswith("pack"):
+                bufs = out[0] if isinstance(out[0], tuple) else (out[0],)
+                legs["bytes"] += sum(b.nbytes for b in bufs)
+            return out
+        setattr(pmesh, name, timed)
+    wrap("encode_padded_batch", "encode")
+    wrap("pack_rows_compact", "pack")
+    wrap("pack_rows", "pack")
+    wrap("widen_rows", "widen", sync=True)
+    wrap("reconcile_rows_hash", "kernel", sync=True)
+    try:
+        yield legs
+    finally:
+        for name, fn in saved.items():
+            setattr(pmesh, name, fn)
+
+
+def legs_line(legs: dict, wall: float, n_docs: int) -> str:
+    rest = wall - sum(v for k, v in legs.items() if k != "bytes")
+    return (" ".join(f"{k} {legs[k]:.3f} s" for k in
+                     ("encode", "pack", "widen", "kernel"))
+            + f" copies+readback+other {rest:.3f} s; sent {legs['bytes']} B "
+            f"({legs['bytes'] / n_docs:.1f} B a doc)")
+
+
+def fleet_clocks(n_docs: int):
+    """Config 8's [n_docs, 257] clock matrix (doc i: one change by writer
+    W{i % 257}), actors in sorted order."""
+    import numpy as np
+    actors = sorted(f"W{k}" for k in range(257))
+    rank = {a: k for k, a in enumerate(actors)}
+    clocks = np.zeros((n_docs, len(actors)), np.int32)
+    clocks[np.arange(n_docs),
+           [rank[f"W{i % 257}"] for i in range(n_docs)]] = 1
+    return clocks
+
+
+def drive_mesh(torch, dev, report, wires) -> dict:
+    """Phase 15 (c). Returns the launches of the mesh paths."""
+    import numpy as np
+    from automerge_tpu_torch.engine import cuda_kernels as ck
+    from automerge_tpu_torch.engine.batchdoc import apply_batch
+    from automerge_tpu_torch.parallel import (global_clock_union, make_mesh,
+                                              reconcile_sharded)
+    from automerge_tpu_torch.parallel import mesh as pmesh
+
+    dc5, want5 = wires["changes5"], wires["hashes5"]
+    one, four = make_mesh(), make_mesh(devices=[dev] * MESH_SHARDS)
+    check(all(d.type == dev.type for d in one.devices),
+          f"phase 15 (c): make_mesh() gave {one}")
+    names = RECONCILE_COUNTERS + ("dominated", "linearize")
+    calls = (
+        ("reconcile_sharded (device list order)", one,
+         lambda m: reconcile_sharded(dc5, m, host_order=False)),
+        ("reconcile_rows_sharded", one,
+         lambda m: pmesh.reconcile_rows_sharded(dc5, m)),
+        ("reconcile_rows_sharded_bytes", one,
+         lambda m: pmesh.reconcile_rows_sharded_bytes(dc5, m)),
+        ("reconcile_sharded (host list order)", four,
+         lambda m: reconcile_sharded(dc5, m)),
+        ("reconcile_rows_sharded_bytes", four,
+         lambda m: pmesh.reconcile_rows_sharded_bytes(dc5, m)))
+    total = dict.fromkeys(names, 0)
+    for what, mesh, fn in calls:
+        zero_counts(names)
+        t0 = time.perf_counter()
+        res = fn(mesh)
+        got = read_counts(torch, names)
+        wall = time.perf_counter() - t0
+        if isinstance(res[1], dict):
+            h = ck.hashes_to_numpy(res[1]["hash"])[:res[2]]
+        else:
+            h = res[0]
+        check((h == want5).all(), f"phase 15 (c): {what} on {mesh.size} "
+              f"shards != the unsharded engine")
+        for k in names:
+            total[k] += got[k]
+        print(f"phase 15: (c) config 5, {len(dc5)} docs: {what} on "
+              f"{mesh.size} shard(s) of {mesh.devices[0]}: {wall:.3f} s, "
+              f"launches {got}; equal to the unsharded engine")
+    check(total["dominated"] > 0 and total["linearize"] > 0
+          and total["reconcile_rows_hash"] > 0,
+          f"phase 15 (c): a kernel of the mesh path never launched: {total}")
+
+    n8 = MESH_FLEET_DOCS
+    if n8 < FLEET_DOCS:
+        print(f"phase 15: (c) config 8 cut from {FLEET_DOCS} docs to {n8}")
+    fleet = [[fleet_base(i)] for i in range(n8)]
+    zero_counts(names)
+    t0 = time.perf_counter()
+    with mesh_legs() as legs:
+        h8, n = pmesh.reconcile_rows_sharded_bytes(fleet, four)
+    wall = time.perf_counter() - t0
+    got = read_counts(torch, names)
+    check(got["reconcile_rows_hash"] == MESH_SHARDS,
+          f"phase 15 (c): config 8 launched {got}, not one a shard")
+    for k in names:
+        total[k] += got[k]
+    sample = np.linspace(0, n8 - 1, MESH_SAMPLE).astype(int)
+    _, _, ref = apply_batch([fleet[i] for i in sample], device=dev)
+    check((h8[sample] == ck.hashes_to_numpy(ref["hash"])).all(),
+          "phase 15 (c): config 8's sharded byte wire != apply_batch")
+    print(f"phase 15: (c) config 8, {n} docs: reconcile_rows_sharded_bytes "
+          f"on {MESH_SHARDS} shards of {dev}: {wall:.2f} s "
+          f"({wall / n * 1e3:.4f} ms a doc); {legs_line(legs, wall, n)}; "
+          f"launches {got}; {MESH_SAMPLE} docs equal apply_batch [{card()}]")
+
+    clocks = fleet_clocks(n8)
+    c_dev = torch.from_numpy(clocks).to(dev)
+    union = global_clock_union(c_dev, four)
+    u_ms = cuda_ms(lambda: global_clock_union(c_dev, four), 5)
+    check(union.tolist() == clocks.max(axis=0).tolist(),
+          "phase 15 (c): the clock union != the fleet's max")
+    print(f"phase 15: (c) global_clock_union of config 8's "
+          f"{clocks.shape} clocks on {MESH_SHARDS} shards: {u_ms:.4f} ms, "
+          f"every writer's seq")
+    return total
+
+
+def mesh_worker(rank: int, port: int, device: str) -> int:
+    """Phase 15 (d), one of two processes on the one card: a gloo group on
+    127.0.0.1, a global mesh of one shard a process on `device` (cuda:0),
+    reconcile_global of config 5's fleet (lists ordered on the device) and
+    the clock union of its own half; one JSON line."""
+    import numpy as np
+    import torch
+    from automerge_tpu_torch.parallel.collective import global_clock_union
+    from automerge_tpu_torch.parallel.multihost import (global_mesh,
+                                                        init_multihost,
+                                                        reconcile_global)
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    init_multihost(f"127.0.0.1:{port}", 2, rank)
+    mesh = global_mesh(local_devices=[device])
+    dc = wire_changes(5)
+    names = RECONCILE_COUNTERS + ("dominated", "linearize")
+    zero_counts(names)
+    t1 = time.perf_counter()
+    lo, hi, h = reconcile_global(dc, mesh, host_order=False)
+    wall = time.perf_counter() - t1
+    got = read_counts(torch, names)
+    clocks = np.zeros((len(dc), 2), np.int32)
+    for i, chs in enumerate(dc):
+        for c in chs:
+            k = "AB".index(c.actor)
+            clocks[i, k] = max(clocks[i, k], c.seq)
+    union = global_clock_union(torch.from_numpy(clocks[lo:hi]).to(device),
+                               mesh)
+    dist.barrier()
+    dist.destroy_process_group()
+    print(json.dumps({"rank": rank, "lo": lo, "hi": hi,
+                      "hashes": [int(x) for x in h], "union": union.tolist(),
+                      "want_union": clocks.max(axis=0).tolist(),
+                      "wall_s": wall, "total_s": time.perf_counter() - t0,
+                      "launches": got}))
+    return 0
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def drive_two_processes(dev, wires) -> dict:
+    """Phase 15 (d): two processes started here share the card; their
+    halves, concatenated, equal (c)'s. Returns their launches, summed."""
+    import numpy as np
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--mesh-worker",
+         str(rank), str(port), str(dev)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for rank in (0, 1)]
+    outs = [""] * 2
+    t0 = time.perf_counter()
+    try:
+        for k, p in enumerate(procs):
+            left = MESH_WORKER_DEADLINE_S - (time.perf_counter() - t0)
+            try:
+                outs[k], _ = p.communicate(timeout=max(1.0, left))
+            except subprocess.TimeoutExpired:
+                check(False, f"phase 15 (d): process {k} outlived "
+                      f"{MESH_WORKER_DEADLINE_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.perf_counter() - t0
+    res = []
+    for k, (p, out) in enumerate(zip(procs, outs)):
+        tail = "\n".join(out.splitlines()[-20:])
+        check(p.returncode == 0, f"phase 15 (d): process {k} failed:\n{tail}")
+        lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+        check(bool(lines), f"phase 15 (d): process {k} printed no result")
+        res.append(json.loads(lines[-1]))
+    res.sort(key=lambda r: r["lo"])
+    n = len(wires["hashes5"])
+    halves = np.concatenate([np.asarray(r["hashes"], np.uint32)
+                             for r in res])[:n]
+    check(res[0]["lo"] == 0 and res[0]["hi"] == res[1]["lo"],
+          f"phase 15 (d): lane ranges {[(r['lo'], r['hi']) for r in res]}")
+    check((halves == wires["hashes5"]).all(),
+          "phase 15 (d): the two processes' halves != (c)'s hashes")
+    for r in res:
+        check(r["union"] == r["want_union"] == res[0]["want_union"],
+              f"phase 15 (d): rank {r['rank']} union {r['union']}")
+    launches = {k: sum(r["launches"][k] for r in res)
+                for k in res[0]["launches"]}
+    print(f"phase 15: (d) two processes on {res[0]['hi']} + "
+          f"{res[1]['hi'] - res[1]['lo']} lanes of config 5 (gloo on "
+          f"127.0.0.1): reconcile_global {res[0]['wall_s']:.3f} / "
+          f"{res[1]['wall_s']:.3f} s, each process {res[0]['total_s']:.1f} "
+          f"/ {res[1]['total_s']:.1f} s, {wall:.1f} s to join both; "
+          f"launches {launches}; union {res[0]['union']}; halves equal (c)")
+    return launches
+
+
+def drive_wires_and_mesh(torch, dev, report) -> dict:
+    """Phase 15. Returns its launches: "b1" (the reconcile kernel's base
+    body), "b2" (its XL body), "dominated", "linearize"; and the XL body's
+    times on config 3."""
+    t0 = time.perf_counter()
+    wires = drive_wires(torch, dev, report)
+    t1 = time.perf_counter()
+    mesh = drive_mesh(torch, dev, report, wires)
+    t2 = time.perf_counter()
+    procs = drive_two_processes(dev, wires)
+    out = {"b1": wires["b1"], "b2": wires["b2"], "dominated": 0,
+           "linearize": 0, "xl_times": wires["xl_times"]}
+    for got in (mesh, procs):
+        out["b1"] += got["reconcile_rows_hash"] - got["reconcile_rows_hash_xl"]
+        out["b2"] += got["reconcile_rows_hash_xl"]
+        out["dominated"] += got["dominated"]
+        out["linearize"] += got["linearize"]
+    print(f"phase 15: launches B1 {out['b1']}, B2 {out['b2']}, dominated "
+          f"{out['dominated']}, linearize {out['linearize']} (of them the "
+          f"two processes' {procs}); (a)+(b) took {t1 - t0:.1f} s, (c) "
+          f"{t2 - t1:.1f} s, (d) {time.perf_counter() - t2:.1f} s")
+    return out
+
 def time_docs_round(torch, ds):
     """Device milliseconds of one full apply_doc over the text fleet's
     state, of its linearize step (the kernel) and of linearize_plain."""
@@ -3606,21 +4053,24 @@ def kernel_entry(name, source, replaces, launches, errs, times):
 
 def main() -> int:
     import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
-              "False)", file=sys.stderr)
-        return 1
     repo = Path(__file__).resolve().parent
     if not (repo / "automerge_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository "
               "(automerge_tpu_torch/ not found)", file=sys.stderr)
         return 1
     sys.path.insert(0, str(repo))
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        # one of phase 15 (d)'s processes, on the device it is given
+        return mesh_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 1
     dev = torch.device("cuda", 0)
     t_all = time.perf_counter()
-    report = {"reconcile_rows_hash": [], "span_rank_hash": [],
-              "move_round": [], "resolve_moves": [], "dominated": [],
-              "linearize": []}
+    report = {"reconcile_rows_hash": [], "reconcile_rows_hash_xl": [],
+              "span_rank_hash": [], "move_round": [], "resolve_moves": [],
+              "dominated": [], "linearize": []}
 
     phase_kernel_parity(torch, dev, report)
     phase_plane_kernel_parity(torch, dev, report)
@@ -3655,6 +4105,7 @@ def main() -> int:
     svc_b1, svc_dom, svc_lin = drive_service(torch, dev, map_final,
                                              rounds_ds, fleets)
     fleet_b1 = drive_fleet_and_tcp(torch, dev, report, map_rounds)
+    wire = drive_wires_and_mesh(torch, dev, report)
 
     rows_times = time_kernel(torch, map_ds, "map storm")
     time_kernel(torch, text_ds, "text fleet")
@@ -3678,14 +4129,23 @@ def main() -> int:
           f"{api_b4}, dominated {api_dom}, linearize {api_lin} (phase 12); "
           f"the sync service: reconcile_rows_hash {svc_b1}, dominated "
           f"{svc_dom}, linearize {svc_lin} (phase 13); the sharded fleet "
-          f"and the TCP pair: reconcile_rows_hash {fleet_b1} (phase 14)")
+          f"and the TCP pair: reconcile_rows_hash {fleet_b1} (phase 14); "
+          f"the wires and the mesh: reconcile_rows_hash {wire['b1']} (base "
+          f"body) + {wire['b2']} (XL body), dominated {wire['dominated']}, "
+          f"linearize {wire['linearize']} (phase 15)")
     print(json.dumps({"kernels": [
         kernel_entry("reconcile_rows_hash",
                      "automerge_tpu_torch/csrc/reconcile_rows.cu",
                      "automerge_tpu/engine/pallas_kernels.py:499",
                      map_launches + text_launches + long_launches
-                     + svc_b1 + fleet_b1,
+                     + svc_b1 + fleet_b1 + wire["b1"],
                      report["reconcile_rows_hash"], rows_times),
+        kernel_entry("reconcile_rows_hash_xl",
+                     "automerge_tpu_torch/csrc/reconcile_rows.cu",
+                     "automerge_tpu/engine/pallas_kernels.py:499 (XL body "
+                     "_make_reconcile_kernel_xl)",
+                     wire["b2"], report["reconcile_rows_hash_xl"],
+                     wire["xl_times"]),
         kernel_entry("span_rank_hash",
                      "automerge_tpu_torch/csrc/span_rank_hash.cu",
                      "automerge_tpu/engine/span_kernels.py:184",
@@ -3699,14 +4159,14 @@ def main() -> int:
         kernel_entry("dominated",
                      "automerge_tpu_torch/csrc/dominated.cu",
                      "automerge_tpu/engine/pallas_kernels.py:578",
-                     docs_launches + api_dom + svc_dom, report["dominated"],
-                     dom_times),
+                     docs_launches + api_dom + svc_dom + wire["dominated"],
+                     report["dominated"], dom_times),
         kernel_entry("linearize",
                      "automerge_tpu_torch/csrc/linearize.cu",
                      "automerge_tpu/engine/kernels.py:102-137 (plain XLA, "
                      "no Pallas kernel)",
-                     lin9 + lin10 + api_lin + svc_lin, report["linearize"],
-                     lin_times)],
+                     lin9 + lin10 + api_lin + svc_lin + wire["linearize"],
+                     report["linearize"], lin_times)],
         "mega": mega.as_dict()}))
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print(card())

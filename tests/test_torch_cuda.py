@@ -781,3 +781,80 @@ def test_tcp_pair_on_the_card_equals_the_cpu(cuda_device, wire):
             writer.close()
             node.close()
     assert out[str(cuda_device)] == out["cpu"]
+
+
+def _bench_batch(config):
+    """Bench config `config`'s batch (workloads.BENCH_CONFIGS), and its
+    changes."""
+    from automerge_tpu_torch import workloads
+    from automerge_tpu_torch.engine.encode import encode_doc, stack_docs
+    dc = workloads.BENCH_CONFIGS[config]()
+    actors = sorted({c.actor for chs in dc for c in chs})
+    batch = stack_docs([encode_doc(chs, actors) for chs in dc])
+    return dc, batch, int(batch.pop("max_fids"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", [2, 3, 4])
+def test_compact_wires_on_the_card_equal_the_cpu(cuda_device, config):
+    """The compact and byte wires of bench configs 2-4 widened on the card
+    equal the wide buffer, and their hashes through the kernel equal the
+    CPU's; configs 3 and 4 sit past the base envelope, so their launches
+    take the XL body (B2)."""
+    from automerge_tpu_torch.engine import pack
+    dc, batch, mf = _bench_batch(config)
+    rows, dims, n = pack.pack_rows(batch, mf)
+    bufs, meta, _, _ = pack.pack_rows_compact(batch, mf)
+    wire, bmeta, _, _ = pack.pack_rows_bytes(batch, mf)
+    widened = pack.widen_rows(*(torch.from_numpy(b).to(cuda_device)
+                                for b in bufs), meta)
+    np.testing.assert_array_equal(widened.cpu().numpy(), rows)
+    np.testing.assert_array_equal(pack.widen_bytes(
+        torch.from_numpy(wire).to(cuda_device), bmeta).cpu().numpy(), rows)
+    want = hashes_to_numpy(pack.apply_rows_hash_compact(*bufs, meta, dims,
+                                                        device="cpu"))
+    xl = cuda_kernels.LAUNCHES["reconcile_rows_hash_xl"]
+    got = _launched("reconcile_rows_hash", lambda: pack.apply_rows_hash_bytes(
+        wire, bmeta, dims, device=cuda_device))
+    np.testing.assert_array_equal(hashes_to_numpy(got), want)
+    got_c = _launched("reconcile_rows_hash",
+                      lambda: pack.apply_rows_hash_compact(
+                          *bufs, meta, dims, device=cuda_device))
+    np.testing.assert_array_equal(hashes_to_numpy(got_c), want)
+    past_base = not pack.rows_dims_eligible(*dims[:3])
+    assert past_base == (config in (3, 4))
+    assert cuda_kernels.LAUNCHES["reconcile_rows_hash_xl"] \
+        == xl + (2 if past_base else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards", [1, 3])
+def test_mesh_on_the_card_equals_the_unsharded_engine(cuda_device, shards):
+    """The card's mesh (all its CUDA devices, or three shards on this
+    card): reconcile_sharded (both list orders), reconcile_rows_sharded
+    and its byte wire equal apply_batch on the card and on the CPU, and
+    the clock union is the fleet's."""
+    from automerge_tpu_torch.engine.batchdoc import apply_batch
+    from automerge_tpu_torch.parallel import global_clock_union, make_mesh
+    from automerge_tpu_torch.parallel import mesh as pmesh
+    from automerge_tpu_torch.workloads import docset_fleet
+    ids, initial, _ = docset_fleet(n_docs=300)
+    dc = [initial[d] for d in ids]
+    mesh = (make_mesh() if shards == 1
+            else make_mesh(devices=[cuda_device] * shards))
+    _, _, out = apply_batch(dc, device="cpu")
+    want = hashes_to_numpy(out["hash"])
+    _, _, card = apply_batch(dc, device=cuda_device)
+    np.testing.assert_array_equal(hashes_to_numpy(card["hash"]), want)
+    for host_order in (True, False):
+        _, got, n = pmesh.reconcile_sharded(dc, mesh, host_order=host_order)
+        assert got["hash"].device.type == "cuda"
+        np.testing.assert_array_equal(hashes_to_numpy(got["hash"])[:n], want)
+    wide, _ = pmesh.reconcile_rows_sharded(dc, mesh)
+    narrow, _ = pmesh.reconcile_rows_sharded_bytes(dc, mesh)
+    np.testing.assert_array_equal(wide, want)
+    np.testing.assert_array_equal(narrow, want)
+    clocks = torch.randint(0, 50, (len(ids), 3), dtype=torch.int32)
+    union = global_clock_union(clocks.to(cuda_device), mesh)
+    assert union.device.type == "cuda"
+    assert union.tolist() == clocks.amax(0).tolist()

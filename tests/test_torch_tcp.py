@@ -7,7 +7,13 @@ Through `torch_twin_helpers.run_twin`, the cases of the reference's
 packages. Left out: `test_fleet_registration_races_scrape_loop` (it
 needs `automerge_tpu.perf.fleet`, not ported) and
 `test_multiple_docs_multiplexed` (its actor ids depend on thread
-scheduling; replaced below with named actors).
+scheduling; replaced below with named actors) and
+`test_bidirectional_concurrent_edits_converge` (the client's recorded
+document depends on whether the server's change has crossed the socket
+before the client edits; replaced by `tests/torch_tcp_cases.py::
+bidirectional_edits_after_the_server_change_arrives`, run on both
+packages, whose client edits once a DocSet handler has seen the server's
+change).
 
 Cross-package: a reference `EngineDocSet(backend="rows")` and a port one
 on `device="cpu"` are joined over TCP on 127.0.0.1, in both wire modes and
@@ -29,7 +35,8 @@ import time
 import numpy as np
 import pytest
 
-from torch_twin_helpers import collect, hygiene_teardown, run_twin
+import torch_tcp_cases
+from torch_twin_helpers import collect, helper_case, hygiene_teardown, run_twin
 
 import automerge_tpu as ref_am
 from automerge_tpu.sync import tcp as ref_tcp
@@ -48,7 +55,16 @@ CASES = (
             "the peer's reader thread draws them too, so the twin's ids "
             "depend on the scheduler; test_multiple_docs_multiplexed_"
             "named_actors below is the port's",
+        "test_bidirectional_concurrent_edits_converge":
+            "the client's recorded document depends on whether the server's "
+            "change has crossed the socket before the client edits; "
+            "torch_tcp_cases.bidirectional_edits_after_the_server_change_"
+            "arrives (below) waits for it on an event",
     })
+    + [helper_case(
+        "torch_tcp_cases",
+        torch_tcp_cases.bidirectional_edits_after_the_server_change_arrives,
+        {})]
     + collect("test_race_regressions", exclude={
         "test_fleet_registration_races_scrape_loop": PERF,
     })
