@@ -44,7 +44,8 @@ def apply_batch(doc_changes: list[list[Change]],
         batch = stack_docs(encodings)
         max_fids = batch.pop("max_fids")
         arrays = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
-        out = apply_doc(arrays, max_fids, host_order=True)
+        out = metrics.dispatch_jit("apply_doc", apply_doc, arrays,
+                                   max_fids, host_order=True)
     metrics.bump("engine_docs_reconciled", len(doc_changes))
     metrics.bump("engine_ops_reconciled",
                  sum(len(c.ops) for changes in doc_changes for c in changes))

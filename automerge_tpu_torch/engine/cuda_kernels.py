@@ -36,6 +36,7 @@ from pathlib import Path
 
 import torch
 
+from ..utils import perfscope
 from .kernels import _int32_bits, _mix4
 from .pack import row_bases, rows_count, rows_dims_eligible, ROWS_VMEM_BUDGET
 
@@ -159,7 +160,8 @@ def _compile(name: str) -> tuple[str, subprocess.Popen]:
 def build(names=None) -> float:
     """Compile every kernel source not yet built, one nvcc per source, all
     started together. Returns the wall seconds spent; the compiler's
-    output (ptxas register and spill report) lands in BUILD_LOG."""
+    output (ptxas register and spill report) lands in BUILD_LOG. A build
+    is reported to `perfscope.note_build`."""
     names = list(SOURCES) if names is None else list(names)
     t0 = time.perf_counter()
     with _lock:
@@ -173,7 +175,12 @@ def build(names=None) -> float:
                 raise RuntimeError(f"nvcc failed for {SOURCES[n]}:\n{log}")
             # atomic: a concurrent loader sees the old name or the whole file
             os.replace(tmp, library_path(n))
-    return time.perf_counter() - t0
+    wall = time.perf_counter() - t0
+    if todo:
+        # the dispatch open on this thread (metrics.dispatch_jit) counts
+        # this build as its retrace
+        perfscope.note_build(",".join(todo), wall)
+    return wall
 
 
 def _library(name: str) -> ctypes.CDLL:

@@ -556,7 +556,8 @@ def apply_round_adaptive(rset, plan: RoundPlan):
         with dispatchledger.call_scope(
                 "rows_mega", backend="device", docs=k,
                 axes={"docs": (k, k_pad), "rows": (rows_b, rows_b)}):
-            outs.append(reconcile_rows_hash(sub, dims)[:k])
+            outs.append(metrics.dispatch_jit(
+                "reconcile_rows_hash", reconcile_rows_hash, sub, dims)[:k])
         logical += rows_b * k
         padded += rows_b * k_pad
         docs_cap += k_pad

@@ -236,6 +236,7 @@ class ResidentDocSet:
         self._diff_announced: dict[int, int] = {}
         self._diff_move_homes: dict[int, dict] = {}
         self._native = NativeDeltaEncoder.create() if native else None
+        perfscope.track_resident(self)
 
     # ------------------------------------------------------------------
     def _alloc(self):
@@ -810,8 +811,9 @@ class ResidentDocSet:
         n = len(self.doc_ids)
         if not diffs:
             with metrics.trace("engine_resident_apply"):
-                self._out = _scatter_and_apply(self.state, flat, meta,
-                                               self.cap_fids)
+                self._out = metrics.dispatch_jit(
+                    "scatter_and_apply", _scatter_and_apply,
+                    self.state, flat, meta, self.cap_fids)
             vals = hashes_to_numpy(self._out["hash"])[:n]
             self._adopt_full_hashes(vals)   # flush-time capture
             return vals
@@ -819,7 +821,8 @@ class ResidentDocSet:
         # actor content hashes in the rank basis (every row is the same)
         actor_hashes = self.state["actor_hash"][0]
         with metrics.trace("engine_resident_apply"):
-            out, survh, chg_fid, chg_elem = _scatter_apply_diff(
+            out, survh, chg_fid, chg_elem = metrics.dispatch_jit(
+                "scatter_apply_diff", _scatter_apply_diff,
                 self.state, flat, meta, actor_hashes, *prev, self.cap_fids)
         self._out = out
         # the baseline of the NEXT diff round stays on the device; it is
@@ -908,7 +911,8 @@ class ResidentDocSet:
                                dtype=torch.int64, device=self.device)
             sub = {name: t.index_select(0, sel)
                    for name, t in self.state.items()}
-            out = apply_doc(sub, self.cap_fids)
+            out = metrics.dispatch_jit("apply_doc", apply_doc,
+                                       sub, self.cap_fids)
             flightrec.record("engine_hash_readback", docs=k)
             with perfscope.phase("readback"):
                 vals = hashes_to_numpy(out["hash"])
@@ -921,7 +925,8 @@ class ResidentDocSet:
         np.uint32 hashes aligned with doc_ids."""
         with metrics.trace("engine_hashes"):
             self._ensure_actor_hash_state()
-            self._out = apply_doc(self.state, self.cap_fids)
+            self._out = metrics.dispatch_jit("apply_doc", apply_doc,
+                                             self.state, self.cap_fids)
             # breadcrumb before the readback barrier (see the rows engine)
             flightrec.record("engine_hash_readback",
                              docs=len(self.doc_ids))
@@ -934,6 +939,12 @@ class ResidentDocSet:
     def resident_bytes(self) -> int:
         """Footprint of the docs-major resident state tensors (bytes)."""
         return sum(t.numel() * t.element_size() for t in self.state.values())
+
+    def device_bytes(self) -> int:
+        """Bytes of this engine's resident tensors on its device (the
+        CPU footprint gauge of utils/perfscope.py sums them)."""
+        state = getattr(self, "state", None) or {}
+        return sum(t.numel() * t.element_size() for t in state.values())
 
     def hashes(self) -> np.ndarray:
         """Per-doc state hashes, O(dirty) not O(fleet): served from the

@@ -1128,7 +1128,8 @@ class ResidentRowsDocSet(ResidentDocSet):
                 axes={"docs": (n, self.n_pad),
                       "rounds": (len(trip_list), len(trip_list)),
                       "trips": (p, p)}):
-            self.rows_dev, hashes = _scan_rounds(
+            self.rows_dev, hashes = metrics.dispatch_jit(
+                "scan_rounds", _scan_rounds,
                 self.rows_dev, self._upload_trips(trip_list), self.dims())
         self._hash_handle = None
         with perfscope.phase("readback"):
@@ -1809,8 +1810,9 @@ class ResidentRowsDocSet(ResidentDocSet):
         with dispatchledger.call_scope(
                 "rows_apply", backend="device", docs=len(touched),
                 axes={"docs": (len(self.doc_ids), self.n_pad)}):
-            self.rows_dev, h = _apply_final(self.rows_dev, trips,
-                                            self.dims())
+            self.rows_dev, h = metrics.dispatch_jit(
+                "apply_final", _apply_final,
+                self.rows_dev, trips, self.dims())
         self._hash_handle = h
         return h
 
@@ -1858,7 +1860,9 @@ class ResidentRowsDocSet(ResidentDocSet):
             with dispatchledger.call_scope(
                     "rows_hash", backend="device", docs=len(dirty),
                     axes={"docs": (n, self.n_pad)}):
-                h = reconcile_rows_hash(self.rows_dev, self.dims())
+                h = metrics.dispatch_jit(
+                    "reconcile_rows_hash", reconcile_rows_hash,
+                    self.rows_dev, self.dims())
             flightrec.record("rows_hash_readback", docs=n, cached=False)
             with perfscope.phase("readback"):
                 vals = hashes_to_numpy(h)
@@ -1903,7 +1907,9 @@ class ResidentRowsDocSet(ResidentDocSet):
             sub = np.ascontiguousarray(self.rows_host[:, sel])
         with dispatchledger.call_scope("rows_hash", backend="device", docs=k,
                                        axes={"docs": (k, k_pad)}):
-            h = reconcile_rows_hash(self._to_dev(sub), self.dims())
+            h = metrics.dispatch_jit(
+                "reconcile_rows_hash", reconcile_rows_hash,
+                self._to_dev(sub), self.dims())
         flightrec.record("rows_hash_readback", docs=k, cached=False)
         with perfscope.phase("readback"):
             vals = hashes_to_numpy(h)
@@ -1948,6 +1954,12 @@ class ResidentRowsDocSet(ResidentDocSet):
             total += self.rows_dev.numel() * self.rows_dev.element_size()
         total += int(self.op_count.nbytes) + int(self.change_count.nbytes)
         return total
+
+    def device_bytes(self) -> int:
+        """Bytes of the device copy of the rows buffer (the CPU footprint
+        gauge of utils/perfscope.py sums them)."""
+        rows = getattr(self, "rows_dev", None)
+        return 0 if rows is None else rows.numel() * rows.element_size()
 
 
 def _last_wins(trips: np.ndarray, n_pad: int) -> np.ndarray:

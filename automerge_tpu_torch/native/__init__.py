@@ -20,7 +20,10 @@ import hashlib
 import os
 import subprocess
 import threading
+import time
 from pathlib import Path
+
+from ..utils import perfscope
 
 _HERE = Path(__file__).resolve().parent
 BUILD_DIR = _HERE.parent / "build"
@@ -36,7 +39,9 @@ def library_path(src_name: str, lib_name: str) -> Path:
 
 
 def _build_shared(src: Path, lib_path: Path) -> None:
-    """Compile one .cpp into a shared library, atomically installed."""
+    """Compile one .cpp into a shared library, atomically installed, and
+    report the build to `perfscope.note_build`."""
+    t0 = time.perf_counter()
     lib_path.parent.mkdir(parents=True, exist_ok=True)
     tmp = f"{lib_path}.{os.getpid()}.tmp"
     cmd = ["g++", "-O2", "-shared", "-fPIC", "-std=c++17", str(src),
@@ -50,6 +55,9 @@ def _build_shared(src: Path, lib_path: Path) -> None:
     if proc.returncode != 0:
         raise RuntimeError(f"g++ failed for {src.name}:\n{proc.stderr}")
     os.replace(tmp, lib_path)
+    # the dispatch open on this thread (metrics.dispatch_jit) counts this
+    # build as its retrace
+    perfscope.note_build(src.name, time.perf_counter() - t0)
 
 
 def load_shared(src_name: str, lib_name: str, state: dict) -> ctypes.CDLL:

@@ -61,9 +61,12 @@ _level: int | None = None
 _hold_s: float | None = None
 _manifest: tuple[dict, set] | None = None   # (name->id, committed edges)
 _tls = threading.local()
-_meta_lock = threading.Lock()    # guards _violations and _waiters (leaf
-_violations: list[dict] = []     # lock: never held while acquiring
-_waiters: dict[str, int] = {}    # another)
+_meta_lock = threading.Lock()    # guards _violations, _waiters and
+_violations: list[dict] = []     # _self_cells (leaf lock: never held
+_waiters: dict[str, int] = {}    # while acquiring another)
+# each thread's seconds inside the hooks (one cell a thread, summed by
+# self_seconds(); a thread adds to its own cell only, so no lock)
+_self_cells: list[list] = []
 
 
 class LockOrderViolation(RuntimeError):
@@ -115,16 +118,36 @@ def _reload_for_tests() -> None:
 
 
 def reset() -> None:
-    """Clear recorded violations and waiter counts (test isolation)."""
+    """Clear recorded violations, waiter counts and the hooks' self time
+    (test isolation)."""
     with _meta_lock:
         _violations.clear()
         _waiters.clear()
+        for c in _self_cells:
+            c[0] = 0.0
 
 
 def violations() -> list[dict]:
     """Snapshot of recorded violations (bounded at _MAX_VIOLATIONS)."""
     with _meta_lock:
         return list(_violations)
+
+
+def self_seconds() -> float:
+    """Seconds every thread has spent inside the acquire and release
+    hooks while the sanitizer was on: its own cost, read the way the
+    ledgers read theirs (`dispatchledger`, `tenantledger`)."""
+    with _meta_lock:
+        return sum(c[0] for c in _self_cells)
+
+
+def _self_cell() -> list:
+    c = getattr(_tls, "self_cell", None)
+    if c is None:
+        c = _tls.self_cell = [0.0]
+        with _meta_lock:
+            _self_cells.append(c)
+    return c
 
 
 # ---------------------------------------------------------------------------
@@ -186,6 +209,14 @@ def note_acquire(name: str) -> None:
     """Called by the lock wrapper AFTER an outermost acquire."""
     if not on:
         return
+    t0 = time.perf_counter()
+    try:
+        _note_acquire(name)
+    finally:
+        _self_cell()[0] += time.perf_counter() - t0
+
+
+def _note_acquire(name: str) -> None:
     stack = _stack()
     for entry in stack:
         if entry[0] == name:        # reentrant re-acquire through rename
@@ -212,6 +243,14 @@ def note_release(name: str) -> None:
     """Called by the lock wrapper BEFORE/AT an outermost release."""
     if not on:
         return
+    t0 = time.perf_counter()
+    try:
+        _note_release(name)
+    finally:
+        _self_cell()[0] += time.perf_counter() - t0
+
+
+def _note_release(name: str) -> None:
     stack = _stack()
     for i in range(len(stack) - 1, -1, -1):
         if stack[i][0] != name:

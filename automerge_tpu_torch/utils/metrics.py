@@ -19,11 +19,10 @@ registries and snapshot keys).
   stack and the lock holders when a watched region overruns its budget,
   and dumps the flight recorder;
 - **exporters**: `snapshot()` (flat, `json.dumps`-safe, plus the nested
-  `perf`, `oplag` and registered sections) and `prometheus()`.
-
-Not ported: the reference's `dispatch_jit`, which reads JAX's compile
-telemetry (ROADMAP item 7 gives the port a count of its kernel builds in
-its place).
+  `perf`, `oplag` and registered sections) and `prometheus()`;
+- **dispatch accounting** (`dispatch_jit`): every device program call of
+  both engines goes through it, counted per kernel label, with the
+  kernel builds it triggered counted as retraces (utils/perfscope.py).
 """
 
 from __future__ import annotations
@@ -100,9 +99,10 @@ COUNTERS: dict[str, str] = {
     "engine_docs_reconciled": "documents reconciled by the batched kernel",
     "engine_ops_reconciled": "ops reconciled by the batched kernel",
     "engine_bulk_built": "host-path documents built by the bulk loader",
-    "engine_kernels_dispatched": "jitted kernel dispatches {kernel=...}",
+    "engine_kernels_dispatched": "device program dispatches {kernel=...}",
     "engine_kernels_retraced":
-        "jit compile-cache misses (retrace/compile) {kernel=...}",
+        "dispatches that had to build a kernel library first (nvcc or "
+        "g++) {kernel=...}",
     # dispatch-efficiency ledger (engine/dispatchledger.py — r17)
     "engine_dispatch_calls":
         "routed kernel calls recorded by the dispatch-efficiency ledger "
@@ -364,14 +364,15 @@ GAUGES: dict[str, str] = {
     "core_queue_depth": "causal queue depth after the latest apply batch",
     "core_queue_bytes":
         "approximate host bytes held by the causal queue {estimate}",
-    # perfscope compile telemetry (utils/perfscope.py): XLA's answer per
-    # compiled kernel variant, refreshed on each one-time analysis
-    "engine_kernel_flops": "XLA cost_analysis flops {kernel=...}",
+    # perfscope telemetry (utils/perfscope.py): one row per kernel
+    # signature, from the first dispatch that used it
+    "engine_kernel_flops":
+        "work count of a kernel {kernel=...} (none yet on the port)",
     "engine_kernel_bytes_accessed":
-        "XLA cost_analysis bytes accessed {kernel=...}",
+        "argument + output tensor bytes of a dispatch {kernel=...}",
     "engine_kernel_hbm_bytes":
-        "XLA memory_analysis section bytes {kernel=...,section="
-        "argument|output|temp|alias|code}",
+        "argument / output tensor bytes of a dispatch {kernel=...,section="
+        "argument|output}",
     # resident-state footprints (the memory picture a post-mortem needs)
     "engine_resident_bytes": "docs-major resident-state footprint (bytes)",
     "rows_resident_bytes": "rows-engine resident-state footprint (bytes)",
@@ -574,8 +575,8 @@ SPANS: dict[str, str] = {
         "one doc's snapshot write: archived-prefix read + survivor "
         "join + crash-safe image commit (sync/service.write_snapshots)",
     "engine_kernel_compile":
-        "attributed jit lower+compile wall time {kernel=...} "
-        "(perfscope listener; timer-only, no span records)",
+        "attributed kernel-library build wall time {kernel=...} "
+        "(perfscope build hook; timer-only, no span records)",
 }
 
 # The pre-rename alias names ("changes_applied", "wire_frames_received", …)
@@ -1282,3 +1283,38 @@ def watchdog(name: str, budget_s: float, logger=None,
             yield
     finally:
         _monitor.remove(key)
+
+
+# ---------------------------------------------------------------------------
+# dispatch accounting
+
+
+def dispatch_jit(kernel: str, fn, *args, **kwargs):
+    """Call a device program, counting the dispatch under
+    `engine_kernels_dispatched{kernel=...}` and, when the call had to
+    build a kernel library first (nvcc or g++, content-hashed, once a
+    process), a retrace under `engine_kernels_retraced{kernel=...}`. The
+    build is attributed to this dispatch through a thread-local marker
+    (utils/perfscope.py), so concurrent dispatches are counted exactly.
+    The same window records the build seconds
+    (`engine_kernel_compile{kernel=...}_s`) and the call's memory and cost
+    rows. Each dispatch also lands in the flight recorder's event ring
+    and in the dispatch-efficiency ledger (`dispatchledger.note_jit`).
+    The name is the reference's: its callers and its tests patch it."""
+    from . import perfscope
+    marker = perfscope.dispatch_begin(kernel, fn, args, kwargs)
+    out = None
+    try:
+        with perfscope.phase("dispatch"):
+            out = fn(*args, **kwargs)
+        return out
+    finally:
+        retraced = perfscope.dispatch_end(marker, out)
+        bump("engine_kernels_dispatched", kernel=kernel)
+        if retraced:
+            bump("engine_kernels_retraced", kernel=kernel)
+        from . import flightrec
+        flightrec.record("dispatch", kernel=kernel,
+                         **({"retraced": True} if retraced else {}))
+        from ..engine import dispatchledger
+        dispatchledger.note_jit(kernel, retraced)

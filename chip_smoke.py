@@ -16,7 +16,10 @@ node (`sync.sharded_service.ShardedEngineDocSet`) and the TCP transport
 (`sync.tcp.TcpSyncServer`, `TcpSyncClient`, `SupervisedTcpClient`), and the
 compact row wires and the mesh (`pack.apply_rows_hash_compact`,
 `apply_rows_hash_bytes`, `select_field_sharding`; `parallel.mesh`,
-`parallel.collective.global_clock_union`, `parallel.multihost`). Ingress
+`parallel.collective.global_clock_union`, `parallel.multihost`), and the
+perf planes (`utils.metrics.dispatch_jit`'s counters, `perf.dispatchplane`,
+`perf.tenantplane`, `perf.doctor`, `perf.explain`, `perf.top`, and the
+smokes of `python -m automerge_tpu_torch.perf`). Ingress
 runs the native C++ encoder, built with g++ at first use, unless a line says
 native=False.
 
@@ -237,7 +240,24 @@ Phases:
      clock union; joined with a deadline, their halves concatenated equal
      to (c)'s. The kernels line adds the phase's B1, B2, B5 and linearize
      launches (the two processes' counted in each and reported back), and
-     a reconcile_rows_hash_xl entry for B2, timed on config 3.
+     a reconcile_rows_hash_xl entry for B2, timed on config 3;
+ 16. the perf planes on the card: (a) phase 13 (a)'s streams (bench config
+     20's map storm, 10,000 docs) through a fresh EngineDocSet(backend=
+     "rows"), every count set to 0 just before, its hashes held to phase
+     2 (a)'s: engine_kernels_dispatched and engine_kernels_retraced by
+     label (metrics.dispatch_jit), the
+     rows dispatches of each flushed round (at least one each), their sum
+     against the reconcile kernel's launches (at most), no build counted
+     after phase 1's, obs_live_arrays_bytes against
+     torch.cuda.memory_allocated at its sample and the engine's
+     resident_bytes(), the dispatch ledger's report and duty cycle (under
+     perf.history.DISPATCH_LEDGER_BUDGET_PCT), the tenant attribution
+     check, and the doctor, explain (the hottest doc) and one perf top
+     frame over the service's own snapshot; (b) each smoke of `python -m
+     automerge_tpu_torch.perf <cmd> --smoke` (dispatch, tenant, trace,
+     remediate, move, bootstrap, race, megabatch) in a subprocess on the
+     card, each to exit 0, its wall and the launches it reports (its last
+     line). The kernels line adds (a)'s launches and (b)'s.
 Then the kernel timings (each kernel's launches timed three ways:
 `kernel_ms` from CUDA events around a host loop of launches, the host's
 `enqueue_ms` per launch in that loop, and `graph_ms` from a replay of the
@@ -4043,6 +4063,208 @@ def time_move_kernel(torch, nodes, cands, sched, label):
     return t["graph_ms"], p_ms, b_ms, b_by
 
 
+# Phase 16: the perf planes on the card. The labels under which the rows
+# engine counts its device programs (metrics.dispatch_jit); each such
+# dispatch launches the reconcile kernel at least once.
+ROWS_LABELS = ("scan_rounds", "apply_final", "reconcile_rows_hash")
+# The smokes of `python -m automerge_tpu_torch.perf`, each run in a
+# subprocess on the card.
+PERF_SMOKES = ("dispatch", "tenant", "trace", "remediate", "move",
+               "bootstrap", "race", "megabatch")
+
+
+def counter_by_label(snap: dict, name: str) -> dict:
+    head = name + "{kernel="
+    return {k[len(head):-1]: v for k, v in snap.items()
+            if k.startswith(head)}
+
+
+def rows_dispatches(metrics) -> int:
+    by = counter_by_label(metrics.snapshot(), "engine_kernels_dispatched")
+    return sum(by.get(k, 0) for k in ROWS_LABELS)
+
+
+def drive_planes_storm(torch, dev, map_final):
+    """Phase 16 (a): bench config 20's map storm (phase 13 (a)'s streams)
+    through a fresh EngineDocSet(backend="rows") on the card, every
+    count set to 0 just before, its hashes held to phase 2 (a)'s (which
+    phase 13 (a)'s equal), then the planes read over the service's own
+    snapshot. Returns the reconcile launches of the storm."""
+    import numpy as np
+    from automerge_tpu_torch.engine import cuda_kernels as ck
+    from automerge_tpu_torch.engine import dispatchledger
+    from automerge_tpu_torch.perf import (dispatchplane, doctor, explain,
+                                          history, tenantplane, top)
+    from automerge_tpu_torch.perf.fleet import FleetCollector
+    from automerge_tpu_torch.sync import tenantledger
+    from automerge_tpu_torch.sync.service import EngineDocSet
+    from automerge_tpu_torch.utils import metrics, perfscope
+    from automerge_tpu_torch.workloads import map_storm
+
+    ids, heavy, storm = map_storm()
+    led = dispatchledger.ledger()
+    metrics.reset()
+    zero_counts(list(ck.LAUNCHES))
+    self0 = led.self_seconds()
+    svc = EngineDocSet(ids, backend="rows", device=dev)
+    traffic = 0.0
+    per_round = []
+    try:
+        t0 = time.perf_counter()
+        with svc.batch():
+            for d, chs in heavy.items():
+                svc.apply_changes(d, chs)
+        svc.hashes()
+        traffic += time.perf_counter() - t0
+        for rnd in storm:
+            before = rows_dispatches(metrics)
+            t0 = time.perf_counter()
+            with svc.batch():
+                for d, chs in rnd.items():
+                    svc.apply_changes(d, chs)
+            t1 = time.perf_counter()
+            flushed = rows_dispatches(metrics) - before
+            t2 = time.perf_counter()
+            h = svc.hashes()
+            traffic += (t1 - t0) + (time.perf_counter() - t2)
+            per_round.append(flushed)
+        got = np.array([h[d] for d in ids], np.uint32)
+        check((got == map_final).all(),
+              "phase 16 (a): the service's hashes != phase 2 (a)'s and "
+              "phase 13 (a)'s")
+        duty_pct = 100.0 * (led.self_seconds() - self0) / traffic
+        b1 = ck.LAUNCHES["reconcile_rows_hash"]
+        snap = metrics.snapshot()
+        dispatched = counter_by_label(snap, "engine_kernels_dispatched")
+        retraced = counter_by_label(snap, "engine_kernels_retraced")
+        rows_sum = sum(dispatched.get(k, 0) for k in ROWS_LABELS)
+        print(f"phase 16: (a) map storm through EngineDocSet(backend="
+              f"'rows', device={dev}): {len(ids)} docs, {len(storm)} rounds; "
+              f"engine_kernels_dispatched {dispatched}; "
+              f"engine_kernels_retraced {retraced}; rows dispatches a "
+              f"flushed round {per_round}; reconcile_rows_hash launches "
+              f"{b1}; hashes equal to phase 2 (a)'s and 13 (a)'s "
+              f"[{card()}]")
+        check(all(n >= 1 for n in per_round),
+              f"phase 16 (a): a flushed round counted no rows dispatch "
+              f"({per_round})")
+        check(0 < rows_sum <= b1,
+              f"phase 16 (a): rows dispatches {rows_sum} against "
+              f"{b1} reconcile launches")
+        check(not retraced and all(
+            row["compiles"] == 0 for row in snap["perf"]["kernels"].values()),
+              f"phase 16 (a): a dispatch after phase 1's build counted a "
+              f"build ({retraced})")
+        live = perfscope.sample_live_arrays(force=True, device=dev)
+        alloc = torch.cuda.memory_allocated(dev)
+        gauge = metrics.snapshot()["obs_live_arrays_bytes"]
+        rset = svc._resident
+        resident = rset.resident_bytes()
+        # resident_bytes() counts the host mirror, the device copy and the
+        # per-doc counters (as the reference's does); the card holds the
+        # device copy
+        on_card = rset.rows_dev.numel() * rset.rows_dev.element_size()
+        print(f"phase 16: (a) obs_live_arrays_bytes {gauge} (sampled "
+              f"{live}, torch.cuda.memory_allocated {alloc}); "
+              f"obs_live_arrays_peak_bytes "
+              f"{metrics.snapshot()['obs_live_arrays_peak_bytes']}; the "
+              f"engine's resident_bytes() {resident}, {on_card} of them "
+              f"on the card")
+        check(gauge == live == alloc,
+              "phase 16 (a): obs_live_arrays_bytes != memory_allocated")
+        check(live >= on_card,
+              "phase 16 (a): the live footprint is below the engine's "
+              "device copy")
+        sections = dispatchplane.gather_local()
+        check(sections, "phase 16 (a): the dispatch ledger is empty")
+        for label, sec in sections.items():
+            for line in dispatchplane.report_lines(label, sec, limit=4):
+                print(f"phase 16: (a) {line}")
+        print(f"phase 16: (a) dispatch-ledger duty cycle {duty_pct:.4f}% of "
+              f"{traffic:.3f} s of traffic (budget "
+              f"{history.DISPATCH_LEDGER_BUDGET_PCT}%)")
+        check(duty_pct < history.DISPATCH_LEDGER_BUDGET_PCT,
+              f"phase 16 (a): dispatch-ledger duty cycle {duty_pct:.4f}%")
+        tsec = tenantledger.ledger().section()
+        chk = tenantplane.attribution_check(tsec)
+        print(f"phase 16: (a) tenant attribution {chk}")
+        check(chk["admitted_sum"] == chk["admitted_total"] > 0
+              and chk["err_pct"] < history.TENANT_ATTRIBUTION_ERR_MAX_PCT,
+              f"phase 16 (a): tenant shares do not sum to the totals {chk}")
+        snap = metrics.snapshot()
+        rep = doctor.diagnose_snapshot(snap, label="phase 16")
+        for line in doctor.report_lines(rep)[:6]:
+            print(f"phase 16: (a) {line}")
+        views = explain.views_from_snapshot(snap)
+        hot = explain.hot_docs(views, limit=1)
+        # the hottest doc: the worst-lagging one, else (a node with no
+        # peer lags nowhere) the one the ledger's export saw admit most
+        seen = {d: e for v in views.values()
+                for d, e in (v.get("docs") or {}).items()}
+        check(hot or seen, "phase 16 (a): the doc ledger exported no doc")
+        doc = hot[0]["doc"] if hot else max(
+            seen, key=lambda d: seen[d].get("admitted", 0))
+        for line in explain.report_lines(explain.explain_doc(doc, views))[:6]:
+            print(f"phase 16: (a) {line}")
+        collector = FleetCollector(interval_s=3600.0)
+        collector.add_local("phase16", snapshot_fn=lambda: snap)
+        collector.scrape_once()
+        collector.scrape_once()
+        frame = top.render(collector)
+        check(frame and "phase16" in "\n".join(frame),
+              "phase 16 (a): the top frame does not show the node")
+        print(f"phase 16: (a) perf top frame, {len(frame)} lines: "
+              f"{frame[0]}")
+    finally:
+        svc.close()
+    return b1
+
+
+def drive_perf_smokes(dev) -> dict:
+    """Phase 16 (b): each smoke of `python -m automerge_tpu_torch.perf` in
+    a subprocess on the card. Returns the launches they made, summed by
+    counter."""
+    repo = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(repo))
+    total: dict = {}
+    for cmd in PERF_SMOKES:
+        t0 = time.perf_counter()
+        p = subprocess.run(
+            [sys.executable, "-m", "automerge_tpu_torch.perf", cmd,
+             "--smoke", "--device", str(dev)],
+            cwd=repo, env=env, capture_output=True, text=True, timeout=300)
+        wall = time.perf_counter() - t0
+        check(p.returncode == 0,
+              f"phase 16 (b): perf {cmd} --smoke exited {p.returncode}:\n"
+              f"{p.stdout[-3000:]}\n{p.stderr[-3000:]}")
+        lines = p.stdout.strip().splitlines()
+        check(lines and lines[-1].startswith("perf launches: "),
+              f"phase 16 (b): perf {cmd} --smoke printed no launches")
+        launches = json.loads(lines[-1][len("perf launches: "):])
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        said = next((ln for ln in lines[:-1] if "smoke" in ln), lines[0])
+        print(f"phase 16: (b) perf {cmd} --smoke: exit 0 in {wall:.1f} s, "
+              f"launches {launches}; {said}")
+    return total
+
+
+def drive_planes(torch, dev, map_final) -> dict:
+    """Phase 16: the perf planes on the card. Returns the launches of
+    each kernel counter on the phase's path ((a) here, (b) in its
+    subprocesses)."""
+    t_phase = time.perf_counter()
+    b1 = drive_planes_storm(torch, dev, map_final)
+    launches = drive_perf_smokes(dev)
+    launches["reconcile_rows_hash"] = \
+        launches.get("reconcile_rows_hash", 0) + b1
+    check(launches.get("resolve_moves", 0) >= 1,
+          "phase 16 (b): the move smoke did not launch the move kernel")
+    print(f"phase 16: launches {launches}; phase 16 took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches, errs, times):
     k_ms, p_ms, b_ms, b_by = times
     return {"name": name, "route": "cuda", "source": source,
@@ -4106,6 +4328,7 @@ def main() -> int:
                                              rounds_ds, fleets)
     fleet_b1 = drive_fleet_and_tcp(torch, dev, report, map_rounds)
     wire = drive_wires_and_mesh(torch, dev, report)
+    planes = drive_planes(torch, dev, map_final)
 
     rows_times = time_kernel(torch, map_ds, "map storm")
     time_kernel(torch, text_ds, "text fleet")
@@ -4132,40 +4355,47 @@ def main() -> int:
           f"and the TCP pair: reconcile_rows_hash {fleet_b1} (phase 14); "
           f"the wires and the mesh: reconcile_rows_hash {wire['b1']} (base "
           f"body) + {wire['b2']} (XL body), dominated {wire['dominated']}, "
-          f"linearize {wire['linearize']} (phase 15)")
+          f"linearize {wire['linearize']} (phase 15); the perf planes: "
+          f"{planes} (phase 16)")
     print(json.dumps({"kernels": [
         kernel_entry("reconcile_rows_hash",
                      "automerge_tpu_torch/csrc/reconcile_rows.cu",
                      "automerge_tpu/engine/pallas_kernels.py:499",
                      map_launches + text_launches + long_launches
-                     + svc_b1 + fleet_b1 + wire["b1"],
+                     + svc_b1 + fleet_b1 + wire["b1"]
+                     + planes["reconcile_rows_hash"],
                      report["reconcile_rows_hash"], rows_times),
         kernel_entry("reconcile_rows_hash_xl",
                      "automerge_tpu_torch/csrc/reconcile_rows.cu",
                      "automerge_tpu/engine/pallas_kernels.py:499 (XL body "
                      "_make_reconcile_kernel_xl)",
-                     wire["b2"], report["reconcile_rows_hash_xl"],
+                     wire["b2"] + planes.get("reconcile_rows_hash_xl", 0),
+                     report["reconcile_rows_hash_xl"],
                      wire["xl_times"]),
         kernel_entry("span_rank_hash",
                      "automerge_tpu_torch/csrc/span_rank_hash.cu",
                      "automerge_tpu/engine/span_kernels.py:184",
-                     span_launches, report["span_rank_hash"],
+                     span_launches + planes.get("span_rank_hash", 0),
+                     report["span_rank_hash"],
                      span_times["span fleet"]),
         kernel_entry("resolve_moves",
                      "automerge_tpu_torch/csrc/move_round.cu",
                      "automerge_tpu/engine/move_kernels.py:319",
-                     move_launches + api_b4, report["resolve_moves"],
+                     move_launches + api_b4 + planes["resolve_moves"],
+                     report["resolve_moves"],
                      move_times["realm fleet"]),
         kernel_entry("dominated",
                      "automerge_tpu_torch/csrc/dominated.cu",
                      "automerge_tpu/engine/pallas_kernels.py:578",
-                     docs_launches + api_dom + svc_dom + wire["dominated"],
+                     docs_launches + api_dom + svc_dom + wire["dominated"]
+                     + planes.get("dominated", 0),
                      report["dominated"], dom_times),
         kernel_entry("linearize",
                      "automerge_tpu_torch/csrc/linearize.cu",
                      "automerge_tpu/engine/kernels.py:102-137 (plain XLA, "
                      "no Pallas kernel)",
-                     lin9 + lin10 + api_lin + svc_lin + wire["linearize"],
+                     lin9 + lin10 + api_lin + svc_lin + wire["linearize"]
+                     + planes.get("linearize", 0),
                      report["linearize"], lin_times)],
         "mega": mega.as_dict()}))
     print(f"total {time.perf_counter() - t_all:.1f} s")

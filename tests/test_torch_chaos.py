@@ -4,10 +4,10 @@ reconnect supervisor (`sync/tcp.SupervisedTcpClient`), held to the
 reference's on the CPU.
 
 Through `torch_twin_helpers.run_twin`, the cases of the reference's
-`tests/test_chaos.py` and the chaos and supervisor cases of
-`tests/test_remediation.py` run on both packages. Left out, each with its
-reason: the fleet-doctor and remediation-engine cases (they need
-`automerge_tpu.perf`, which is not ported); `test_lock_hold_auto_holder_and_close`
+`tests/test_chaos.py` and `tests/test_remediation.py` (the fleet doctor,
+the remediation engine and its guardrails, the chaos hooks and the
+supervisor) run on both packages. Left out, each with its reason:
+`test_lock_hold_auto_holder_and_close`
 (it asserts the reference's thread name; the port's thread is
 `amtpu-torch-chaos-lockhold`, and `test_lock_hold_holder_named_and_joined`
 below is the port's); `test_supervisor_idle_kick_heals_peer_hang` (it
@@ -32,38 +32,13 @@ from automerge_tpu_torch.sync.tcp import (SupervisedTcpClient, TcpSyncServer,
                                           sync_lock)
 from automerge_tpu_torch.utils import chaos, metrics
 
-PERF = "needs a perf plane (automerge_tpu/perf), which is not ported"
-PERF_CASES = (
-    "test_guardrails_cooldown_blocks_repeat",
-    "test_guardrails_budget_window_exhaustion",
-    "test_guardrails_per_action_override",
-    "test_engine_quarantines_flagged_straggler",
-    "test_engine_recovery_episode_measures_mttr",
-    "test_engine_quorum_refuses_majority_quarantine",
-    "test_engine_dry_run_executes_nothing",
-    "test_engine_dry_run_env_knob",
-    "test_engine_reconnect_action_for_stale_supervised_node",
-    "test_engine_tick_costs_bounded_and_recorded",
-    "test_ladder_escalates_delay_then_shed_and_relaxes_with_hysteresis",
-    "test_ladder_no_data_never_moves",
-    "test_engine_drives_ladder_through_guardrails",
-    "test_rehome_children_moves_cover_and_backfills",
-    "test_fleet_green_predicate",
-    "test_collector_quarantine_excludes_from_rollup_and_scoring",
-    "test_collector_remove_peer_frees_label_for_reconnect",
-    "test_slo_on_transition_hook_fires",
-    "test_governor_force_discloses_mode_flip_while_shedding",
-)
-
 CASES = (
     collect("test_chaos", exclude={
         "test_lock_hold_auto_holder_and_close":
             "asserts the reference's thread name; "
             "test_lock_hold_holder_named_and_joined below is the port's",
-        "test_straggler_and_doctor_attribution": PERF,
     })
     + collect("test_remediation", exclude=dict(
-        {name: PERF for name in PERF_CASES},
         test_supervisor_idle_kick_heals_peer_hang=(
             "writes on a wall-clock deadline; "
             "test_peer_hang_idle_kick_heals below waits on the supervisor"),

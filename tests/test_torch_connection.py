@@ -3,10 +3,10 @@ auditor held to the reference's, on the CPU, and a reference node and a
 port node syncing with each other.
 
 The cases of the reference's `tests/test_connection.py`,
-`tests/test_subscriptions.py` and `tests/test_convergence_audit.py` that
-need no socket, no unported module (relay, sharded service, perf
-planes) and no wall clock run on both packages through
-`torch_twin_helpers.run_twin`.
+`tests/test_subscriptions.py` (with its perf-plane cases: explain, the
+SLO engine, `perf top`, the history gate) and
+`tests/test_convergence_audit.py` that need no socket and no wall clock
+run on both packages through `torch_twin_helpers.run_twin`.
 
 Cross-package sync: a reference `EngineDocSet(backend="rows")` and a port
 one on `device="cpu"` are joined by `Connection`s over in-process queues,
@@ -36,15 +36,9 @@ from automerge_tpu_torch.sync.audit import ConvergenceAuditor
 from automerge_tpu_torch.sync.connection import Connection
 from automerge_tpu_torch.sync.service import EngineDocSet
 
-PERF = "needs a perf plane (automerge_tpu/perf), which is not ported"
-
 CASES = (
     collect("test_connection")
     + collect("test_subscriptions", exclude={
-        "test_explain_names_doc_unsubscribed_not_a_stall": PERF,
-        "test_slo_engine_drives_governor": PERF,
-        "test_perf_top_hot_doc_panel_states_truncation": PERF,
-        "test_history_sub_gates_run_independently_per_field": PERF,
         "test_governor_delays_low_priority_only_and_discloses":
             "asserts on wall-clock delays",
     })

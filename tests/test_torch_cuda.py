@@ -620,6 +620,39 @@ def test_rows_service_on_the_card_equals_the_cpu(cuda_device, ingest_mode):
 
 
 @pytest.mark.cuda
+def test_dispatch_counters_on_the_card(cuda_device):
+    """On the card every flush of a rows service is one counted
+    `apply_final` dispatch that launches B1, no dispatch counts a build
+    once the kernels are built, the per-kernel row carries the call's
+    bytes, and the live footprint is torch.cuda.memory_allocated."""
+    from automerge_tpu_torch.sync.service import EngineDocSet
+    from automerge_tpu_torch.utils import metrics, perfscope
+    cuda_kernels.build()
+    ids, rounds = _service_streams()
+    svc = EngineDocSet(backend="rows", device=cuda_device)
+    try:
+        metrics.reset()
+        before = cuda_kernels.LAUNCHES["reconcile_rows_hash"]
+        for rnd in rounds:
+            with svc.batch():
+                for d, chs in rnd.items():
+                    svc.apply_changes(d, chs)
+        snap = metrics.snapshot()
+        launched = cuda_kernels.LAUNCHES["reconcile_rows_hash"] - before
+        assert snap["engine_kernels_dispatched{kernel=apply_final}"] \
+            == len(rounds) <= launched
+        assert not [k for k in snap
+                    if k.startswith("engine_kernels_retraced")]
+        row = snap["perf"]["kernels"]["apply_final"]
+        assert row["compiles"] == 0 and row["memory"]["argument"] > 0
+        live = perfscope.sample_live_arrays(force=True, device=cuda_device)
+        assert live == torch.cuda.memory_allocated(cuda_device)
+        assert metrics.snapshot()["obs_live_arrays_bytes"] == live
+    finally:
+        svc.close()
+
+
+@pytest.mark.cuda
 def test_live_views_on_the_card_equal_the_cpu(cuda_device):
     """EngineDocSet(backend="resident", live_views=True) on the card: the
     diff records each subscriber receives, the views and the hashes equal

@@ -41,7 +41,12 @@ def test_every_module_imports_with_jax_and_reference_blocked():
               "utils.uuid", "utils.flightrec", "utils.oplag",
               "utils.tracer", "utils.perfscope", "sync.tenantledger",
               "sync.docledger", "sync.epochs", "sync.service",
-              "sync.connection", "sync.audit"):
+              "sync.connection", "sync.audit", "perf", "perf.__main__",
+              "perf.history", "perf.contention", "perf.fleet", "perf.slo",
+              "perf.doctor", "perf.explain", "perf.top",
+              "perf.dispatchplane", "perf.tenantplane", "perf.traceplane",
+              "perf.remediate", "perf.moveplane", "perf.bootstrap",
+              "perf.raceplane", "perf.megabatchplane"):
         assert f"automerge_tpu_torch.{m}" in mods, m
     code = "\n".join([
         "import importlib, sys",
@@ -112,6 +117,12 @@ def test_every_module_imports_with_jax_and_reference_blocked():
         "    while qy: cx.receive_msg(qy.pop(0))",
         "assert y.hashes() == x.hashes() and y.clock_of('d') == {'A': 2}",
         "x.close(); y.close()",
+        "from automerge_tpu_torch.utils import metrics",
+        "assert metrics.snapshot()['perf']['kernels']",
+        "from automerge_tpu_torch.perf import dispatchplane, history",
+        "history.DISPATCH_LEDGER_BUDGET_PCT = float('inf')  # a wall bound",
+        "assert dispatchplane.smoke_run(n_docs=2, rounds=1, verbose=False,",
+        "                               device='cpu') == 0",
         "print('ok')",
     ])
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -172,3 +183,28 @@ def test_docs_major_entry_points_default_to_the_card():
     ds = ResidentDocSet(["a"], device="cpu")
     assert ds.device.type == "cpu"
     assert {t.device.type for t in ds.state.values()} == {"cpu"}
+
+
+def test_perf_smokes_default_to_the_card():
+    """Every smoke of `python -m automerge_tpu_torch.perf` runs on the
+    card unless it is given the CPU (`device="cpu"`, `--device cpu`);
+    without a card the default raises before the smoke touches anything
+    (`tests/test_torch_perf_planes.py` runs each on the CPU)."""
+    if torch.cuda.is_available():
+        return
+    from automerge_tpu_torch.perf import (__main__ as perf_main, bootstrap,
+                                          dispatchplane, megabatchplane,
+                                          moveplane, raceplane, remediate,
+                                          tenantplane, traceplane)
+    calls = [dispatchplane.smoke_run, tenantplane.smoke_run,
+             traceplane.smoke_run, megabatchplane.smoke_run]
+    calls += [lambda m=m: m.smoke_main([]) for m in (
+        remediate, moveplane, bootstrap, raceplane, megabatchplane)]
+    calls += [lambda c=c: perf_main.main([c, "--smoke"]) for c in (
+        "dispatch", "tenant", "trace", "remediate", "move", "bootstrap",
+        "race", "megabatch")]
+    env = dict(os.environ)
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert dict(os.environ) == env

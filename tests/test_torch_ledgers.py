@@ -3,7 +3,7 @@ ledger (`sync/tenantledger.py`) and the dispatch ledger's hand-offs to
 them held to the reference's, on the CPU.
 
 The cases of the reference's `tests/test_docledger.py` and
-`tests/test_tenantledger.py` that need no socket and no unported module
+`tests/test_tenantledger.py` (with `perf.tenantplane.attribution_check`)
 run on both packages through `torch_twin_helpers.run_twin`; the
 environment switches both ledgers cache (`AMTPU_DOCLEDGER`,
 `AMTPU_TENANTLEDGER`, `AMTPU_TENANT_PREFIX`, `AMTPU_CHAOS_*`) are set only
@@ -30,10 +30,7 @@ from automerge_tpu_torch.utils import flightrec, metrics
 
 CASES = (
     collect("test_docledger")
-    + collect("test_tenantledger", exclude={
-        "test_attribution_check_sums_to_totals":
-            "needs automerge_tpu.perf.tenantplane, which is not ported",
-    })
+    + collect("test_tenantledger")
 )
 
 

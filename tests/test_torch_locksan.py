@@ -133,3 +133,33 @@ def test_strict_mode_port_threads_keep_the_committed_order(monkeypatch,
         sharded.close()
         plain.close()
     assert [v for v in locksan.violations() if v["kind"] == "order"] == []
+
+
+def test_self_seconds_count_the_hooks_while_on(monkeypatch):
+    """The sanitizer's own time (`self_seconds`, the race smoke's
+    overhead reading) grows only while it is on, from every thread that
+    takes a sanitized lock, and `reset` zeroes it."""
+    import threading
+
+    monkeypatch.setenv("AMTPU_LOCKSAN", "1")
+    locksan._reload_for_tests()
+    assert locksan.self_seconds() == 0.0
+    lock = locksan.named_lock("service")
+
+    def take(n=50):
+        for _ in range(n):
+            with lock:
+                pass
+    take()
+    mine = locksan.self_seconds()
+    assert mine > 0.0
+    t = threading.Thread(target=take, name="amtpu-torch-test-locksan")
+    t.start()
+    t.join()
+    assert locksan.self_seconds() > mine
+    locksan.reset()
+    assert locksan.self_seconds() == 0.0
+    monkeypatch.delenv("AMTPU_LOCKSAN")
+    locksan._reload_for_tests()
+    take()
+    assert locksan.self_seconds() == 0.0

@@ -405,13 +405,24 @@ def test_package_root_exports():
 
 def test_tcp_stitch_waits_on_the_hand_off(monkeypatch):
     """test_tracer.py::test_tcp_stitch_one_trace_covers_both_processes on
-    the port, with its race taken out: a sampled change on node A crosses
-    a loopback socket and completes as one stitched trace on node B. The
-    case waits for the send path to hand the trace off (an event set by
-    the sender's `wire_header`) before it reads A's hashes, since a read
-    on A can complete the trace at its origin first."""
+    the port, with its races taken out: a sampled change on node A
+    crosses a loopback socket and completes as one stitched trace on
+    node B. The case reads no hash, and no counter, before the event that
+    makes the read deterministic:
+
+    - the send path has handed the trace off (an event set by the
+      sender's `wire_header`): a read on A before that completes the
+      trace at its origin;
+    - B has adopted the trace (`remote_admitted` returned): B adopts
+      the trace just after it applies the frame, so a read that already
+      sees B converged can come before the trace is parked for
+      visibility, and nothing would read again (the cause of this case's
+      failures when it polled B's hashes and then polled only the trace
+      section);
+    - B holds what A holds of doc1 (a handler on B reports its clock).
+
+    Then one read on each node completes the stitched trace."""
     import string
-    import time
 
     import numpy as np
 
@@ -423,46 +434,54 @@ def test_tcp_stitch_waits_on_the_hand_off(monkeypatch):
             actor=actor, seq=seq, deps={},
             ops=[Op("set", ROOT_ID, key=key, value=value)])])
 
-    def wait(predicate, timeout=30.0):
-        deadline = time.monotonic() + timeout
-        while time.monotonic() < deadline:
-            if predicate():
-                return True
-            time.sleep(0.01)
-        return False
-
     tracer.set_sample_rate(2)
     hot = next(a for a in string.ascii_uppercase if tracer.sampled(a, 1))
     cold = next(a for a in string.ascii_uppercase
                 if not tracer.sampled(a, 1))
-    handed = threading.Event()
+    handed, adopted = threading.Event(), threading.Event()
     wire_header = tracer.wire_header
+    remote_admitted = tracer.remote_admitted
 
-    def spy(doc_id, serialize_s=0.0):
+    def spy_send(doc_id, serialize_s=0.0):
         out = wire_header(doc_id, serialize_s)
         if out and doc_id == "doc1":
             handed.set()
         return out
-    monkeypatch.setattr(tracer, "wire_header", spy)
+
+    def spy_adopt(traces, doc_id, *a, **k):
+        remote_admitted(traces, doc_id, *a, **k)
+        if traces and doc_id == "doc1":
+            adopted.set()
+    monkeypatch.setattr(tracer, "wire_header", spy_send)
+    monkeypatch.setattr(tracer, "remote_admitted", spy_adopt)
     a = EngineDocSet(backend="rows", device="cpu")
     b = EngineDocSet(backend="rows", device="cpu")
+
+    clocks, changed = {}, threading.Condition()
+
+    def on_b(doc_id, _handle):
+        with changed:
+            clocks[doc_id] = b.clock_of(doc_id)
+            changed.notify_all()
+    b.register_handler(on_b)
     server = TcpSyncServer(a).start()
     client = TcpSyncClient(b, server.host, server.port).start()
     try:
         a.apply_columns("warm", cols(cold, 1, "w", 0))
-        assert wait(lambda: "warm" in a.hashes() and "warm" in b.hashes())
+        with changed:
+            assert changed.wait_for(lambda: "warm" in clocks, timeout=60.0)
         a.apply_columns("doc1", cols(hot, 1, "x", 1))
         a.apply_columns("doc1", cols(cold, 2, "y", 2))
-        assert handed.wait(timeout=30.0)
-
-        def converged():
-            ha, hb = a.hashes(), b.hashes()
-            return ("doc1" in ha and "doc1" in hb
-                    and np.uint32(ha["doc1"]) == np.uint32(hb["doc1"]))
-        assert wait(converged)
-        assert wait(lambda: tracer.section()["stitched"] >= 1
-                    and tracer.section()["inflight"] == 0)
+        assert handed.wait(timeout=60.0)
+        want = a.clock_of("doc1")      # A has flushed and sent doc1
+        assert adopted.wait(timeout=60.0)
+        with changed:
+            assert changed.wait_for(lambda: clocks.get("doc1") == want,
+                                    timeout=60.0)
+        ha, hb = a.hashes(), b.hashes()
+        assert np.uint32(ha["doc1"]) == np.uint32(hb["doc1"])
         sec = tracer.section()
+        assert sec["stitched"] >= 1 and sec["inflight"] == 0, sec
         assert sec["sampled"] == 1
         assert sec["handed_off"] >= 1 and sec["received"] >= 1
         t = next(t for t in sec["exemplars"]
@@ -477,3 +496,28 @@ def test_tcp_stitch_waits_on_the_hand_off(monkeypatch):
         server.close()
         a.close()
         b.close()
+
+
+def test_a_read_before_adoption_leaves_the_stitched_trace_to_the_next():
+    """The order behind the stitch case's old failures, made
+    deterministic: a converged-hash read that lands after B applied the
+    frame but before B parked the adopted trace completes nothing; the
+    trace stays in flight until the next read, which completes it as
+    stitched. So a test (or the trace smoke) must read again after the
+    adoption, never poll only the trace section."""
+    tracer.reset()
+    tracer.set_sample_rate(1)
+    try:
+        hdr = [{"tid": "A.1", "actor": "A", "seq": 1, "t0": 0.0,
+                "sent": 0.0, "origin": "a", "spans": [], "meta": {}}]
+        traces = tracer.wire_receive(hdr, "doc1")
+        tracer.visible(None)              # the read B's apply let through
+        sec = tracer.section()
+        assert sec["received"] == 1 and sec["stitched"] == 0
+        tracer.remote_admitted(traces, "doc1")
+        assert tracer.section()["inflight"] == 1
+        tracer.visible(None)              # the next read completes it
+        sec = tracer.section()
+        assert sec["stitched"] == 1 and sec["inflight"] == 0
+    finally:
+        tracer.reset()

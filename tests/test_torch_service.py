@@ -34,19 +34,10 @@ from automerge_tpu_torch.native.wire import changes_to_columns
 from automerge_tpu_torch.sync.service import EngineDocSet
 
 ORACLE = {ref_apply_batch: port_apply_batch}
-JIT_FAULT = ("injects its fault through metrics.dispatch_jit, which the "
-             "port does not have; test_dispatch_fault_* below inject the "
-             "same fault into each package's reconcile")
 
 CASES = (
     collect("test_rows_service", adapters=ORACLE)
-    + collect("test_incremental_hashes", exclude={
-        "test_clean_fleet_read_zero_reconcile_dispatches":
-            "reads the JAX dispatch counters; "
-            "test_clean_read_launches_nothing below is the port's",
-        "test_dispatch_failure_then_retry_recovers": JIT_FAULT,
-        "test_incremental_equals_full_recompute_seeded": JIT_FAULT,
-    })
+    + collect("test_incremental_hashes")
 )
 
 
@@ -58,7 +49,7 @@ def _hygiene():
 
 @pytest.mark.parametrize("case", CASES, ids=lambda c: c.id)
 def test_reference_case_on_both_packages(case, tmp_path, monkeypatch):
-    run_twin(case, tmp_path, monkeypatch)
+    run_twin(case, tmp_path, monkeypatch, dispatches=True)
 
 
 

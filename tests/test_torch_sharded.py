@@ -11,8 +11,6 @@ case makes is recorded on both sides and must give the reference's
   `test_shards_bind_to_their_devices_on_the_cpu` (four shards on
   `[cpu] * 4`) and, on the card, by
   `tests/test_torch_cuda.py::test_sharded_shards_bind_to_every_card`.
-- `test_mixed_tenant_batch_coalesces_and_attributes_per_shard` ends in
-  `automerge_tpu.perf.tenantplane.attribution_check`, which is not ported.
 
 The reference's `tests/test_hypothesis_sync_chaos.py` (a triangle of an
 interpretive DocSet, a docs-major node and a rows or sharded node over
@@ -56,8 +54,6 @@ CASES = collect("test_sharded_service", exclude={
     "test_shards_bind_to_distinct_devices":
         "asks jax.devices() for four CPU devices (torch has one); "
         "test_shards_bind_to_their_devices_on_the_cpu below is the port's",
-    "test_mixed_tenant_batch_coalesces_and_attributes_per_shard":
-        "needs automerge_tpu.perf.tenantplane, which is not ported",
 })
 
 CPU = torch.device("cpu")

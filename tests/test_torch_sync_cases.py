@@ -25,11 +25,7 @@ CASES = (
             "holds concurrent writers and a reader against the archive",
     }, adapters={ref_apply_batch: port_apply_batch})
     + collect("test_lockprof")
-    + collect("test_observability_smoke", exclude={
-        "test_fleet_round_populates_expected_span_keys":
-            "counts the JAX dispatch counters (engine_kernels_dispatched, "
-            "metrics.dispatch_jit), which the port does not have",
-    })
+    + collect("test_observability_smoke")
     + collect("test_frames")
 )
 

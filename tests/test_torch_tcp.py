@@ -4,9 +4,8 @@ a real socket.
 
 Through `torch_twin_helpers.run_twin`, the cases of the reference's
 `tests/test_tcp_sync.py` and `tests/test_race_regressions.py` run on both
-packages. Left out: `test_fleet_registration_races_scrape_loop` (it
-needs `automerge_tpu.perf.fleet`, not ported) and
-`test_multiple_docs_multiplexed` (its actor ids depend on thread
+packages. Left out: `test_multiple_docs_multiplexed` (its actor ids
+depend on thread
 scheduling; replaced below with named actors) and
 `test_bidirectional_concurrent_edits_converge` (the client's recorded
 document depends on whether the server's change has crossed the socket
@@ -46,8 +45,6 @@ from automerge_tpu_torch.core.change import Change
 from automerge_tpu_torch.sync import tcp
 from automerge_tpu_torch.sync.service import EngineDocSet
 
-PERF = "needs a perf plane (automerge_tpu/perf), which is not ported"
-
 CASES = (
     collect("test_tcp_sync", exclude={
         "test_multiple_docs_multiplexed":
@@ -65,9 +62,7 @@ CASES = (
         "torch_tcp_cases",
         torch_tcp_cases.bidirectional_edits_after_the_server_change_arrives,
         {})]
-    + collect("test_race_regressions", exclude={
-        "test_fleet_registration_races_scrape_loop": PERF,
-    })
+    + collect("test_race_regressions")
 )
 
 

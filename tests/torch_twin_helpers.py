@@ -49,6 +49,7 @@ from automerge_tpu import api as ref_api
 from automerge_tpu import storage as ref_storage
 from automerge_tpu.core.opset import OpSet as RefOpSet
 from automerge_tpu.engine.batchdoc import oracle_state as ref_oracle_state
+from automerge_tpu.perf.fleet import FleetCollector as RefFleetCollector
 from automerge_tpu.sync.audit import ConvergenceAuditor as RefAuditor
 from automerge_tpu.sync.service import EngineDocSet as RefEngineDocSet
 from automerge_tpu.sync.sharded_service import (
@@ -60,6 +61,8 @@ from automerge_tpu_torch import storage as port_storage
 from automerge_tpu_torch.core.opset import OpSet as PortOpSet
 from automerge_tpu_torch.engine.batchdoc import (
     oracle_state as port_oracle_state)
+from automerge_tpu_torch.perf.fleet import (
+    FleetCollector as PortFleetCollector)
 from automerge_tpu_torch.sync.audit import ConvergenceAuditor as PortAuditor
 from automerge_tpu_torch.sync.service import (
     EngineDocSet as PortEngineDocSet)
@@ -310,6 +313,7 @@ class Rebinder:
         # the order it makes them
         self.services: list = []
         self.auditors: list = []
+        self.collectors: list = []
         self._recorders: dict = {}
 
     def _import(self, name, globals=None, locals=None, fromlist=(),
@@ -344,6 +348,8 @@ class Rebinder:
         return out
 
     def value(self, name, val):
+        if self.side == "port" and id(val) in self._adapters:
+            return self._adapters[id(val)]
         if val is ref_am or val is ref_api:
             return self.am
         if val is RefEngineDocSet:
@@ -356,6 +362,9 @@ class Rebinder:
         if val is RefAuditor:
             return self._recorder(RefAuditor if self.side == "ref"
                                   else PortAuditor, self.auditors)
+        if val is RefFleetCollector:
+            return self._recorder(RefFleetCollector if self.side == "ref"
+                                  else PortFleetCollector, self.collectors)
         if _SURFACE_ORIGINS.get(id(val)) is not None:
             return getattr(self.am, _SURFACE_ORIGINS[id(val)])
         if isinstance(val, types.FunctionType) \
@@ -372,8 +381,6 @@ class Rebinder:
             return out
         if self.side == "ref":
             return val
-        if id(val) in self._adapters:
-            return self._adapters[id(val)]
         if isinstance(val, types.ModuleType):
             return _port_module(val.__name__) if _is_ref(val.__name__) \
                 else val
@@ -615,22 +622,50 @@ def _run_side(case: Case, side: str, given: dict) -> tuple[list, Rebinder]:
     return records, rb
 
 
-def run_twin(case: Case, tmp_path, monkeypatch) -> None:
+def dispatch_counts(metrics_module) -> dict:
+    """`engine_kernels_dispatched{kernel=...}` of one package, by label."""
+    snap = metrics_module.snapshot()
+    return {k: v for k, v in snap.items()
+            if k.startswith("engine_kernels_dispatched{")}
+
+
+def run_twin(case: Case, tmp_path, monkeypatch, dispatches: bool = False,
+             **builtin) -> None:
     """Run `case` on the reference, then on the port, and hold the port's
-    recorded documents to the reference's."""
+    recorded documents to the reference's. With `dispatches`, each run
+    starts from a metrics reset and the two runs'
+    `engine_kernels_dispatched{kernel=...}` counts must be equal too,
+    label by label. `builtin` passes pytest's own fixtures a case
+    asks for (`capsys`, `caplog`); each run starts with their captures
+    emptied."""
+    from automerge_tpu.utils import metrics as ref_metrics
+    from automerge_tpu_torch.utils import metrics as port_metrics
     dirs = {}
     for side in ("ref", "port"):
         dirs[side] = Path(tempfile.mkdtemp(prefix=side, dir=tmp_path))
+
+    def given(side):
+        if "capsys" in builtin:
+            builtin["capsys"].readouterr()
+        if "caplog" in builtin:
+            builtin["caplog"].clear()
+        return dict(builtin, tmp_path=dirs[side], monkeypatch=monkeypatch)
+
+    def run(side, metrics_module):
+        if dispatches:
+            metrics_module.reset()     # a case may reset them itself too
+        docs, rb = _run_side(case, side, given(side))
+        return docs, rb, dispatch_counts(metrics_module)
+
     reload_caches()
-    ref_docs, ref_rb = _run_side(case, "ref", {"tmp_path": dirs["ref"],
-                                               "monkeypatch": monkeypatch})
+    ref_docs, ref_rb, ref_counts = run("ref", ref_metrics)
     monkeypatch.undo()
     reload_caches()
-    port_docs, port_rb = _run_side(case, "port",
-                                   {"tmp_path": dirs["port"],
-                                    "monkeypatch": monkeypatch})
+    port_docs, port_rb, port_counts = run("port", port_metrics)
     monkeypatch.undo()
     reload_caches()
+    if dispatches:
+        assert port_counts == ref_counts
     hold_docs(ref_docs, port_docs)
     hold_services(ref_rb.services, port_rb.services)
 
@@ -746,7 +781,10 @@ def hold_services(ref_services: list, port_services: list) -> None:
 
 
 def close_all(rb: Rebinder) -> None:
-    """Stop every auditor and close every service a run made."""
+    """Stop every fleet collector and auditor and close every service a
+    run made."""
+    for c in rb.collectors:
+        c.stop()
     for a in rb.auditors:
         a.stop()
     for svc in rb.services:
@@ -755,7 +793,8 @@ def close_all(rb: Rebinder) -> None:
 
 # threads either package starts; the port's all carry the first prefix
 THREAD_PREFIXES = ("amtpu-torch-", "amtpu-flusher-", "amtpu-auditor",
-                   "amtpu-watchdog", "amtpu-chaos-")
+                   "amtpu-watchdog", "amtpu-chaos-",
+                   "amtpu-fleet-collector")
 
 
 def threads_settled(timeout: float = 10.0) -> list[str]:
@@ -795,20 +834,41 @@ def reload_caches() -> None:
 def hygiene_teardown() -> None:
     """Each new test file's autouse teardown: both flight recorders'
     hooks uninstalled, every package thread joined (none may outlive the
-    test), every cache re-read, and both packages' metrics and flight
-    recorder rings emptied, so a later test in the same worker finds them
+    test; a fleet collector's scrape thread included), every cache
+    re-read, both packages' metrics and flight recorder rings emptied,
+    and the port's perfscope kernel store (signatures and memory/cost
+    rows too) forgotten, so a later test in the same worker finds them
     as a fresh process would (the reference's cases run here record into
     the reference's planes too)."""
     from automerge_tpu.utils import flightrec as ref_flightrec
     from automerge_tpu.utils import metrics as ref_metrics
-    from automerge_tpu_torch.utils import flightrec, metrics
+    from automerge_tpu_torch.utils import flightrec, metrics, perfscope
     ref_flightrec.uninstall()
     flightrec.uninstall()
     alive = threads_settled()
     reload_caches()
     for mod in (ref_metrics, metrics, ref_flightrec, flightrec):
         mod.reset()
+    perfscope.reset_kernel_store()
     assert not alive, f"threads alive after the test: {alive}"
+
+
+class PortSubprocess:
+    """`subprocess` for a reference case on the port's side: a command
+    line that runs `-m automerge_tpu.perf` runs `-m automerge_tpu_torch.
+    perf` instead (an adapter: `adapters={subprocess: PortSubprocess()}`);
+    everything else is the real module."""
+
+    def __getattr__(self, name):
+        import subprocess
+        return getattr(subprocess, name)
+
+    def run(self, args, *a, **k):
+        import subprocess
+        if isinstance(args, (list, tuple)):
+            args = ["automerge_tpu_torch.perf" if x == "automerge_tpu.perf"
+                    else x for x in args]
+        return subprocess.run(args, *a, **k)
 
 
 def port_apply_batch(doc_changes, actors=None, device="cpu"):
