@@ -5,8 +5,9 @@ counterpart of `automerge_tpu/perf/`).
 bench-history gate (`report`, `check`), the contention report, the fleet
 doctor, the per-doc explainer, the live dashboard (`top`), the
 dispatch, tenant and trace planes, and the smokes (`remediate`, `move`,
-`bootstrap`, `race`, `megabatch`). The reference's `roofline` and
-`resident` probes are not ported yet (ROADMAP items 7(c) and 7(d)).
+`bootstrap`, `race`, `megabatch`), and the device probes `roofline` (the
+rows kernel's bandwidth) and `resident` (the round-frame ingress's
+stages).
 
 The runtime half of the plane (dispatch counters, kernel-build
 telemetry, phase attribution, memory gauges) lives in

@@ -1,6 +1,6 @@
 """CLI for the port's performance plane: `python -m automerge_tpu_torch.perf
 {report,check,contention,doctor,explain,top,dispatch,tenant,trace,
-remediate,move,bootstrap,race,megabatch}` (the reference's
+remediate,move,bootstrap,race,megabatch,roofline,resident}` (the reference's
 `automerge_tpu/perf/__main__.py`, on the port's modules).
 
 - `report` / `check` — the port's bench history
@@ -30,12 +30,15 @@ pass `--device cpu` on a machine without one) and ends with a line
 `perf launches: {...}`, the kernel launches it made
 (`engine/cuda_kernels.LAUNCHES`).
 
-`roofline` and `resident` are not ported yet: they belong to the port's
-bench (ROADMAP item 7(c)) and device measurement (7(d)); asking for them
-exits 2 with a message saying so.
+- `roofline` — the rows kernel's bandwidth on the card (B1's base body and
+  B2, the XL body) against the H100's HBM spec and its measured copy rate;
+  `--cpu-smoke` runs two tiny probes on the CPU. Writes
+  ROOFLINE_torch.json.
+- `resident` — the stage breakdown of `ResidentRowsDocSet.
+  apply_round_frames` (`--device`, default `cuda`).
 
 Exit codes: 0 = ok (including a gracefully skipped check), 1 = the
-regression gate tripped, 2 = usage error or a command not ported.
+regression gate tripped (or a probe failed), 2 = usage error.
 """
 
 from __future__ import annotations
@@ -199,11 +202,10 @@ LAZY = {
     # fused multi-doc round, byte-equal against the AMTPU_MEGABATCH=0
     # path, occupancy asserted
     "megabatch": ("megabatchplane", "smoke_main"),
-}
-#: the reference's subcommands that wait for later slices of the port
-NOT_PORTED = {
-    "roofline": "ROADMAP item 7(d), device measurement",
-    "resident": "ROADMAP item 7(c), the port's bench",
+    # the rows kernel's roofline probe (B1 base, B2 XL) on the card
+    "roofline": ("roofline", "main"),
+    # the stage breakdown of the round-frame ingress
+    "resident": ("resident", "main"),
 }
 #: commands whose run is a smoke (and so reports its kernel launches)
 SMOKES = ("remediate", "move", "bootstrap", "race", "megabatch")
@@ -237,15 +239,10 @@ def main(argv=None) -> int:
         if cmd in SMOKES or "--smoke" in rest:
             print(_launches_line())
         return rc
-    if cmd in NOT_PORTED:
-        print(f"perf {cmd}: not ported yet ({NOT_PORTED[cmd]})",
-              file=sys.stderr)
-        return 2
     print(f"unknown command {cmd!r}; expected one of "
           "report, check, contention, doctor, explain, top, dispatch, "
-          "tenant, trace, remediate, move, bootstrap, race, megabatch "
-          "(roofline and resident are not ported yet)",
-          file=sys.stderr)
+          "tenant, trace, remediate, move, bootstrap, race, megabatch, "
+          "roofline, resident", file=sys.stderr)
     return 2
 
 

@@ -19,7 +19,10 @@ compact row wires and the mesh (`pack.apply_rows_hash_compact`,
 `parallel.collective.global_clock_union`, `parallel.multihost`), and the
 perf planes (`utils.metrics.dispatch_jit`'s counters, `perf.dispatchplane`,
 `perf.tenantplane`, `perf.doctor`, `perf.explain`, `perf.top`, and the
-smokes of `python -m automerge_tpu_torch.perf`). Ingress
+smokes of `python -m automerge_tpu_torch.perf`), and the device probes,
+the quarantined dense reconcile and the static analysis
+(`perf.roofline`, `perf.resident`, `engine.experimental_dense`,
+`python -m automerge_tpu_torch.analysis`). Ingress
 runs the native C++ encoder, built with g++ at first use, unless a line says
 native=False.
 
@@ -126,7 +129,7 @@ Phases:
      linearize kernel once;
  11. rows-engine durability on the long-lived fleet of the reference's
      bench config 15 (1,024 docs, 4 writers, 64 overwritten fields; the
-     depth cut from 10,000 changes a doc to 1,536): 6 micro-batches of
+     depth cut from 10,000 changes a doc to 1,024): 4 micro-batches of
      256 round frames through apply_round_frames under the sync service's
      rule (on RowsBudgetError compact every doc to its causal floor and
      retry once), each followed by the horizon pass (archive_log_prefix
@@ -177,7 +180,7 @@ Phases:
      apply_columns_async) in epoch and locked mode: admission ops/s, the
      service-lock wait, the commit wait, rounds (the `writers` line); the
      first and last doc of each writer equal to apply_batch of its log;
-     (c) bench config 5's docset fleet, cut to its first 2,000 docs and 4
+     (c) bench config 5's docset fleet, cut to its first 1,000 docs and 4
      rounds, written round by round into a rows hub and gossiped over
      Connection(wire="columnar") through in-process queues to an
      EngineDocSet(backend="resident", live_views=True): the gossip wall
@@ -257,7 +260,32 @@ Phases:
      automerge_tpu_torch.perf <cmd> --smoke` (dispatch, tenant, trace,
      remediate, move, bootstrap, race, megabatch) in a subprocess on the
      card, each to exit 0, its wall and the launches it reports (its last
-     line). The kernels line adds (a)'s launches and (b)'s.
+     line); all but race run side by side, race alone after them, since
+     it bounds a wall-clock overhead. The kernels line adds (a)'s launches and (b)'s;
+ 17. the probes, the dense path and the analysis on the card: (a) `perf
+     roofline`'s three probes at the reference's sizes (bench config 5's
+     10,000 docs on B1's base body, config 2's trellis x 2,048 on the base
+     body and, on the same batch, forced onto the XL body): 8 chained
+     passes a probe, each pass's hash fed back into the buffer on the
+     card, timed as a CUDA graph with the L2 flushed before each pass
+     (every buffer here fits the 50 MB L2), ms a pass, GB/s against the
+     3,350 GB/s spec and the card's copy rate measured in the same run,
+     each chain's final hash equal to the same chain on the plain version;
+     (b) `perf resident` at the reference's defaults (2,000 docs, 12
+     rounds x 4 micro-batches, 20% dirty): the stage breakdown of
+     apply_round_frames with `_encode_rounds_batched` timed under
+     encode_admit and the collection each call defers to its exit under
+     gc, `accounted` within RESIDENT_GAP (10%) of the round's
+     wall, the hashes equal to a fresh apply_rounds of the same changes;
+     (c) the quarantined `experimental_dense.reconcile_dense` opted in with
+     AMTPU_ALLOW_DENSE_ON_DEVICE=1 on bench configs 1 and 2 and config 5's
+     10,000-doc fleet (initial changes and 12 rounds; cut to DENSE_BUDGET
+     if it were over), both list orders: every output key equal to
+     apply_doc on the card and to its own CPU run, its wall beside
+     apply_doc's; without the variable the call raises; (d) `python -m
+     automerge_tpu_torch.analysis` exits 0 on the checkout. The kernels
+     line adds (a)'s and (b)'s B1 launches, (a)'s B2 and (c)'s linearize
+     launches.
 Then the kernel timings (each kernel's launches timed three ways:
 `kernel_ms` from CUDA events around a host loop of launches, the host's
 `enqueue_ms` per launch in that loop, and `graph_ms` from a replay of the
@@ -1917,12 +1945,13 @@ def drive_diff_plane(torch, dev, fleets):
 
 # Phase 11's long-lived fleet: bench config 15's corpus (1,024 docs, 4
 # writers, 64 fields) with its depth cut from 10,000 changes a doc to
-# LONG_ROUNDS x LONG_PER_ROUND (10 rounds until phase 14 came; 6 keep the
-# whole run inside its time limit on a slower host), delivered as
+# LONG_ROUNDS x LONG_PER_ROUND (10 rounds until phase 14 came, 6 until
+# phase 17 came; 4 keep the whole run well inside its time limit on a
+# slower host, and the last two rounds still compact), delivered as
 # micro-batches of round frames (one change a doc a frame); the snapshot
 # covers all but the last LONG_TAIL changes of each doc.
 LONG_DOCS = 1024
-LONG_ROUNDS = 6
+LONG_ROUNDS = 4
 LONG_PER_ROUND = 256
 LONG_TAIL = 50
 
@@ -2605,9 +2634,10 @@ def drive_api(torch, dev, report, text_ds, docs_ds, long_keep):
 # Phase 13 (c) holds the first LIVE_DOCS docs of the docset fleet and its
 # first LIVE_ROUNDS rounds: each message the live node receives runs one
 # docs-major apply over its whole fleet, so the gossip costs grow with the
-# square of the fleet (at 2,000 docs a round takes seconds, and all 12
-# rounds ran past the phase's time budget).
-LIVE_DOCS = 2_000
+# square of the fleet (at 2,000 docs a round took 10-18 s, and all 12
+# rounds ran past the phase's time budget; 1,000 since phase 17 came, to
+# keep the whole run well inside its time limit).
+LIVE_DOCS = 1_000
 LIVE_ROUNDS = 4
 # The live node's views compared with the hub's materialize.
 LIVE_SAMPLE = 64
@@ -4224,20 +4254,55 @@ def drive_perf_smokes(dev) -> dict:
     """Phase 16 (b): each smoke of `python -m automerge_tpu_torch.perf` in
     a subprocess on the card. Returns the launches they made, summed by
     counter."""
+    import tempfile
+
     repo = Path(__file__).resolve().parent
     env = dict(os.environ, PYTHONPATH=str(repo))
+    done: dict = {}
+
+    def run(cmds):
+        """Start `cmds` side by side; each one's (rc, stdout, stderr,
+        wall) into `done`. Every process is ended before this returns."""
+        procs = {}
+        try:
+            for cmd in cmds:
+                out, err = tempfile.TemporaryFile(), tempfile.TemporaryFile()
+                procs[cmd] = (subprocess.Popen(
+                    [sys.executable, "-m", "automerge_tpu_torch.perf", cmd,
+                     "--smoke", "--device", str(dev)],
+                    cwd=repo, env=env, stdout=out, stderr=err), out, err,
+                    time.perf_counter())
+            while any(c not in done for c in procs):
+                for cmd, (p, out, err, t0) in procs.items():
+                    if cmd in done:
+                        continue
+                    if p.poll() is None:
+                        check(time.perf_counter() - t0 < 300,
+                              f"phase 16 (b): perf {cmd} --smoke ran past "
+                              f"300 s")
+                        continue
+                    out.seek(0)
+                    err.seek(0)
+                    done[cmd] = (p.returncode, out.read().decode(),
+                                 err.read().decode(),
+                                 time.perf_counter() - t0)
+                time.sleep(0.05)
+        finally:
+            for p, out, err, _ in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+                out.close()
+                err.close()
+
+    run([c for c in PERF_SMOKES if c != "race"])
+    run(["race"])
     total: dict = {}
     for cmd in PERF_SMOKES:
-        t0 = time.perf_counter()
-        p = subprocess.run(
-            [sys.executable, "-m", "automerge_tpu_torch.perf", cmd,
-             "--smoke", "--device", str(dev)],
-            cwd=repo, env=env, capture_output=True, text=True, timeout=300)
-        wall = time.perf_counter() - t0
-        check(p.returncode == 0,
-              f"phase 16 (b): perf {cmd} --smoke exited {p.returncode}:\n"
-              f"{p.stdout[-3000:]}\n{p.stderr[-3000:]}")
-        lines = p.stdout.strip().splitlines()
+        rc, stdout, stderr, wall = done[cmd]
+        check(rc == 0, f"phase 16 (b): perf {cmd} --smoke exited {rc}:\n"
+              f"{stdout[-3000:]}\n{stderr[-3000:]}")
+        lines = stdout.strip().splitlines()
         check(lines and lines[-1].startswith("perf launches: "),
               f"phase 16 (b): perf {cmd} --smoke printed no launches")
         launches = json.loads(lines[-1][len("perf launches: "):])
@@ -4261,6 +4326,213 @@ def drive_planes(torch, dev, map_final) -> dict:
     check(launches.get("resolve_moves", 0) >= 1,
           "phase 16 (b): the move smoke did not launch the move kernel")
     print(f"phase 16: launches {launches}; phase 16 took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: the roofline and resident-stage probes, the quarantined dense
+# reconcile, and the static analysis
+
+#: the roofline's probes: bench config 5's docs (base body) and config 2's
+#: trellis docs (base body, then the XL body on the same batch), and the
+#: chained passes a probe times
+ROOFLINE_DOCS = 10_000
+ROOFLINE_XL_DOCS = 2048
+ROOFLINE_PASSES = 8
+#: the largest share of a resident round's wall its stages may leave out
+RESIDENT_GAP = 0.10
+#: bench config 5's fleet for the dense path, cut to DENSE_BUDGET if need be
+DENSE_FLEET_DOCS = 10_000
+
+
+def drive_roofline(torch, dev) -> dict:
+    """Phase 17 (a): `perf roofline`'s three probes at the reference's
+    sizes on the card, each chain's final hash held to the same chain on
+    the plain version. Returns the reconcile kernel's launches."""
+    from automerge_tpu_torch.perf import roofline
+    copy = roofline.copy_rate(dev)
+    print(f"phase 17: (a) measured copy rate {copy:.1f} GB/s (a "
+          f"{roofline.COPY_BYTES} B device-to-device copy_, read + "
+          f"written), spec {roofline.HBM_PEAK_GB} GB/s [{card()}]")
+    zero_counts(RECONCILE_COUNTERS)
+    probes = roofline.probes(ROOFLINE_DOCS, ROOFLINE_XL_DOCS,
+                             ROOFLINE_PASSES, dev, copy)
+    counts = read_counts(torch, RECONCILE_COUNTERS)
+    for p in probes:
+        check("skipped" not in p, f"phase 17 (a): {p['probe']} skipped: "
+              f"{p.get('skipped')}")
+        print(f"phase 17: (a) {roofline.probe_line(p)[2:]}; "
+              f"{p['plain_s_per_pass'] * 1e3:.3f} ms a plain pass "
+              f"[{card()}]")
+        check(p["chain_equal"], f"phase 17 (a): {p['probe']}'s chain hash "
+              f"{p['chain_hash']} != the plain chain's "
+              f"{p['plain_chain_hash']}")
+    check(counts["reconcile_rows_hash_xl"] > 0,
+          "phase 17 (a): the XL probe launched no XL body")
+    print(f"phase 17: (a) launches {counts}")
+    return counts
+
+
+def drive_resident_stages(torch, dev) -> int:
+    """Phase 17 (b): `perf resident` at the reference's defaults (2,000
+    docs, 12 rounds x 4 micro-batches after a warm-up one, 20% dirty), its
+    hashes held to a fresh apply_rounds of the same changes and its stages
+    to the round's wall. Returns the reconcile kernel's launches."""
+    import numpy as np
+    from automerge_tpu_torch.engine.resident_rows import ResidentRowsDocSet
+    from automerge_tpu_torch.perf import resident
+    t0 = time.perf_counter()
+    work = resident.build()
+    built = time.perf_counter() - t0
+    zero_counts(RECONCILE_COUNTERS)
+    out = resident.run(device=dev, workload=work)
+    b1 = read_counts(torch, RECONCILE_COUNTERS)["reconcile_rows_hash"]
+    fresh = ResidentRowsDocSet(work.doc_ids, device=dev)
+    want = fresh.apply_rounds(
+        [dict(zip(work.doc_ids, work.doc_changes))] + work.rounds)[-1]
+    check(np.array_equal(out["hashes"], want),
+          "phase 17 (b): the stage run's hashes != a fresh apply_rounds "
+          "of the same changes")
+    total, accounted = out["total_ms_per_round"], out["accounted"]
+    gap = total - accounted
+    stages = "; ".join(f"{k} {v:.3f}"
+                       for k, v in out["stages_ms_per_round"].items())
+    rest = out["unaccounted_ms_per_round"]
+    print(f"phase 17: (b) perf resident, {out['docs']} docs, "
+          f"{out['rounds']} rounds in {out['batches']} micro-batches: "
+          f"{total:.3f} ms a round, accounted {accounted:.3f} ms "
+          f"({100 * accounted / total:.1f}%; unaccounted {gap:.3f} ms: "
+          f"{rest['inside_apply_round_frames']:.3f} inside "
+          f"apply_round_frames outside its stages, "
+          f"{rest['between_calls']:.3f} between the calls); ms a round: "
+          f"{stages}; B1 launches {b1}; workload built in {built:.1f} s; "
+          f"hashes equal to a fresh apply_rounds [{card()}]")
+    check(gap <= RESIDENT_GAP * total,
+          f"phase 17 (b): the stages leave {gap:.3f} of {total:.3f} ms a "
+          f"round unaccounted (more than {RESIDENT_GAP:.0%})")
+    return b1
+
+
+def dense_fleet() -> list:
+    """Bench config 5's docset fleet (initial changes and 12 rounds), cut
+    to the most docs dense_cost admits under DENSE_BUDGET."""
+    from automerge_tpu_torch import workloads
+    from automerge_tpu_torch.engine import experimental_dense as xd
+    ids, initial, rounds = workloads.docset_fleet(DENSE_FLEET_DOCS)
+    dc = [initial[d] + [c for r in rounds for c in r.get(d, [])]
+          for d in ids]
+    batch, mf = stacked(dc)
+    cost = xd.dense_cost(batch, mf)
+    if cost > xd.DENSE_BUDGET:
+        dc = dc[:len(dc) * xd.DENSE_BUDGET // cost]
+    return dc
+
+
+def drive_dense(torch, dev) -> int:
+    """Phase 17 (c): the quarantined dense reconcile on the card, opted in
+    with AMTPU_ALLOW_DENSE_ON_DEVICE=1 as the reference's hardware-
+    validation session would: bench configs 1 and 2 and the largest docset
+    fleet slice under DENSE_BUDGET, both list orders, every output key held
+    to apply_doc on the card and to the dense path on the CPU; without the
+    variable the same call raises. Returns the linearize kernel's launches
+    of the dense calls."""
+    import numpy as np
+    from automerge_tpu_torch import workloads
+    from automerge_tpu_torch.engine import experimental_dense as xd
+    from automerge_tpu_torch.engine.kernels import apply_doc
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    saved = os.environ.pop(xd.ALLOW_ENV, None)
+    lin = 0
+    try:
+        cases = (("config 1 lww_storm", workloads.lww_storm()),
+                 ("config 2 trellis", workloads.trellis()),
+                 ("config 5 docset fleet", dense_fleet()))
+        for name, dc in cases:
+            batch, mf = stacked(dc)
+            cost = xd.dense_cost(batch, mf)
+            check(cost <= xd.DENSE_BUDGET,
+                  f"phase 17 (c): {name} over DENSE_BUDGET ({cost})")
+            card_batch = {k: torch.from_numpy(v).to(dev)
+                          for k, v in batch.items()}
+            os.environ.pop(xd.ALLOW_ENV, None)
+            try:
+                xd.reconcile_dense(card_batch, mf)
+                check(False, "phase 17 (c): the dense path ran on the card "
+                      "without AMTPU_ALLOW_DENSE_ON_DEVICE")
+            except NotImplementedError as e:
+                check("quarantined" in str(e), f"phase 17 (c): {e}")
+            os.environ[xd.ALLOW_ENV] = "1"
+            for host_order in (True, False):
+                zero_counts(["linearize"])
+                xd.reconcile_dense(card_batch, mf, host_order)
+                got, dense_s = wall(
+                    lambda: xd.reconcile_dense(card_batch, mf, host_order))
+                lin += read_counts(torch, ["linearize"])["linearize"]
+                apply_doc(card_batch, mf, host_order)
+                want, ref_s = wall(
+                    lambda: apply_doc(card_batch, mf, host_order))
+                cpu = xd.reconcile_dense(batch, mf, host_order, device="cpu")
+                check(set(got) == set(want) == set(cpu),
+                      f"phase 17 (c): {name}: output keys differ")
+                for k in want:
+                    g = got[k].cpu().numpy()
+                    check(np.array_equal(g, want[k].cpu().numpy())
+                          and np.array_equal(g, cpu[k].numpy()),
+                          f"phase 17 (c): {name} host_order={host_order}: "
+                          f"{k} differs from apply_doc or the CPU run")
+                print(f"phase 17: (c) {name}, {len(dc)} docs (dense cost "
+                      f"{cost} elements of {xd.DENSE_BUDGET}), host_order="
+                      f"{host_order}: reconcile_dense {dense_s * 1e3:.3f} "
+                      f"ms, apply_doc {ref_s * 1e3:.3f} ms on the card; "
+                      f"every key equal to apply_doc and to the CPU run "
+                      f"[{card()}]")
+    finally:
+        os.environ.pop(xd.ALLOW_ENV, None)
+        if saved is not None:
+            os.environ[xd.ALLOW_ENV] = saved
+    check(lin > 0, "phase 17 (c): host_order=False launched no linearize")
+    print(f"phase 17: (c) launches linearize {lin}; without "
+          f"{xd.ALLOW_ENV} every call raised NotImplementedError "
+          f"(quarantined)")
+    return lin
+
+
+def drive_analysis() -> None:
+    """Phase 17 (d): `python -m automerge_tpu_torch.analysis` on the
+    checkout exits 0."""
+    repo = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(repo))
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "automerge_tpu_torch.analysis"],
+                       cwd=repo, env=env, capture_output=True, text=True,
+                       timeout=300)
+    check(p.returncode == 0,
+          f"phase 17 (d): the analysis exited {p.returncode}:\n"
+          f"{p.stdout[-3000:]}\n{p.stderr[-3000:]}")
+    print(f"phase 17: (d) python -m automerge_tpu_torch.analysis: exit 0 in "
+          f"{time.perf_counter() - t0:.1f} s; "
+          f"{p.stdout.strip().splitlines()[-1]}")
+
+
+def drive_probes(torch, dev) -> dict:
+    """Phase 17. Returns its launches by kernel counter."""
+    t_phase = time.perf_counter()
+    roof = drive_roofline(torch, dev)
+    b1 = drive_resident_stages(torch, dev)
+    lin = drive_dense(torch, dev)
+    drive_analysis()
+    launches = {"reconcile_rows_hash": roof["reconcile_rows_hash"] + b1,
+                "reconcile_rows_hash_xl": roof["reconcile_rows_hash_xl"],
+                "linearize": lin}
+    print(f"phase 17: launches {launches}; phase 17 took "
           f"{time.perf_counter() - t_phase:.1f} s")
     return launches
 
@@ -4329,6 +4601,7 @@ def main() -> int:
     fleet_b1 = drive_fleet_and_tcp(torch, dev, report, map_rounds)
     wire = drive_wires_and_mesh(torch, dev, report)
     planes = drive_planes(torch, dev, map_final)
+    probes = drive_probes(torch, dev)
 
     rows_times = time_kernel(torch, map_ds, "map storm")
     time_kernel(torch, text_ds, "text fleet")
@@ -4356,20 +4629,23 @@ def main() -> int:
           f"the wires and the mesh: reconcile_rows_hash {wire['b1']} (base "
           f"body) + {wire['b2']} (XL body), dominated {wire['dominated']}, "
           f"linearize {wire['linearize']} (phase 15); the perf planes: "
-          f"{planes} (phase 16)")
+          f"{planes} (phase 16); the probes and the dense path: {probes} "
+          f"(phase 17)")
     print(json.dumps({"kernels": [
         kernel_entry("reconcile_rows_hash",
                      "automerge_tpu_torch/csrc/reconcile_rows.cu",
                      "automerge_tpu/engine/pallas_kernels.py:499",
                      map_launches + text_launches + long_launches
                      + svc_b1 + fleet_b1 + wire["b1"]
-                     + planes["reconcile_rows_hash"],
+                     + planes["reconcile_rows_hash"]
+                     + probes["reconcile_rows_hash"],
                      report["reconcile_rows_hash"], rows_times),
         kernel_entry("reconcile_rows_hash_xl",
                      "automerge_tpu_torch/csrc/reconcile_rows.cu",
                      "automerge_tpu/engine/pallas_kernels.py:499 (XL body "
                      "_make_reconcile_kernel_xl)",
-                     wire["b2"] + planes.get("reconcile_rows_hash_xl", 0),
+                     wire["b2"] + planes.get("reconcile_rows_hash_xl", 0)
+                     + probes["reconcile_rows_hash_xl"],
                      report["reconcile_rows_hash_xl"],
                      wire["xl_times"]),
         kernel_entry("span_rank_hash",
@@ -4395,7 +4671,7 @@ def main() -> int:
                      "automerge_tpu/engine/kernels.py:102-137 (plain XLA, "
                      "no Pallas kernel)",
                      lin9 + lin10 + api_lin + svc_lin + wire["linearize"]
-                     + planes.get("linearize", 0),
+                     + planes.get("linearize", 0) + probes["linearize"],
                      report["linearize"], lin_times)],
         "mega": mega.as_dict()}))
     print(f"total {time.perf_counter() - t_all:.1f} s")

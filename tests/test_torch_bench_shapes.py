@@ -8,8 +8,8 @@ wire, its widen and the wide-path cross-check on configs 2-5, and config
 are bound to the port's on `device="cpu"` through adapters that take
 numpy and return np.uint32 hashes, and the bench's reference changes
 reach the port's encoder and `apply_batch` through their wire dicts.
-Left out: `test_dense_kernel_parity_on_bench_shapes`, because
-`experimental_dense` is not ported (Queue A item 8).
+`test_dense_kernel_parity_on_bench_shapes` holds the port's quarantined
+dense reconcile to its `apply_doc` on configs 1 and 2, both on the CPU.
 
 Then the port's own generators of configs 1-4 (`workloads.BENCH_CONFIGS`,
 the ones `chip_smoke.py` drives on the card) give the bench's changes,
@@ -27,11 +27,15 @@ from torch_twin_helpers import (collect, counter_factory, hygiene_teardown,
 
 from automerge_tpu.engine import batchdoc as ref_batchdoc
 from automerge_tpu.engine import encode as ref_encode
+from automerge_tpu.engine import experimental_dense as ref_xd
+from automerge_tpu.engine import kernels as ref_kernels
 from automerge_tpu.engine import pack as ref_pack
 from automerge_tpu.utils import uuid as ref_uuid
 
 from automerge_tpu_torch import workloads
 from automerge_tpu_torch.engine import batchdoc, encode, pack
+from automerge_tpu_torch.engine import experimental_dense as xd
+from automerge_tpu_torch.engine import kernels
 from automerge_tpu_torch.engine.cuda_kernels import hashes_to_numpy
 from automerge_tpu_torch.utils import uuid as port_uuid
 
@@ -60,17 +64,41 @@ def _apply_rows_hash_bytes(wire, bmeta, dims, interpret=False):
 
 _apply_rows_hash_bytes.__wrapped__ = _apply_rows_hash_bytes
 
+
+def _tensors(batch):
+    return {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
+
+
+class _Kernels:
+    """The port's `kernels` module as the reference's test calls it: a
+    numpy batch, reconciled on the CPU."""
+
+    @staticmethod
+    def apply_doc(batch, max_fids, host_order=False):
+        return kernels.apply_doc(_tensors(batch), max_fids, host_order)
+
+
+class _Dense:
+    """The port's `experimental_dense` on the CPU (a numpy batch would
+    otherwise go to the card, where the module is quarantined)."""
+    DENSE_BUDGET = xd.DENSE_BUDGET
+    dense_cost = staticmethod(xd.dense_cost)
+
+    @staticmethod
+    def reconcile_dense(batch, max_fids, host_order=False):
+        return xd.reconcile_dense(batch, max_fids, host_order, device="cpu")
+
+
 ADAPTERS = {
+    ref_kernels: _Kernels,
+    ref_xd: _Dense,
     ref_encode.encode_doc: _encode_doc,
     ref_batchdoc.apply_batch: _apply_batch,
     ref_pack.apply_rows_hash: _apply_rows_hash,
     ref_pack.apply_rows_hash_bytes: _apply_rows_hash_bytes,
 }
 
-CASES = collect("test_bench_shapes_interpret", exclude={
-    "test_dense_kernel_parity_on_bench_shapes":
-        "experimental_dense is not ported (Queue A item 8)",
-}, adapters=ADAPTERS)
+CASES = collect("test_bench_shapes_interpret", adapters=ADAPTERS)
 
 
 @pytest.fixture(autouse=True)

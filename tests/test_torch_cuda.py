@@ -891,3 +891,36 @@ def test_mesh_on_the_card_equals_the_unsharded_engine(cuda_device, shards):
     union = global_clock_union(clocks.to(cuda_device), mesh)
     assert union.device.type == "cuda"
     assert union.tolist() == clocks.amax(0).tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("host_order", [True, False])
+def test_dense_on_the_card_equals_apply_doc(cuda_device, host_order,
+                                            monkeypatch):
+    """The quarantined dense reconcile, opted in, on bench config 5's
+    docset fleet (300 docs and 3 rounds): every output key equal to
+    apply_doc's on the card and to its own run on the CPU; without the
+    variable the same call raises."""
+    from automerge_tpu_torch.engine import experimental_dense as xd
+    from automerge_tpu_torch.engine.encode import encode_doc, stack_docs
+    from automerge_tpu_torch.workloads import docset_fleet
+    ids, initial, rounds = docset_fleet(n_docs=300, rounds=3)
+    dc = [initial[d] + [c for r in rounds for c in r.get(d, [])]
+          for d in ids]
+    actors = sorted({c.actor for chs in dc for c in chs})
+    batch = stack_docs([encode_doc(chs, actors) for chs in dc])
+    mf = int(batch.pop("max_fids"))
+    card = {k: torch.from_numpy(v).to(cuda_device) for k, v in batch.items()}
+    monkeypatch.delenv(xd.ALLOW_ENV, raising=False)
+    with pytest.raises(NotImplementedError, match="quarantined"):
+        xd.reconcile_dense(card, mf, host_order)
+    monkeypatch.setenv(xd.ALLOW_ENV, "1")
+    got = xd.reconcile_dense(card, mf, host_order)
+    want = apply_doc(card, mf, host_order)
+    cpu = xd.reconcile_dense(batch, mf, host_order, device="cpu")
+    assert got["hash"].device.type == "cuda"
+    for k in want:
+        np.testing.assert_array_equal(got[k].cpu().numpy(),
+                                      want[k].cpu().numpy(), err_msg=k)
+        np.testing.assert_array_equal(got[k].cpu().numpy(),
+                                      cpu[k].numpy(), err_msg=k)

@@ -46,7 +46,12 @@ def test_every_module_imports_with_jax_and_reference_blocked():
               "perf.doctor", "perf.explain", "perf.top",
               "perf.dispatchplane", "perf.tenantplane", "perf.traceplane",
               "perf.remediate", "perf.moveplane", "perf.bootstrap",
-              "perf.raceplane", "perf.megabatchplane"):
+              "perf.raceplane", "perf.megabatchplane", "perf.roofline",
+              "perf.resident", "engine.experimental_dense", "analysis",
+              "analysis.__main__", "analysis.core", "analysis.flow",
+              "analysis.hierarchy_doc", "analysis.jit_hygiene",
+              "analysis.lock_discipline", "analysis.races",
+              "analysis.registry", "analysis.threadmap"):
         assert f"automerge_tpu_torch.{m}" in mods, m
     code = "\n".join([
         "import importlib, sys",
@@ -132,6 +137,18 @@ def test_every_module_imports_with_jax_and_reference_blocked():
     assert out.stdout.strip() == "ok"
 
 
+def test_every_reference_module_has_a_counterpart():
+    """Each .py file of the JAX package has one of the same path in the
+    port, but engine/pallas_kernels.py, whose counterpart is
+    engine/cuda_kernels.py."""
+    ref = REPO / "automerge_tpu"
+    port = Path(automerge_tpu_torch.__file__).parent
+    twins = {"engine/pallas_kernels.py": "engine/cuda_kernels.py"}
+    for path in sorted(ref.rglob("*.py")):
+        rel = path.relative_to(ref).as_posix()
+        assert (port / twins.get(rel, rel)).is_file(), rel
+
+
 def test_no_source_mentions_the_reference_or_jax():
     for path in Path(automerge_tpu_torch.__file__).parent.rglob("*.py"):
         for line in path.read_text().splitlines():
@@ -203,6 +220,10 @@ def test_perf_smokes_default_to_the_card():
     calls += [lambda c=c: perf_main.main([c, "--smoke"]) for c in (
         "dispatch", "tenant", "trace", "remediate", "move", "bootstrap",
         "race", "megabatch")]
+    # the device probes, too
+    from automerge_tpu_torch.perf import resident, roofline
+    calls += [resident.run, lambda: resident.main([]),
+              lambda: roofline.probe("p", [], False, 1)]
     env = dict(os.environ)
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -8,11 +8,8 @@ reason: `test_lazy_subcommands_route_with_rest_argv` imports each plane
 by the string `automerge_tpu.perf.<module>`, which the twin cannot
 rebind; `test_lazy_subcommands_route_on_both_packages` below runs its
 table on both packages by each package's own module path, for every
-lazily routed subcommand of the reference's CLI but `roofline` and
-`resident`. Those two belong to later slices of the port (its bench and
-device measurement): the port's CLI names them, refuses them with exit
-code 2 and says so (`test_unported_subcommands_exit_nonzero`).
-Tolerance: exact.
+lazily routed subcommand of the reference's CLI, `roofline` and
+`resident` included. Tolerance: exact.
 """
 
 import importlib
@@ -39,6 +36,8 @@ ROUTES = [
     ("bootstrap", "bootstrap", "smoke_main"),
     ("race", "raceplane", "smoke_main"),
     ("megabatch", "megabatchplane", "smoke_main"),
+    ("roofline", "roofline", "main"),
+    ("resident", "resident", "main"),
 ]
 
 
@@ -69,10 +68,3 @@ def test_lazy_subcommands_route_on_both_packages(monkeypatch, package, cmd,
     assert main([cmd, "--flag", "v"]) == 0
     assert calls == [["--flag", "v"]]
 
-
-@pytest.mark.parametrize("cmd", ["roofline", "resident"])
-def test_unported_subcommands_exit_nonzero(cmd, capsys):
-    from automerge_tpu_torch.perf.__main__ import main
-    assert main([cmd]) == 2
-    err = capsys.readouterr().err
-    assert f"perf {cmd}: not ported yet" in err and "ROADMAP item 7(" in err
