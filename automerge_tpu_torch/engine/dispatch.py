@@ -9,9 +9,12 @@ shapes on both routes (numpy arrays on the host route, tensors on the
 device route; `result_to_numpy` gives the numpy schema).
 
 The rows engine's planner (`plan_round`, `apply_round_adaptive`) prices
-the megabatch route, the dirty lanes of a minority hash read reconciled in
-a few fused launches at smaller bucket dims, against the narrow gather the
-engine does otherwise, and runs the route where it is not dearer.
+the megabatch route, a set of dirty lanes reconciled in a few fused
+launches at smaller bucket dims, against what the engine does otherwise:
+the narrow gather of a minority hash read, or, for an eager round frame
+micro-batch, the classic frame dispatch (one scatter and one reconcile of
+the whole resident buffer, then its readback); it runs the route where it
+is not dearer.
 
 The batch route (`plan_batch`, `plan_for`, `apply_batch_adaptive`) prices a
 from-scratch DocSet batch: on the device, batchdoc.apply_batch (the B5
@@ -62,6 +65,10 @@ _LINK = {
                                      # lanes of the host mirror, bytes out
     "mega_fixed_s": 4.4542e-04,      # megabatch route's host work (bucket
     "mega_doc_s": 6.5875e-07,        # planning, bookkeeping) and a doc's
+    "d2h_bytes_per_s": 1.2084e10,    # device->host rate of a hash
+                                     # readback (hashes_to_numpy), 256 KiB
+                                     # -> 4 MiB, phase 8's "link" line on
+                                     # an H100 80GB HBM3 at 700.00 W
     # the batch route's host legs (chip_smoke.measure_batch_constants,
     # phase 12 (f), its "batch_link" line, same card and host)
     "host_op_s": 8.6586e-06,         # apply_host: no-diff interpretive
@@ -363,21 +370,28 @@ def resolve_moves_adaptive(packed: dict, device="cuda"):
 
 
 # ---------------------------------------------------------------------------
-# Megabatch round planning: the dirty lanes of a rows-engine hash read
+# Megabatch round planning: a set of dirty lanes of the rows engine
 # reconciled in at most pack.MEGA_MAX_BUCKETS fused launches, each at its
-# bucket's dims (pack.plan_megabuckets). plan_round prices the route
-# against the narrow gather the engine does otherwise, with this card's
-# constants; apply_round_adaptive runs it. The reference also routes
-# round frames (its megabatch intent); the port does not: on this card
-# one reconcile of the whole resident buffer (0.12 ms for the map
-# storm's 209 MB on an H100) costs less than the route's host work.
+# bucket's dims (pack.plan_megabuckets). plan_round prices the route with
+# this card's constants against what its caller does otherwise: the narrow
+# gather of a minority hash read, or the classic dispatch of an eager round
+# frame micro-batch (the reference's frame intent); apply_round_adaptive
+# runs it. On this card the classic frame dispatch, one reconcile of the
+# whole resident buffer (0.12 ms for the map storm's 209 MB on an H100,
+# 1.2 ms for 2.07 GB at 100,000 docs), costs less than the route's host
+# work (about 1.2 ms at the storm's ~1,000 dirty docs a round) up to a
+# buffer past 2 GB, so a frame round takes the route only on a larger
+# fleet or a smaller round.
 #
 # The port keeps the device copy of the row buffer resident: where it is
 # current, a bucket is gathered from it on the device (one index upload for
 # every bucket, a gather and a reconcile launch per bucket); only where it
-# is stale (after growth, under lazy dispatch) does a bucket come from the
-# host mirror, uploaded, as the reference gathers every bucket. Either way
-# all buckets' hashes come back in one readback.
+# is stale (after growth, under lazy dispatch) does a read's bucket come
+# from the host mirror, uploaded, as the reference gathers every bucket. A
+# frame round makes a stale copy current before either route (the upload
+# the classic dispatch does), so its buckets always come from the device
+# and the next round scatters. Either way all buckets' hashes come back in
+# one readback.
 
 _megabatch: bool | None = None
 _megabatch_min: int | None = None
@@ -434,12 +448,26 @@ def _resident(rset) -> bool:
     return rset.rows_dev is not None and not rset._dirty
 
 
-def plan_round(rset, idxs) -> RoundPlan:
-    """Route the dirty docs `idxs` of a ResidentRowsDocSet's hash read
-    (a minority of the fleet): bucket their used sizes and price the fused
-    bucketed launches against the narrow gather. Returns a RoundPlan whose
-    buckets apply_round_adaptive runs. Never plans with AMTPU_MEGABATCH=0
-    or below the doc floor.
+def _frame_legs_s(rset, frame_trips: int) -> float:
+    """The legs a frame round pays on either route: a stale device copy
+    re-uploaded from the host mirror, which already holds the batch, else
+    the batch's deduplicated triplets uploaded (int64 [P, 3]) and
+    scattered (one launch)."""
+    if not _resident(rset):
+        return _upload_s(rset.rows_host.nbytes)
+    if not frame_trips:
+        return 0.0
+    return _upload_s(frame_trips * 24) + _LINK["launch_s"]
+
+
+def plan_round(rset, idxs, frame_trips: int | None = None) -> RoundPlan:
+    """Route the dirty docs `idxs` of a ResidentRowsDocSet: bucket their
+    used sizes and price the fused bucketed launches against the caller's
+    alternative. `frame_trips` names the caller: None for a minority hash
+    read, else an eager round frame micro-batch with that many
+    deduplicated scatter triplets. Returns a RoundPlan whose buckets
+    apply_round_adaptive runs. Never plans with AMTPU_MEGABATCH=0 or below
+    the doc floor.
 
     Estimates, from _LINK:
     - the route: its host work (mega_fixed_s, and mega_doc_s a doc: the
@@ -449,9 +477,16 @@ def plan_round(rset, idxs) -> RoundPlan:
       then read; from a stale copy: the host gather and its upload, one
       launch); one upload of every bucket's indices when the copy is
       resident; one readback;
-    - the alternative: the narrow lane gather at full dims from the host
-      mirror, its upload, one reconcile and one readback
-      (_reconcile_lanes).
+    - a read's alternative: the narrow lane gather at full dims from the
+      host mirror, its upload, one reconcile and one readback
+      (_reconcile_lanes);
+    - a frame's alternative: the classic frame dispatch, one reconcile of
+      the whole buffer and the readback of every lane's hash that the
+      next hashes() pays. Both sides of a frame pay the legs that bring
+      the copy up to date (_frame_legs_s: the re-upload of a stale copy,
+      or the triplets' upload and scatter), so the route's buckets always
+      come from the device; the route also uploads the post-batch hash
+      tensor it returns.
 
     The route's legs that need no buckets are priced first, from the doc
     count alone: where they cost more than the alternative, the plan is
@@ -461,14 +496,23 @@ def plan_round(rset, idxs) -> RoundPlan:
     if not megabatch_enabled() or len(idxs) < megabatch_min_docs():
         return RoundPlan("per_doc", idxs)
     dims_i, a, dims_le = rset.dims()[:3]
-    resident = _resident(rset)
-    nbytes = rows_count(dims_i, a, dims_le) * 4 * pad_to_lanes(len(idxs))
-    est_alt = (nbytes / _LINK["host_gather_bytes_per_s"]
-               + _upload_s(nbytes) + _reconcile_s(nbytes)
-               + _LINK["d2h_call_s"])
     # the legs every bucketing shares: host work and the readback
     est_mega = (_LINK["mega_fixed_s"] + len(idxs) * _LINK["mega_doc_s"]
                 + _LINK["d2h_call_s"])
+    if frame_trips is None:
+        resident = _resident(rset)
+        nbytes = rows_count(dims_i, a, dims_le) * 4 * pad_to_lanes(len(idxs))
+        est_alt = (nbytes / _LINK["host_gather_bytes_per_s"]
+                   + _upload_s(nbytes) + _reconcile_s(nbytes)
+                   + _LINK["d2h_call_s"])
+    else:
+        resident = True
+        shared = _frame_legs_s(rset, frame_trips)
+        hash_bytes = rset.n_pad * 4
+        est_alt = (shared + _reconcile_s(rset.rows_host.nbytes)
+                   + _LINK["d2h_call_s"]
+                   + hash_bytes / _LINK["d2h_bytes_per_s"])
+        est_mega += shared + _upload_s(hash_bytes)
     bound = (est_mega + _LINK["h2d_call_s"]
              + _LINK["launch_s"] * (2 if resident else 1))
     if bound > est_alt:

@@ -27,17 +27,23 @@ Ingress, on a native instance (the default):
   device work waits for the next hash read. A device copy left stale
   (growth, a failed dispatch, lazy rounds) is replaced by the post-batch
   host mirror, which already holds the batch, and nothing is scattered.
-- A minority-dirty hash read (`hashes_for`, or `hashes()` after lazy
-  rounds) of at least `AMTPU_MEGABATCH_MIN_DOCS` documents (default 2;
-  `AMTPU_MEGABATCH=0` turns it off) may take the megabatch route
-  (`dispatch.plan_round` / `apply_round_adaptive`): the dirty lanes
-  reconciled in a few launches at smaller bucket dims, gathered from the
-  device copy (which stays resident) or, where that is stale, from the
-  host mirror, and read back into the host hash mirror. The card's cost
-  model picks the route; the hashes are the same bit for bit. A round
-  frame does not take it (the reference's megabatch intent): on the card
-  the whole resident buffer's reconcile costs less than the route's host
-  work at every fleet size the repo runs (PERF.md, ROADMAP.md).
+- The megabatch route (`dispatch.plan_round` / `apply_round_adaptive`;
+  at least `AMTPU_MEGABATCH_MIN_DOCS` dirty documents, default 2;
+  `AMTPU_MEGABATCH=0` turns it off): the dirty lanes reconciled in a few
+  launches at smaller bucket dims and read back into the host hash
+  mirror. The card's cost model picks it; the hashes are the same bit
+  for bit. Two callers plan it:
+  - an eager frame micro-batch (the reference's frame intent), priced
+    against the classic dispatch above (one reconcile of the whole
+    buffer and its readback). The device copy is brought up to date
+    first on both routes (the triplets scattered, or a stale copy
+    re-uploaded) and stays resident: the buckets are gathered from it,
+    the post-batch hashes come back from the mirror, and the next
+    hashes() launches nothing. On the card the classic dispatch wins
+    the map storm's rounds up to a 2.07 GB buffer (PERF.md);
+  - a minority-dirty hash read (`hashes_for`, or `hashes()` after lazy
+    rounds), priced against the narrow gather, its buckets gathered from
+    the device copy or, where that is stale, from the host mirror.
 - `apply_rounds_cols` ({doc_id: WireColumns} rounds) and `apply_rounds`
   (Change rounds, converted to columns): one native encode per round and
   a scatter + launch per round, the hashes read back.
@@ -1328,15 +1334,21 @@ class ResidentRowsDocSet(ResidentDocSet):
     def apply_round_frames(self, frames) -> torch.Tensor | None:
         """Apply a micro-batch of sync rounds shipped as round frames
         (sync/frames.py AMR1: one columnar frame a round covering every
-        document it touches) with ONE scatter and ONE kernel launch.
+        document it touches) with ONE scatter and ONE kernel launch, or,
+        where the batch dirties at least `dispatch.megabatch_min_docs()`
+        documents and the card's cost model prices it cheaper, with the
+        scatter and a fused launch a bucket of the dirty lanes (the
+        megabatch route, `_dispatch_final`).
 
         frames: round-frame bytes or decoded RoundColumns; the documents
         must exist in this set. Returns the device tensor of the post-batch
         per-doc hashes (int32 bits, padded to n_pad; `cuda_kernels.
-        hashes_to_numpy` reads it) without reading it back, or None under
-        `lazy_dispatch`, when the next hash read does the device work.
-        Consecutive calls chain on the device, so the host encode of one
-        batch overlaps the device work of the one before.
+        hashes_to_numpy` reads it), or None under `lazy_dispatch`, when the
+        next hash read does the device work. The classic dispatch leaves
+        the tensor unread, so consecutive calls chain on the device and the
+        host encode of one batch overlaps the device work of the one
+        before; the route reads its lanes' hashes back and uploads the
+        tensor from the host mirror.
 
         On a `native=False` instance the rounds go through Change objects
         and the pure-Python encoder, then the same merged dispatch."""
@@ -1784,13 +1796,22 @@ class ResidentRowsDocSet(ResidentDocSet):
                 "adm_cidx": m_cidx}
 
     def _dispatch_final(self, trip_list) -> torch.Tensor | None:
-        """One scatter + one reconcile for a whole batch: triplets merged
+        """One scatter and one reconcile for a whole batch: triplets merged
         in round order with last-wins dedup (rounds overwrite each other
         only on re-linearized position rows). A stale device copy is
         replaced by the host mirror, which already holds the batch, and
         nothing is scattered. Returns the device hash tensor without
         reading it back; the next hashes() read consumes it. Under
-        lazy_dispatch it returns None and launches nothing."""
+        lazy_dispatch it returns None and launches nothing.
+
+        A batch that dirties at least `megabatch_min_docs()` documents is
+        planned (dispatch.plan_round, priced against this classic
+        dispatch). On the megabatch route the device copy is brought up to
+        date the same way, then only the batch's lanes reconcile, in fused
+        launches at their buckets' dims (dispatch.apply_round_adaptive),
+        read back into the host hash mirror; the post-batch hashes are
+        returned from the mirror, uploaded, and the next hashes() launches
+        nothing."""
         touched = self._mark_trips_dirty(trip_list)
         if self.lazy_dispatch:
             # the triplets are already in the host mirror; the next hash
@@ -1799,14 +1820,22 @@ class ResidentRowsDocSet(ResidentDocSet):
             self._dirty = True
             self._hash_handle = None
             return None
-        trips = None
+        merged = [t for t in trip_list if len(t)]
+        trips = (_last_wins(np.concatenate(merged), self.n_pad) if merged
+                 else None)
+        plan = None
+        if round_dispatch.megabatch_enabled() \
+                and len(touched) >= round_dispatch.megabatch_min_docs():
+            plan = round_dispatch.plan_round(
+                self, touched, frame_trips=0 if trips is None else len(trips))
         if self.rows_dev is None or self._dirty:
             self.rows_dev = self._to_dev(self.rows_host)
             self._dirty = False
-        else:
-            merged = [t for t in trip_list if len(t)]
-            if merged:
-                trips = self._upload_trips([np.concatenate(merged)])[0]
+            trips = None
+        elif trips is not None:
+            trips = self._to_dev(trips.astype(np.int64))
+        if plan is not None and plan.route == "megabatch":
+            return self._dispatch_route(plan, trips)
         with dispatchledger.call_scope(
                 "rows_apply", backend="device", docs=len(touched),
                 axes={"docs": (len(self.doc_ids), self.n_pad)}):
@@ -1815,6 +1844,24 @@ class ResidentRowsDocSet(ResidentDocSet):
                 self.rows_dev, trips, self.dims())
         self._hash_handle = h
         return h
+
+    def _dispatch_route(self, plan, trips) -> torch.Tensor:
+        """The megabatch route of a frame batch: the triplets scattered into
+        the current device copy, the planned lanes reconciled from it in
+        fused bucket launches, any other dirty lane through the classic
+        read paths, and the post-batch hashes (int32 bits, n_pad long,
+        padding lanes 0) uploaded from the host mirror."""
+        if trips is not None:
+            _scatter_(self.rows_dev, trips)
+        # an unread hash tensor of an earlier batch predates this one's
+        # scatter: the lanes it would refresh are still marked dirty
+        self._hash_handle = None
+        round_dispatch.apply_round_adaptive(self, plan)
+        self._refresh_hash_mirror(None)
+        n = len(self.doc_ids)
+        out = np.zeros(self.n_pad, np.uint32)
+        out[:n] = self._hash_mirror[:n]
+        return self._to_dev(out.view(np.int32))
 
     def _refresh_hash_mirror(self, want) -> None:
         """Bring the host hash mirror current for `want` (doc indices; None

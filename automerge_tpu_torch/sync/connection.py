@@ -259,9 +259,16 @@ class Connection:
     # -- lifecycle (connection.js:49-56) ------------------------------------
 
     def open(self) -> None:
-        for doc_id in self._doc_set.doc_ids:
-            self.doc_changed(doc_id, self._doc_set.get_doc(doc_id))
-        self._doc_set.register_handler(self.doc_changed)
+        # The handler goes in first and the docs are walked under the state
+        # lock, so a doc that another peer's reader admits meanwhile is
+        # either in the walk or announced through the handler. Walking
+        # first and registering after (connection.js:49-52, and the
+        # reference) never advertises a doc admitted in between: on a hub,
+        # the peer that connected then never learns of it.
+        with self._state_lock:
+            self._doc_set.register_handler(self.doc_changed)
+            for doc_id in self._doc_set.doc_ids:
+                self.doc_changed(doc_id, self._doc_set.get_doc(doc_id))
 
     def close(self) -> None:
         auditor = self.auditor

@@ -58,12 +58,20 @@ Phases:
      walk in one launch), each line with how many rows took the walk;
   2. the map storm of the reference's bench config 20: 10,000 docs, 8 heavy
      docs of 400 ops, 8 zipf(1.1) rounds of ~1K dirty docs. (a) The main
-     path: the rounds pre-encoded as AMR1 round frames, applied by
-     apply_round_frames one frame a call, each followed by hashes(); each
-     round's host legs (decode, actor registration + precheck, admission
-     + native encode, triplets, dispatch, readback) timed by wrapping the
-     engine's methods; every round after the first call on the batched
-     admission path; no frame round plans a megabatch route. (b) The 8
+     path: the heavy round and the storm's rounds pre-encoded as AMR1
+     round frames, applied by apply_round_frames one frame a call, each
+     followed by hashes(), three ways in turns on fresh engines
+     (FRAME_WAYS: the planner's pick by the card's constants, the classic
+     dispatch with AMTPU_MEGABATCH=0, the megabatch route forced by
+     route_forced's calibrate): every frame round's plan (route, buckets,
+     est_mega_s against est_alt_s, the classic frame dispatch's price),
+     the walls each way (p50, p99), B1 launches and fused buckets, the
+     hashes equal across the ways round by round, the planner's pick
+     held no slower than the route it did not take (check_routes); the
+     planner's engine has each round's host legs (decode, actor
+     registration + precheck, admission + native encode, triplets,
+     dispatch, readback) timed by wrapping its methods; every storm
+     round on the batched admission path. (b) The 8
      frames as one micro-batch. (c) apply_rounds (native), then late docs
      and a minority-dirty hashes_for read, MINORITY_REPS times each way in
      turns (the same lanes marked dirty again before each): the megabatch
@@ -75,7 +83,9 @@ Phases:
   3. a text fleet of 2,048 docs, 4 concurrent typists each, so the list
      half of the kernel runs; its startup read takes the full-buffer path;
      the main path through apply_round_frames (a frame a call, read back,
-     legs split), then apply_rounds native and native=False, all equal;
+     legs split) the three ways of phase 2 (a), TEXT_PASSES times over,
+     held the same way, then apply_rounds native and native=False, all
+     equal;
   4. both paths' final hashes (and those of 2(c)'s engine, after the
      megabatch route's reads) recomputed from the device buffer by the
      plain version, and the launch counts of both paths;
@@ -97,10 +107,10 @@ Phases:
      gathers the timing line prints beside the plain schedule's) and (one
      realm) the host walk;
   8. the routers' cost constants measured on this machine (the "link"
-     line: launch + readback, host<->device copies, the numpy oracles;
-     the megabatch planner's: a launch's enqueue, the reconcile's rate
-     over phase 2's resident buffer, the host mirror's gather, the route's
-     host work);
+     line: launch + readback, host<->device copies, a hash readback's
+     rate, the numpy oracles; the megabatch planner's: a launch's
+     enqueue, the reconcile's rate over phase 2's resident buffer, the
+     host mirror's gather, the route's host work);
   9. the docs-major engine: (a) bench config 5's docset fleet (10,000
      docs, 12 rounds of 2,000 one-op changes) through ResidentDocSet, then
      apply_changes and a minority hashes_for read, held to apply_batch
@@ -173,7 +183,12 @@ Phases:
      map storm (phase 2's streams) through EngineDocSet(backend="rows")
      in the default epoch mode, each round one svc.batch() of
      apply_changes and a hashes() read (the flush and read walls, p50 and
-     p99), hashes equal to phase 2 (a)'s; then 100 late docs and a
+     p99), hashes equal to phase 2 (a)'s, on fresh services the three ways
+     of phase 2 (a) (config 20's protocol, bench.py:4254-4317): hashes
+     byte-identical, no fused round with AMTPU_MEGABATCH=0, fused
+     dispatches per dirty doc under MEGABATCH_AMP_MAX where a run fused,
+     config 20's speedup ratio printed (its TPU floor,
+     MEGABATCH_SPEEDUP_MIN, not held); then 100 late docs and a
      minority hashes_for of 110 docs on the megabatch route, equal to
      phase 2 (c)'s engine; (b) bench config 9's concurrent writers (1 and
      4 threads, 400 one-op changes each over 8 docs, depth 2,
@@ -249,8 +264,10 @@ Phases:
      "rows"), every count set to 0 just before, its hashes held to phase
      2 (a)'s: engine_kernels_dispatched and engine_kernels_retraced by
      label (metrics.dispatch_jit), the
-     rows dispatches of each flushed round (at least one each), their sum
-     against the reconcile kernel's launches (at most), no build counted
+     rows dispatches and B1 launches of each flushed round equal to its
+     frame plan's (one on the classic dispatch, one a bucket on the
+     megabatch route), their sum against the reconcile kernel's launches
+     (at most), no build counted
      after phase 1's, obs_live_arrays_bytes against
      torch.cuda.memory_allocated at its sample and the engine's
      resident_bytes(), the dispatch ledger's report and duty cycle (under
@@ -285,7 +302,19 @@ Phases:
      apply_doc's; without the variable the call raises; (d) `python -m
      automerge_tpu_torch.analysis` exits 0 on the checkout. The kernels
      line adds (a)'s and (b)'s B1 launches, (a)'s B2 and (c)'s linearize
-     launches.
+     launches;
+ 18. the megabatch route on round frames at scale: bench config 20's
+     storm with the reference's own n_docs at SCALE_DOCS (100,000) docs,
+     every id registered (a row buffer of 2.07 GB, at least
+     SCALE_MIN_BYTES), the heavy frame and the 8 storm frames a call the
+     three ways of phase 2 (a) in turns: each round's plan and
+     estimates, p50 / p99 walls each way, B1 launches, fused dispatches
+     per dirty doc over the storm rounds against MEGABATCH_AMP_MAX, the
+     hashes equal each way round by round, no fused round with
+     AMTPU_MEGABATCH=0, the planner's pick no slower than the other route,
+     and the last round's lanes of each way's engine (device copy against
+     host mirror, hashes against B1's plain version on the gathered
+     sub-buffer). The kernels line adds its B1 launches.
 Then the kernel timings (each kernel's launches timed three ways:
 `kernel_ms` from CUDA events around a host loop of launches, the host's
 `enqueue_ms` per launch in that loop, and `graph_ms` from a replay of the
@@ -949,32 +978,23 @@ def timed_calls(ds, spec, calls):
     return out, walls, per_call
 
 
-def frame_rounds(ds, frames, keep=None):
-    """The main path: one round frame a call, then the hash read, each
-    round split into its host legs. Returns the final hashes, the walls
-    and the legs of each round; `keep`, a list, gets each round's
-    hashes."""
+def frame_round(ds, legs, frame):
+    """One round of the main path: the frame decoded, applied by
+    apply_round_frames, then the hash read; `legs` (time_legs of ds) split
+    the call. Returns the hashes, the wall and the round's legs."""
     from automerge_tpu_torch.sync.frames import decode_round_frame
-    legs = time_legs(ds)
-    walls, per_round = [], []
-    final = None
-    for f in frames:
-        for k in legs:
-            legs[k] = 0.0
-        t0 = time.perf_counter()
-        rc = decode_round_frame(f)
-        t1 = time.perf_counter()
-        ds.apply_round_frames([rc])
-        t2 = time.perf_counter()
-        final = ds.hashes()
-        t3 = time.perf_counter()
-        if keep is not None:
-            keep.append(final)
-        split = {"decode": t1 - t0, **legs, "readback": t3 - t2}
-        split["other"] = (t2 - t1) - sum(legs.values())
-        walls.append(t3 - t0)
-        per_round.append(split)
-    return final, walls, per_round
+    for k in legs:
+        legs[k] = 0.0
+    t0 = time.perf_counter()
+    rc = decode_round_frame(frame)
+    t1 = time.perf_counter()
+    ds.apply_round_frames([rc])
+    t2 = time.perf_counter()
+    h = ds.hashes()
+    t3 = time.perf_counter()
+    split = {"decode": t1 - t0, **legs, "readback": t3 - t2}
+    split["other"] = (t2 - t1) - sum(legs.values())
+    return h, t3 - t0, split
 
 
 def legs_text(per_round) -> str:
@@ -1013,10 +1033,11 @@ def recorded_plans():
     plans = []
     real = dispatch.plan_round
 
-    def rec(rset, idxs):
+    def rec(rset, idxs, frame_trips=None):
         t0 = time.perf_counter()
-        plan = real(rset, idxs)
+        plan = real(rset, idxs, frame_trips=frame_trips)
         plan.plan_s = time.perf_counter() - t0
+        plan.frame = frame_trips is not None
         plans.append(plan)
         return plan
     dispatch.plan_round = rec
@@ -1028,11 +1049,21 @@ def recorded_plans():
 
 def plans_text(plans) -> str:
     return "; ".join(
-        f"{p.route} buckets "
+        f"{'frame' if getattr(p, 'frame', False) else 'read'} {p.route} "
+        f"docs {len(p.docs)} buckets "
         f"{[(b['dims'], len(b['docs'])) for b in p.buckets]} est_mega_s="
         f"{p.est_mega_s:.3e} est_alt_s={p.est_alt_s:.3e} (planned in "
         f"{p.plan_s:.2e} s)"
         for p in plans) or "no plan"
+
+
+def ledger_mega() -> dict:
+    """The dispatch ledger's cumulative megabatch account: rounds, fused
+    dispatches (bucket launches) and docs."""
+    from automerge_tpu_torch.engine import dispatchledger
+    sec = dispatchledger.ledger().section() or {}
+    return {k: int(sec.get(f"mega_{k}_total") or 0)
+            for k in ("rounds", "dispatches", "docs")}
 
 
 def last_mega():
@@ -1058,6 +1089,11 @@ class MegaAccount:
                       "padded"):
                 setattr(self, k, getattr(self, k) + m[k])
 
+    def merge(self, other: "MegaAccount") -> None:
+        for k in ("rounds", "dispatches", "docs", "docs_cap", "logical",
+                  "padded"):
+            setattr(self, k, getattr(self, k) + getattr(other, k))
+
     def as_dict(self) -> dict:
         return {"rounds": self.rounds, "dispatches": self.dispatches,
                 "docs": self.docs,
@@ -1074,16 +1110,172 @@ class MegaAccount:
                 f"{d['fill_pct']}, pad_waste_pct {d['pad_waste_pct']}")
 
 
-def check_routes(name, on, off) -> None:
-    """The planner's pick (route on) no slower than the route off, by more
-    than 10% of the latter's p50 plus 0.05 ms (on and off: seconds of the
-    same work). Prints the comparison before it checks it."""
+def check_routes(name, on, off, labels=("route on", "off")) -> None:
+    """The planner's pick (`on`, the route on) no slower than the other
+    route (`off`), by more than 10% of the latter's p50 plus 0.05 ms (on
+    and off: seconds of the same work). Prints the comparison before it
+    checks it."""
     a, b = p50(on), p50(off)
-    print(f"{name}: p50 {a:.6f} s (route on) against {b:.6f} s (off), "
-          f"margin {1.1 * b + 5e-5 - a:.6f} s [{card()}]")
+    print(f"{name}: p50 {a:.6f} s ({labels[0]}) against {b:.6f} s "
+          f"({labels[1]}), margin {1.1 * b + 5e-5 - a:.6f} s [{card()}]")
     check(a <= 1.1 * b + 5e-5,
           f"{name}: the planner's pick took {a:.6f} s (p50) against "
-          f"{b:.6f} s with the route off")
+          f"{b:.6f} s ({labels[1]})")
+
+
+@contextlib.contextmanager
+def route_forced():
+    """The megabatch route made to win every planned frame batch: the
+    classic frame dispatch's readback priced at one byte a second
+    (dispatch.calibrate), the card's constants put back after. A read's
+    pricing does not use that constant."""
+    from automerge_tpu_torch.engine import dispatch
+    saved = dict(dispatch._LINK)
+    dispatch.calibrate(d2h_bytes_per_s=1.0)
+    try:
+        yield
+    finally:
+        dispatch._LINK.update(saved)
+
+
+#: Phase 3 times its 4 frame rounds TEXT_PASSES times each way (fresh
+#: engines each pass): host walls of ~1.7 s a round vary by a fifth from
+#: round to round, too much for 4 samples against check_routes' 10%.
+TEXT_PASSES = 2
+#: The ways phases 2 (a), 3 and 18 time the same frames, in turns, each
+#: on a fresh engine: the planner's pick (the main path, the card's
+#: constants), the classic dispatch (AMTPU_MEGABATCH=0) and the route.
+FRAME_WAYS = {"planner": contextlib.nullcontext, "classic": megabatch_off,
+              "route": route_forced}
+
+
+class FrameWay:
+    """One way's engine and what each of its frame rounds gave: hashes,
+    wall, legs, frame plans, B1 launches, the ledger's megabatch summary,
+    and the admission counters moved."""
+
+    def __init__(self, name):
+        self.name = name
+        self.engine, self.legs = None, {}
+        self.hashes, self.walls, self.splits = [], [], []
+        self.plans, self.launches = [], []
+        self.megas = []          # the ledger's megabatch summary a round
+        self.admission = []
+        self.fused = 0           # megabatch rounds the ledger counted
+
+    def admitted(self, skip: int = 0) -> dict:
+        """The admission counters the rounds after `skip` moved."""
+        return {k: sum(a[k] for a in self.admission[skip:])
+                for k in ("rows_rounds_batched", "rows_rounds_fallback")}
+
+    def attach(self, engine, spec) -> None:
+        """Run the next rounds on `engine`, its `spec` legs timed."""
+        self.engine, self.legs = engine, time_legs(engine, spec)
+
+    def mega(self, skip: int = 0) -> "MegaAccount":
+        """The megabatch account of the rounds after `skip`."""
+        acc = MegaAccount()
+        for m in self.megas[skip:]:
+            acc.add(m)
+        return acc
+
+    def routes(self, skip: int = 0) -> list:
+        return [[p.route for p in ps] for ps in self.plans[skip:]]
+
+    def picked_route(self, skip: int = 0) -> bool:
+        """True when most of the planned rounds after `skip` took the
+        megabatch route."""
+        picks = [r[0] for r in self.routes(skip) if r]
+        return 2 * picks.count("megabatch") > len(picks)
+
+
+def frame_ways(make, frames, spec=FRAME_LEGS, passes: int = 1) -> dict:
+    """The frames through a fresh engine (make()) each way of FRAME_WAYS,
+    one frame a call then hashes(), the ways in turns (the order rotated
+    each round), `passes` times over (fresh engines each pass); the
+    planner's engine has its host legs split by `spec`. The heap that
+    stands before a pass is frozen out of the collector and the young
+    objects collected before each call, outside its wall, so a call pays
+    for the collections its own allocations bring and not for a full
+    collection that another way's garbage set off. Every round's hashes
+    are held equal across the ways, the classic way never plans, and the
+    route's every planned round takes the route. Returns {way: FrameWay},
+    each with the last pass's engine."""
+    import gc
+    names = list(FRAME_WAYS)
+    ways = {n: FrameWay(n) for n in names}
+    for _ in range(passes):
+        for n in names:
+            ways[n].attach(make(), spec if n == "planner" else {})
+        gc.collect()
+        gc.freeze()
+        try:
+            for k, frame in enumerate(frames):
+                for n in names[k % 3:] + names[:k % 3]:
+                    gc.collect()
+                    frame_way_round(ways[n], frame)
+                first = ways[names[0]].hashes[-1]
+                for n in names[1:]:
+                    check((ways[n].hashes[-1] == first).all(),
+                          f"frame round {k}: the {n} way's hashes != the "
+                          f"planner's")
+        finally:
+            gc.unfreeze()
+    check(not any(ways["classic"].plans) and ways["classic"].fused == 0,
+          "AMTPU_MEGABATCH=0 planned a frame round or recorded a fused "
+          "round")
+    routed = [r for rs in ways["route"].routes() for r in rs]
+    check(routed and set(routed) == {"megabatch"},
+          f"the forced route was not taken: {routed}")
+    return ways
+
+
+def frame_way_round(w, frame) -> None:
+    """One frame round of way `w` in its context, recorded into `w`."""
+    from automerge_tpu_torch.engine import cuda_kernels as ck
+    from automerge_tpu_torch.engine import dispatchledger
+    before = admission_rounds()
+    fused = ledger_mega()["rounds"]
+    with FRAME_WAYS[w.name](), recorded_plans() as plans, \
+            dispatchledger.round_scope(1, label=f"frame {w.name}"):
+        b1 = ck.LAUNCHES["reconcile_rows_hash"]
+        h, wall, split = frame_round(w.engine, w.legs, frame)
+        w.launches.append(ck.LAUNCHES["reconcile_rows_hash"] - b1)
+    w.fused += ledger_mega()["rounds"] - fused
+    w.megas.append(last_mega() if any(
+        p.route == "megabatch" for p in plans) else None)
+    w.admission.append({key: v - before[key] for key, v
+                        in admission_rounds().items()})
+    w.hashes.append(h)
+    w.walls.append(wall)
+    w.splits.append(split)
+    w.plans.append([p for p in plans if p.frame])
+
+
+def frame_plans_text(w) -> str:
+    """Each frame round's plans (none below the doc floor)."""
+    return " | ".join(f"round {k}: {plans_text(ps)}"
+                      for k, ps in enumerate(w.plans))
+
+
+def way_text(w, skip: int = 1) -> str:
+    """A way's storm walls (after `skip` rounds), p50 and p99, B1
+    launches and megabatch account."""
+    walls = w.walls[skip:]
+    return (f"{w.name}: walls s {walls_text(walls)} p99 "
+            f"{pct(walls, 0.99):.4f}; B1 launches {sum(w.launches)}; "
+            f"{w.mega(skip).text()}")
+
+
+def hold_frame_ways(name, ways, skip: int = 1) -> None:
+    """check_routes on the planner's pick against the route it did not
+    take (the frame rounds after `skip`), each way's walls printed."""
+    other = "classic" if ways["planner"].picked_route(skip) else "route"
+    for w in ways.values():
+        print(f"{name}: {way_text(w, skip)} [{card()}]")
+    check_routes(f"{name}: planner vs {other}",
+                 ways["planner"].walls[skip:], ways[other].walls[skip:],
+                 ("planner", other))
 
 
 def drive_map_storm(torch, dev):
@@ -1109,23 +1301,23 @@ def drive_map_storm(torch, dev):
     frames = [encode_round_frame(r) for r in storm]
     encode_s = time.perf_counter() - t0
 
-    # (a) the main path; round frames never plan the megabatch route
-    ds = ResidentRowsDocSet(ids, device=dev)
+    # (a) the main path, the heavy frame then the storm's, three ways in
+    # turns: the planner's pick, the classic dispatch and the route
     ck.LAUNCHES["reconcile_rows_hash"] = 0
-    with recorded_plans() as frame_plans:
-        t0 = time.perf_counter()
-        ds.apply_round_frames([heavy_frame])
-        ds.hashes()
-        heavy_s = time.perf_counter() - t0
-        before = admission_rounds()
-        round_hashes = []
-        final, walls, per_round = frame_rounds(ds, frames, round_hashes)
-    launches = ck.LAUNCHES["reconcile_rows_hash"]
-    moved = {k: admission_rounds()[k] - before[k] for k in before}
-    check(moved == {"rows_rounds_batched": len(frames),
-                    "rows_rounds_fallback": 0},
-          f"map storm frames: rounds not all batched: {moved}")
-    check(not frame_plans, "map storm frames: a frame round was planned")
+    ways = frame_ways(lambda: ResidentRowsDocSet(ids, device=dev),
+                      [heavy_frame] + frames)
+    main = ways["planner"]
+    ds = main.engine
+    launches = sum(sum(w.launches) for w in ways.values())
+    heavy_s, walls, per_round = main.walls[0], main.walls[1:], \
+        main.splits[1:]
+    round_hashes, final = main.hashes[1:], main.hashes[-1]
+    moved = main.admitted(1)
+    for w in ways.values():
+        check(w.admitted(1) == {"rows_rounds_batched": len(frames),
+                                "rows_rounds_fallback": 0},
+              f"map storm frames ({w.name}): rounds not all batched: "
+              f"{w.admitted(1)}")
 
     # (b) the same rounds as one micro-batch
     mb = ResidentRowsDocSet(ids, device=dev)
@@ -1214,8 +1406,11 @@ def drive_map_storm(torch, dev):
           f"apply_round_frames, one frame a call + hashes(): storm round "
           f"walls s {walls_text(walls)}; rounds batched "
           f"{moved['rows_rounds_batched']}, fallback "
-          f"{moved['rows_rounds_fallback']}; launches {launches}; no frame "
-          f"round planned [{card()}]")
+          f"{moved['rows_rounds_fallback']}; launches {launches} (all "
+          f"three ways) [{card()}]")
+    print(f"phase 2: (a) the planner's frame plans, a round: "
+          f"{frame_plans_text(main)}")
+    hold_frame_ways("phase 2: (a) storm frame rounds", ways)
     print(f"phase 2: (a) host legs a round: {legs_text(per_round)}")
     print(f"phase 2: (b) one {len(frames)}-frame micro-batch {mb_s:.4f} s "
           f"({mb_s / len(frames):.4f} s a round) + readback {mb_read_s:.4f}"
@@ -1232,6 +1427,8 @@ def drive_map_storm(torch, dev):
     check_routes("phase 2: (c) minority read", on_s, off_s)
     print(f"phase 2: (d) apply_rounds native=False storm round walls s "
           f"{walls_text(py_walls)}; final hashes of (a)-(d) equal")
+    for w in ways.values():
+        c_mega.merge(w.mega())
     return (ds, final, launches + minority_launches, rd, rd_final, c_mega,
             round_hashes)
 
@@ -1248,18 +1445,27 @@ def drive_text_fleet(torch, dev):
 
     ids, rounds = text_fleet()
     frames = [encode_round_frame(r) for r in rounds]
-    ds = ResidentRowsDocSet(ids, device=dev)
+    startup = []
+
+    def make():
+        e = ResidentRowsDocSet(ids, device=dev)
+        t0 = time.perf_counter()
+        e.hashes()                   # startup read: full-buffer branch
+        startup.append(time.perf_counter() - t0)
+        return e
+
+    # the main path, a frame a call, three ways in turns (phase 2 (a))
     ck.LAUNCHES["reconcile_rows_hash"] = 0
-    t0 = time.perf_counter()
-    ds.hashes()                      # startup read: full-buffer branch
-    t1 = time.perf_counter()
-    before = admission_rounds()
-    with recorded_plans() as frame_plans:
-        final, walls, per_round = frame_rounds(ds, frames)
+    ways = frame_ways(make, frames, passes=TEXT_PASSES)
+    main = ways["planner"]
+    ds, final = main.engine, main.hashes[-1]
+    walls, per_round = main.walls, main.splits
     launches = ck.LAUNCHES["reconcile_rows_hash"]
-    moved = {k: admission_rounds()[k] - before[k] for k in before}
+    moved = main.admitted()
     check(rows_dims_eligible(*ds.dims()[:3]), "text dims off the envelope")
-    check(not frame_plans, "text fleet frames: a frame round was planned")
+    check(all((h == final).all() for h in main.hashes[len(frames) - 1::
+                                                      len(frames)]),
+          "text fleet: the passes' final hashes differ")
 
     walls_by = {}
     for native in (True, False):
@@ -1275,11 +1481,16 @@ def drive_text_fleet(torch, dev):
         check((other.hashes() == final).all(), "last round != hashes()")
     print(f"phase 3: {len(ids)} docs dims={ds.dims()} "
           f"buffer_bytes={ds.rows_host.nbytes} startup read "
-          f"{t1 - t0:.4f} s; apply_round_frames, a frame a call + hashes(),"
-          f" round walls s {walls_text(walls)}, all {sum(walls):.4f} s; "
-          f"rounds batched {moved['rows_rounds_batched']}, fallback "
-          f"{moved['rows_rounds_fallback']}; launches {launches} "
-          f"[{card()}]")
+          f"{startup[0]:.4f} s; apply_round_frames, a frame a call + "
+          f"hashes(), {TEXT_PASSES} passes, round walls s "
+          f"{walls_text(walls)}, all "
+          f"{sum(walls):.4f} s; rounds batched "
+          f"{moved['rows_rounds_batched']}, fallback "
+          f"{moved['rows_rounds_fallback']}; launches {launches} (all "
+          f"three ways and their startup reads) [{card()}]")
+    print(f"phase 3: the planner's frame plans, a round: "
+          f"{frame_plans_text(main)}")
+    hold_frame_ways("phase 3: text frame rounds", ways, skip=0)
     print(f"phase 3: host legs a round: {legs_text(per_round)}")
     print(f"phase 3: apply_rounds of {len(rounds)} rounds: native "
           f"{walls_by[True]:.4f} s, native=False {walls_by[False]:.4f} s; "
@@ -2671,6 +2882,37 @@ def storm_through_service(dev, ids, heavy, storm):
     return svc, h, flush_walls, read_walls
 
 
+def hold_service_ways(runs, rounds) -> None:
+    """Phase 13 (a)'s config 20 lines: each run's flush walls, frame
+    plans and fused account; the amplification of the runs that fused
+    against MEGABATCH_AMP_MAX (held where a run fused); config 20's
+    speedup ratio (the classic run's wall over the planner's, and over
+    the forced route's; TPU figure MEGABATCH_SPEEDUP_MIN not held)."""
+    from automerge_tpu_torch.perf.history import MEGABATCH_AMP_MAX
+    for way, r in runs.items():
+        fused = r["fused"]
+        routes = [p.route for p in r["plans"]]
+        amp = (fused["dispatches"] / fused["docs"] if fused["docs"]
+               else None)
+        flush = r["run"][2]
+        print(f"phase 13: (a) config 20 {way}: wall {r['wall']:.4f} s, "
+              f"flush p50 {p50(flush):.4f} p99 {pct(flush, 0.99):.4f} s; "
+              f"frame plans {routes.count('megabatch')} megabatch, "
+              f"{routes.count('per_doc')} per_doc; fused rounds "
+              f"{fused['rounds']} of {rounds}, dispatches "
+              f"{fused['dispatches']}, docs {fused['docs']}; fused "
+              f"dispatches per dirty doc "
+              f"{'n/a' if amp is None else f'{amp:.5f}'} against "
+              f"MEGABATCH_AMP_MAX {MEGABATCH_AMP_MAX} [{card()}]")
+        check(amp is None or amp < MEGABATCH_AMP_MAX,
+              f"phase 13 (a): {way}: amplification {amp}")
+    base = runs["classic"]["wall"]
+    print(f"phase 13: (a) config 20 speedup (classic wall over the run's): "
+          f"planner {base / runs['planner']['wall']:.3f}x, route "
+          f"{base / runs['route']['wall']:.3f}x; hashes byte-identical, "
+          f"zero fused rounds with AMTPU_MEGABATCH=0 [{card()}]")
+
+
 def pct(xs, q) -> float:
     xs = sorted(xs)
     return xs[min(len(xs) - 1, int(q * len(xs)))]
@@ -2687,12 +2929,34 @@ def drive_service_storm(torch, dev, map_final, rounds_ds):
 
     ids, heavy, storm = map_storm()
     ck.LAUNCHES["reconcile_rows_hash"] = 0
-    svc, h, flush_walls, read_walls = storm_through_service(
-        dev, ids, heavy, storm)
+    # config 20's protocol (bench.py:4254-4317): the storm through a
+    # fresh service each way, the planner's pick, AMTPU_MEGABATCH=0 and
+    # the route forced; each run's wall is config 20's (the heavy round,
+    # the 8 rounds and their reads)
+    runs = {}
+    for way in FRAME_WAYS:
+        base = ledger_mega()
+        with FRAME_WAYS[way](), recorded_plans() as plans:
+            t0 = time.perf_counter()
+            run = storm_through_service(dev, ids, heavy, storm)
+            wall = time.perf_counter() - t0
+        after = ledger_mega()
+        runs[way] = {"run": run, "wall": wall,
+                     "plans": [p for p in plans if p.frame],
+                     "fused": {k: after[k] - base[k] for k in base}}
+        if way != "planner":
+            run[0].close()
+        got = np.array([run[1][d] for d in ids], np.uint32)
+        check((got == map_final).all(),
+              f"phase 13 (a): the service's hashes ({way}) != phase 2 (a)'s")
+    check(runs["classic"]["fused"]["rounds"] == 0
+          and not runs["classic"]["plans"],
+          "phase 13 (a): AMTPU_MEGABATCH=0 recorded fused rounds")
+    forced = runs["route"]["fused"]
+    check(forced["rounds"] >= len(storm),
+          f"phase 13 (a): the forced route fused {forced['rounds']} rounds")
+    svc, h, flush_walls, read_walls = runs["planner"]["run"]
     storm_launches = ck.LAUNCHES["reconcile_rows_hash"]
-    got = np.array([h[d] for d in ids], np.uint32)
-    check((got == map_final).all(),
-          "phase 13 (a): the service's hashes != phase 2 (a)'s")
     # late docs fill padding lanes, as in phase 2 (c): a read of them and
     # a few storm docs is a minority of dirty lanes
     rset = svc._resident
@@ -2721,8 +2985,9 @@ def drive_service_storm(torch, dev, map_final, rounds_ds):
           f"of one svc.batch() each, dirty a round "
           f"{[len(r) for r in storm]}; flush walls s {walls_text(flush_walls)}"
           f" p99 {pct(flush_walls, 0.99):.4f}; hashes() read walls s "
-          f"{walls_text(read_walls)}; launches {storm_launches}; hashes "
-          f"equal to phase 2 (a) [{card()}]")
+          f"{walls_text(read_walls)}; launches {storm_launches} (three "
+          f"runs); hashes equal to phase 2 (a) [{card()}]")
+    hold_service_ways(runs, len(storm))
     print(f"phase 13: (a) minority hashes_for of {len(want)} docs "
           f"{read_s:.4f} s ({plans_text(plans)}; launches {read_launches}); "
           f"equal to phase 2 (c)'s engine")
@@ -3978,6 +4243,7 @@ def measure_link(torch, dev, map_ds) -> dict:
     import random
 
     import numpy as np
+    from automerge_tpu_torch.engine.cuda_kernels import hashes_to_numpy
     from automerge_tpu_torch.engine.move_kernels import resolve_moves_host
     from automerge_tpu_torch.engine.pack import pack_moves, pack_spans
     from automerge_tpu_torch.engine.span_kernels import (merge_spans_host,
@@ -3999,6 +4265,14 @@ def measure_link(torch, dev, map_ds) -> dict:
     h2d_small = h2d(1024)
     t1, t64 = h2d(1 << 20), h2d(64 << 20)
 
+    def d2h_hashes(nbytes):
+        h = torch.zeros(nbytes // 4, dtype=torch.int32, device=dev)
+        torch.cuda.synchronize()
+        return host_s(lambda: hashes_to_numpy(h), 20)
+    # a hash readback as the engine reads one (hashes_to_numpy), from the
+    # 10K storm's 40 KB to past the 100K fleet's 400 KB
+    d256k, d4m = d2h_hashes(256 << 10), d2h_hashes(4 << 20)
+
     fleet_spans = pack_spans(span_fleet(n_docs=2000)[0])
     one_span = pack_spans([[(1, 2, 3, 0, 0, 0, 0)]])
     span_fixed = host_s(lambda: merge_spans_host(one_span), 50)
@@ -4016,6 +4290,8 @@ def measure_link(torch, dev, map_ds) -> dict:
         "h2d_call_s": h2d_small,
         "h2d_bytes_per_s": (63 << 20) / max(t64 - t1, 1e-9),
         "d2h_call_s": d2h,
+        "d2h_bytes_per_s": ((4 << 20) - (256 << 10)) / max(d4m - d256k,
+                                                           1e-9),
         "span_op_s": (span_big - span_fixed) / (d * s),
         "span_fixed_s": span_fixed,
         "move_lane_s": (move_big - move_fixed) / (rd * (n + k)),
@@ -4024,7 +4300,8 @@ def measure_link(torch, dev, map_ds) -> dict:
     }
     print(f"phase 8: link legs: tiny launch + readback {tiny_total:.3e} s, "
           f"512 B readback {d2h:.3e} s, 1 KiB copy {h2d_small:.3e} s, "
-          f"1 MiB {t1:.3e} s, 64 MiB {t64:.3e} s; host legs: "
+          f"1 MiB {t1:.3e} s, 64 MiB {t64:.3e} s; hash readback 256 KiB "
+          f"{d256k:.3e} s, 4 MiB {d4m:.3e} s; host legs: "
           f"merge_spans_host 1x128 {span_fixed:.3e} s, {d}x{s} "
           f"{span_big:.3e} s; resolve_moves_host 1x(128+128) "
           f"{move_fixed:.3e} s, {rd}x({n}+{k}) {move_big:.3e} s "
@@ -4138,7 +4415,7 @@ def drive_planes_storm(torch, dev, map_final):
     self0 = led.self_seconds()
     svc = EngineDocSet(ids, backend="rows", device=dev)
     traffic = 0.0
-    per_round = []
+    per_round, b1_round, expected, taken = [], [], [], []
     try:
         t0 = time.perf_counter()
         with svc.batch():
@@ -4148,12 +4425,21 @@ def drive_planes_storm(torch, dev, map_final):
         traffic += time.perf_counter() - t0
         for rnd in storm:
             before = rows_dispatches(metrics)
-            t0 = time.perf_counter()
-            with svc.batch():
-                for d, chs in rnd.items():
-                    svc.apply_changes(d, chs)
-            t1 = time.perf_counter()
+            b1_before = ck.LAUNCHES["reconcile_rows_hash"]
+            with recorded_plans() as plans:
+                t0 = time.perf_counter()
+                with svc.batch():
+                    for d, chs in rnd.items():
+                        svc.apply_changes(d, chs)
+                t1 = time.perf_counter()
             flushed = rows_dispatches(metrics) - before
+            b1_round.append(ck.LAUNCHES["reconcile_rows_hash"] - b1_before)
+            # the plan actually taken: one dispatch (apply_final) and one
+            # B1 on the classic dispatch, one of each a bucket on the route
+            frame = [p for p in plans if p.frame]
+            expected.append(len(frame[0].buckets) if frame
+                            and frame[0].route == "megabatch" else 1)
+            taken.append(frame[0].route if frame else "unplanned")
             t2 = time.perf_counter()
             h = svc.hashes()
             traffic += (t1 - t0) + (time.perf_counter() - t2)
@@ -4171,13 +4457,15 @@ def drive_planes_storm(torch, dev, map_final):
         print(f"phase 16: (a) map storm through EngineDocSet(backend="
               f"'rows', device={dev}): {len(ids)} docs, {len(storm)} rounds; "
               f"engine_kernels_dispatched {dispatched}; "
-              f"engine_kernels_retraced {retraced}; rows dispatches a "
-              f"flushed round {per_round}; reconcile_rows_hash launches "
-              f"{b1}; hashes equal to phase 2 (a)'s and 13 (a)'s "
-              f"[{card()}]")
-        check(all(n >= 1 for n in per_round),
-              f"phase 16 (a): a flushed round counted no rows dispatch "
-              f"({per_round})")
+              f"engine_kernels_retraced {retraced}; frame plans a flushed "
+              f"round {taken}; rows dispatches a flushed round {per_round}, "
+              f"B1 launches {b1_round}, the plans' {expected}; "
+              f"reconcile_rows_hash launches {b1}; hashes equal to phase 2 "
+              f"(a)'s and 13 (a)'s [{card()}]")
+        check(per_round == expected and b1_round == expected,
+              f"phase 16 (a): a flushed round's rows dispatches "
+              f"{per_round} or B1 launches {b1_round} != its plan's "
+              f"{expected}")
         check(0 < rows_sum <= b1,
               f"phase 16 (a): rows dispatches {rows_sum} against "
               f"{b1} reconcile launches")
@@ -4545,6 +4833,100 @@ def kernel_entry(name, source, replaces, launches, errs, times):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the megabatch route on round frames at scale
+
+#: Phase 18's fleet: bench config 20's storm with the reference's own
+#: n_docs parameter (bench.py:4254) at 100,000 docs, a row buffer of about
+#: 2.1 GB, where the card's constants price the route under the classic
+#: frame dispatch's reconcile of the whole buffer.
+SCALE_DOCS = 100_000
+#: the smallest row buffer phase 18 accepts (2 GB)
+SCALE_MIN_BYTES = 2_000_000_000
+
+
+def hold_lanes_to_plain(torch, ds, final, lanes, what) -> int:
+    """The device copy of `lanes` equal to the host mirror's, and the
+    engine's hashes of those lanes equal to B1's plain version on a narrow
+    sub-buffer gathered from the device copy (padding lanes repeat the
+    last). Returns the largest difference (0)."""
+    from automerge_tpu_torch.engine import cuda_kernels as ck
+    from automerge_tpu_torch.engine.pack import pad_to_lanes
+    k = len(lanes)
+    sel = lanes + [lanes[-1]] * (pad_to_lanes(k) - k)
+    idx = torch.tensor(sel, dtype=torch.int64, device=ds.rows_dev.device)
+    sub = ds.rows_dev.index_select(1, idx)
+    check(torch.equal(sub.cpu(), torch.from_numpy(ds.rows_host[:, sel])),
+          f"{what}: the device copy != the host mirror on the round's lanes")
+    plain = ck.hashes_to_numpy(
+        ck.reconcile_rows_hash_plain(sub, ds.dims()))[:k]
+    err = max_abs_err(final[lanes], plain)
+    check(err == 0, f"{what}: the round's hashes != the plain version")
+    return err
+
+
+def drive_frame_route_at_scale(torch, dev, report):
+    """Phase 18: config 20's storm at SCALE_DOCS docs, the heavy frame and
+    the 8 storm frames a call each way of FRAME_WAYS in turns (phase 2
+    (a)'s protocol): every round's plan and estimates, the walls, B1
+    launches, fused dispatches per dirty doc against config 20's
+    MEGABATCH_AMP_MAX, the planner's pick held no slower than the other
+    route, and the last round's lanes of every way's engine held to the
+    plain version. Returns the phase's B1 launches and the ways' megabatch
+    account."""
+    from automerge_tpu_torch.engine import cuda_kernels as ck
+    from automerge_tpu_torch.engine.resident_rows import ResidentRowsDocSet
+    from automerge_tpu_torch.perf.history import MEGABATCH_AMP_MAX
+    from automerge_tpu_torch.sync.frames import encode_round_frame
+    from automerge_tpu_torch.workloads import map_storm
+
+    t_phase = time.perf_counter()
+    ids, heavy, storm = map_storm(n_docs=SCALE_DOCS)
+    frames = [encode_round_frame(heavy)] + [encode_round_frame(r)
+                                            for r in storm]
+    ck.LAUNCHES["reconcile_rows_hash"] = 0
+    ways = frame_ways(lambda: ResidentRowsDocSet(ids, device=dev), frames)
+    launches = ck.LAUNCHES["reconcile_rows_hash"]
+    main = ways["planner"]
+    ds = main.engine
+    nbytes = ds.rows_host.nbytes
+    print(f"phase 18: {len(ids)} docs n_pad={ds.n_pad} dims={ds.dims()} "
+          f"rows_host.nbytes={nbytes} dirty a round "
+          f"{[len(r) for r in storm]}; heavy round walls s "
+          + ", ".join(f"{w.name} {w.walls[0]:.4f}" for w in ways.values())
+          + f" [{card()}]")
+    check(nbytes >= SCALE_MIN_BYTES,
+          f"phase 18: the row buffer is {nbytes} bytes, under 2 GB")
+    print(f"phase 18: the planner's frame plans, a round: "
+          f"{frame_plans_text(main)}")
+    hold_frame_ways("phase 18: storm frame rounds", ways)
+    # config 20's amplification: fused dispatches per dirty doc over the
+    # storm rounds (its heavy docs arrive one a call, never planned)
+    mega = MegaAccount()
+    for w in ways.values():
+        mega.merge(w.mega())
+        storm_mega = w.mega(1)
+        if not storm_mega.docs:
+            print(f"phase 18: {w.name}: no fused storm round")
+            continue
+        amp = storm_mega.dispatches / storm_mega.docs
+        print(f"phase 18: {w.name}: fused dispatches per dirty doc over "
+              f"the storm rounds {amp:.5f} ({storm_mega.dispatches} over "
+              f"{storm_mega.docs}) against MEGABATCH_AMP_MAX "
+              f"{MEGABATCH_AMP_MAX} [{card()}]")
+        check(amp < MEGABATCH_AMP_MAX,
+              f"phase 18: {w.name}: amplification {amp:.5f}")
+    lanes = sorted(ds.doc_index[d] for d in storm[-1])
+    for w in ways.values():
+        report["reconcile_rows_hash"].append(hold_lanes_to_plain(
+            torch, w.engine, w.hashes[-1], lanes, f"phase 18 ({w.name})"))
+    print(f"phase 18: the last round's {len(lanes)} lanes of each way's "
+          f"engine: device copy equal to the host mirror, hashes equal to "
+          f"the plain version; launches {launches}; phase 18 took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return launches, mega
+
+
 def main() -> int:
     import torch
     repo = Path(__file__).resolve().parent
@@ -4602,6 +4984,8 @@ def main() -> int:
     wire = drive_wires_and_mesh(torch, dev, report)
     planes = drive_planes(torch, dev, map_final)
     probes = drive_probes(torch, dev)
+    scale_b1, scale_mega = drive_frame_route_at_scale(torch, dev, report)
+    mega.merge(scale_mega)
 
     rows_times = time_kernel(torch, map_ds, "map storm")
     time_kernel(torch, text_ds, "text fleet")
@@ -4614,9 +4998,10 @@ def main() -> int:
     lin_times = time_linearize(torch, docs_ds, "text fleet (docs-major)")
     time_linearize(torch, docset_ds, "docset fleet (docs-major)")
     time_docs_round(torch, docs_ds)
-    print(f"launches: rows engine {map_launches} (map storm frames and "
-          f"minority reads) + {text_launches} (text fleet), of them "
-          f"{mega.dispatches} megabatch buckets ({mega.text()}); text-merge "
+    print(f"launches: rows engine {map_launches} (map storm frames, three "
+          f"ways, and minority reads) + {text_launches} (text fleet, three "
+          f"ways); megabatch buckets of phases 2 and 18 {mega.dispatches} "
+          f"({mega.text()}); text-merge "
           f"plane {span_launches}; "
           f"move plane {move_launches}; docs-major engine {docs_launches} "
           f"(dominated); linearize {lin9} (phase 9) + {lin10} (phase 10, "
@@ -4630,7 +5015,8 @@ def main() -> int:
           f"body) + {wire['b2']} (XL body), dominated {wire['dominated']}, "
           f"linearize {wire['linearize']} (phase 15); the perf planes: "
           f"{planes} (phase 16); the probes and the dense path: {probes} "
-          f"(phase 17)")
+          f"(phase 17); the frame route at {SCALE_DOCS:,} docs: "
+          f"reconcile_rows_hash {scale_b1} (phase 18)")
     print(json.dumps({"kernels": [
         kernel_entry("reconcile_rows_hash",
                      "automerge_tpu_torch/csrc/reconcile_rows.cu",
@@ -4638,7 +5024,7 @@ def main() -> int:
                      map_launches + text_launches + long_launches
                      + svc_b1 + fleet_b1 + wire["b1"]
                      + planes["reconcile_rows_hash"]
-                     + probes["reconcile_rows_hash"],
+                     + probes["reconcile_rows_hash"] + scale_b1,
                      report["reconcile_rows_hash"], rows_times),
         kernel_entry("reconcile_rows_hash_xl",
                      "automerge_tpu_torch/csrc/reconcile_rows.cu",

@@ -17,6 +17,8 @@ change for change, with both packages' uuid factories set alike.
 Tolerance: exact.
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -109,6 +111,12 @@ def _hygiene():
 
 @pytest.mark.parametrize("case", CASES, ids=lambda c: c.id)
 def test_reference_case_on_both_packages(case, tmp_path, monkeypatch):
+    # tests/test_moves.py re-imports automerge_tpu.engine.experimental_dense
+    # (its quarantine-at-import case), so on a worker that ran it first the
+    # module a case imports is a new object: bind the adapter to that one
+    ref_dense_now = importlib.import_module(
+        "automerge_tpu.engine.experimental_dense")
+    case.adapters = {**ADAPTERS, ref_dense_now: _Dense}
     run_twin(case, tmp_path, monkeypatch)
 
 

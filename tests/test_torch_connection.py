@@ -236,3 +236,44 @@ def test_port_auditor_finds_a_divergence_on_a_reference_peer():
         auditor.stop()
         ref_node.close()
         port_node.close()
+
+
+# ---------------------------------------------------------------------------
+# a doc admitted while a connection opens
+
+
+def test_doc_admitted_while_a_connection_opens_is_advertised():
+    """A hub's reader thread can admit another peer's doc while a new
+    peer's Connection opens. The reference walks the docs, then registers
+    its handler, so a doc admitted in between is never advertised to the
+    new peer (the four-process hub case of tests/test_torch_multihost.py
+    then waits forever for it). The port registers first: here the doc
+    list itself admits a doc as the walk reads it, and that doc reaches
+    the new peer; the reference's Connection misses it."""
+    from automerge_tpu.sync.docset import DocSet as RefDocSet
+    from automerge_tpu_torch.sync.docset import DocSet
+
+    for ds_cls, am_mod, init, conn_cls, reaches in (
+            (RefDocSet, ref_am, ref_am.init, RefConnection, False),
+            (DocSet, api, lambda a: api.init(a, device="cpu"), Connection,
+             True)):
+        class AdmitsDuringOpen(ds_cls):
+            armed = True
+
+            @property
+            def doc_ids(self):
+                ids = list(super().doc_ids)
+                if self.armed:
+                    self.armed = False
+                    self.set_doc("late", am_mod.change(
+                        init("spoke2"), lambda d: d.__setitem__("n", 2)))
+                return ids
+        ds = AdmitsDuringOpen(**({} if ds_cls is RefDocSet
+                                 else {"device": "cpu"}))
+        ds.set_doc("early", am_mod.change(
+            init("hub"), lambda d: d.__setitem__("n", 0)))
+        sent = []
+        conn_cls(ds, sent.append).open()
+        advertised = {m["docId"] for m in sent}
+        assert "early" in advertised
+        assert ("late" in advertised) is reaches, ds_cls

@@ -283,7 +283,8 @@ def test_frame_ingress_on_the_card_equals_the_cpu(cuda_device, native):
 def test_megabatch_route_on_the_card_equals_the_cpu(cuda_device,
                                                     monkeypatch):
     """The megabatch route on the card, on both of its sources: a small
-    map storm's frame rounds (classic), then late docs and a minority read
+    map storm's frame rounds (planned by the same prices on both
+    engines), then late docs and a minority read
     (index upload, device gather from the resident copy, the reconcile
     kernel at bucket dims, one readback), then a lazy round and a minority
     read of its docs (the stale copy: buckets gathered from the host
@@ -343,6 +344,66 @@ def test_megabatch_route_on_the_card_equals_the_cpu(cuda_device,
         touched = sorted(gpu.doc_index[d] for d in storm[-1])
         routed_read(touched[:len(touched) // 4])
         np.testing.assert_array_equal(gpu.hashes(), cpu.hashes())
+    finally:
+        monkeypatch.undo()
+        dispatch._reload_for_tests()
+
+
+@pytest.mark.cuda
+def test_frame_route_on_the_card_equals_the_cpu(cuda_device, monkeypatch):
+    """Eager round frames on the megabatch route on the card (the classic
+    frame dispatch's readback priced dear, so every planned frame takes
+    the route): each round's returned hashes equal the CPU engine's on the
+    same route and AMTPU_MEGABATCH=0's, one kernel launch a bucket, the
+    device copy the same tensor from round to round and equal to the host
+    mirror, and hashes() after a route round launching nothing."""
+    from automerge_tpu_torch.engine import dispatch, dispatchledger
+    from automerge_tpu_torch.sync.frames import encode_round_frame
+    from automerge_tpu_torch.workloads import map_storm
+    monkeypatch.delenv("AMTPU_MEGABATCH", raising=False)
+    monkeypatch.delenv("AMTPU_MEGABATCH_MIN_DOCS", raising=False)
+    dispatch._reload_for_tests()
+    ids, heavy, storm = map_storm(n_docs=600, n_heavy=2, heavy_ops=100,
+                                  rounds=3, draws_per_round=300)
+    frames = [encode_round_frame(r) for r in [heavy] + storm]
+    n = len(ids)
+    classic = ResidentRowsDocSet(ids, device=cuda_device)
+    monkeypatch.setenv("AMTPU_MEGABATCH", "0")
+    dispatch._reload_for_tests()
+    want = [hashes_to_numpy(classic.apply_round_frames([f]))[:n]
+            for f in frames]
+    monkeypatch.delenv("AMTPU_MEGABATCH")
+    monkeypatch.setitem(dispatch._LINK, "d2h_bytes_per_s", 1.0)
+    dispatch._reload_for_tests()
+    try:
+        gpu = ResidentRowsDocSet(ids, device=cuda_device)
+        cpu = ResidentRowsDocSet(ids, device="cpu")
+        rows = None
+        for k, f in enumerate(frames):
+            sec = dispatchledger.ledger().section() or {}
+            d0 = sec.get("mega_dispatches_total", 0)
+            b0 = cuda_kernels.LAUNCHES["reconcile_rows_hash"]
+            h = gpu.apply_round_frames([f])
+            launched = cuda_kernels.LAUNCHES["reconcile_rows_hash"] - b0
+            sec = dispatchledger.ledger().section() or {}
+            assert h.device.type == "cuda" and h.shape == (gpu.n_pad,)
+            got = hashes_to_numpy(h)[:n]
+            np.testing.assert_array_equal(got, want[k])
+            np.testing.assert_array_equal(
+                got, hashes_to_numpy(cpu.apply_round_frames([f]))[:n])
+            if k:
+                # the heavy round re-ranks every doc (a new actor): its
+                # refresh of the other lanes launches once more
+                assert launched == sec.get("mega_dispatches_total",
+                                           0) - d0 >= 1
+                assert gpu.rows_dev is rows
+            assert gpu.hashes_clean and not gpu._dirty
+            b1 = cuda_kernels.LAUNCHES["reconcile_rows_hash"]
+            np.testing.assert_array_equal(gpu.hashes(), want[k])
+            assert cuda_kernels.LAUNCHES["reconcile_rows_hash"] == b1
+            rows = gpu.rows_dev
+        np.testing.assert_array_equal(gpu.rows_dev.cpu().numpy(),
+                                      gpu.rows_host)
     finally:
         monkeypatch.undo()
         dispatch._reload_for_tests()

@@ -290,18 +290,30 @@ def test_sharded_flushers_named_per_shard_and_joined_on_close():
 
 def test_flusher_exits_after_idle_linger_and_respawns():
     """An idle flusher exits after its linger and a later ingress spawns
-    a fresh one (the join is the wait)."""
+    a fresh one (the join is the wait). With no linger the thread can
+    drain, spin and exit before the ingress call returns, so each thread
+    is taken from its own loop as it starts, not read off the flusher
+    afterwards."""
     pkg = Pkg(False)
     e = pkg.service()
-    e._flusher._linger_s = 0.0
+    flusher = e._flusher
+    flusher._linger_s = 0.0
+    started = []
+    loop = flusher._loop
+
+    def recorded_loop():
+        started.append(threading.current_thread())
+        loop()
+    flusher._loop = recorded_loop
     e.apply_changes("d", [pkg.change("A", 1)])
-    t1 = e._flusher._thread
-    assert t1 is not None
-    t1.join()
-    assert e._flusher._thread is None
+    assert len(started) == 1
+    started[0].join()
+    assert flusher._thread is None
     e.apply_columns("d", pkg.cols("A", 2, value=2))   # respawns
     assert e.clock_of("d") == {"A": 2}
+    assert len(started) == 2 and started[1] is not started[0]
     e.close()
+    assert not started[1].is_alive()
 
 
 def test_linger_is_read_from_the_environment(monkeypatch):

@@ -2,19 +2,21 @@
 plan_round / apply_round_adaptive, pack.py's bucket helpers, the dispatch
 ledger's megabatch account), held to the reference.
 
-The invariant: a megabatched read's hashes are BIT-IDENTICAL to the
+The invariant: a megabatched round's hashes are BIT-IDENTICAL to the
 per-doc path's, because each bucket is a pure row-index subset of the full
-docs-minor layout (pack.mega_row_map). The port takes the route on a
-minority-dirty hash read; a round frame stays on the classic full-buffer
-dispatch (the reference's frame intent is not ported: on the card the
-whole resident buffer's reconcile costs less than the route's host work).
-So every end-to-end case feeds the same AMR1 frames, with lazy_dispatch
-set, to the port (each round then read with hashes_for of its docs, a
-minority of the fleet: the route's read), to the port with
-AMTPU_MEGABATCH=0 and to the reference read the same way, and holds all
+docs-minor layout (pack.mega_row_map). The port plans the route in two
+places: an eager round frame micro-batch (the reference's frame intent,
+priced against the classic frame dispatch) and a minority-dirty hash read
+(priced against the narrow gather). The read cases feed the same AMR1
+frames, with lazy_dispatch set, to the port (each round then read with
+hashes_for of its docs, a minority of the fleet), to the port with
+AMTPU_MEGABATCH=0 and to the reference read the same way, and hold all
 three, and the reference's own frame route (eager frames), to equal
-hashes. These are the cases of tests/test_megabatch.py one level down
-(the port's EngineDocSet service is not ported yet).
+hashes. The frame cases feed eager frames to the port on the route, to
+the port with AMTPU_MEGABATCH=0 and to the reference's eager frame route,
+round by round. The reference's service-level cases (tests/
+test_megabatch.py, through EngineDocSet) run on both packages in
+tests/test_torch_frame_megabatch.py.
 
 Routing is priced. The port's constants are an H100's, so a test that
 must take the route prices bytes instead (`force_route`: the port's own
@@ -75,10 +77,14 @@ def mb(monkeypatch):
 
 def force_route():
     """Price bytes, not the card's fixed costs: the port's reconcile at
-    1 KB/s and its host gather at 1 MB/s (the route's smaller buckets then
-    win wherever the reference's do), and the reference's link at CPU
-    scale (the constants of tests/test_megabatch.py's cpu_link)."""
-    dispatch.calibrate(dev_bytes_per_s=1e3, host_gather_bytes_per_s=1e6)
+    1 KB/s and its host gather at 1 MB/s (a read's route then wins with
+    its smaller buckets wherever the reference's does), the classic frame
+    dispatch's hash readback at a byte a megasecond (a small fleet's
+    buffer is no wider than one bucket, so only this sends its eager frames
+    to the route), and the reference's link at CPU scale (the constants of
+    tests/test_megabatch.py's cpu_link)."""
+    dispatch.calibrate(dev_bytes_per_s=1e3, host_gather_bytes_per_s=1e6,
+                       d2h_bytes_per_s=1e-6)
     ref_dispatch.calibrate(dispatch_fixed_s=1e-5, h2d_call_s=1e-6,
                            d2h_call_s=1e-5)
 
@@ -92,6 +98,21 @@ def per_doc(mb, fn):
     finally:
         mb.delenv("AMTPU_MEGABATCH")
         _reload_caches()
+
+
+def frame_plans(mb):
+    """The RoundPlans the port's planner returns to frame batches (its
+    `frame_trips` caller), in order, for the rest of the test."""
+    plans = []
+    real = dispatch.plan_round
+
+    def rec(rset, idxs, frame_trips=None):
+        plan = real(rset, idxs, frame_trips=frame_trips)
+        if frame_trips is not None:
+            plans.append(plan)
+        return plan
+    mb.setattr(dispatch, "plan_round", rec)
+    return plans
 
 
 def mega_totals(ledger):
@@ -377,25 +398,28 @@ def test_planner_never_picks_a_costlier_route(mb, link, resident):
 
 
 def test_card_constants_keep_a_small_fleet_classic(mb):
-    """Round frames stay on the classic full-buffer dispatch whatever the
-    constants (the card's, or bytes priced so that the route would win a
-    read): they never plan, the ledger records no megabatch round, and the
-    hashes are those of the reference's frame route."""
+    """An eager frame round of six docs is planned against the classic
+    frame dispatch: with the card's constants the plan keeps it classic
+    (per-doc, no megabatch round in the ledger), with bytes priced it
+    takes the route (one megabatch round); the hashes are the reference's
+    frame route's either way. The first frame, one doc, is below the
+    floor and never planned."""
     changes = [("doc-big", big_doc_changes())]
     changes += [(f"doc{i:03d}", small_doc_changes(i)) for i in range(6)]
     ids = [d for d, _ in changes]
-    planned = []
-    real = dispatch.plan_round
-    mb.setattr(dispatch, "plan_round",
-               lambda *a, **k: planned.append(a) or real(*a, **k))
+    planned = frame_plans(mb)
     _, want = ref_frames(ids, storm_rounds(changes))
-    for priced in ("card", "bytes"):
+    for priced, route, rounds in (("card", "per_doc", 0),
+                                  ("bytes", "megabatch", 1)):
         if priced == "bytes":
             force_route()
+        planned.clear()
         before = mega_totals(dispatchledger)
         _, got = port_frames(ids, storm_rounds(changes))
-        assert mega_totals(dispatchledger) == before
-        assert planned == []
+        assert moved(before, mega_totals(dispatchledger))["rounds"] == rounds
+        assert [p.route for p in planned] == [route]
+        assert planned[0].est_alt_s > 0 and planned[0].est_mega_s > 0
+        assert planned[0].docs.tolist() == list(range(1, 7))
         np.testing.assert_array_equal(got[-1], want[-1])
 
 
@@ -693,7 +717,9 @@ def test_dangling_dependencies_return_hashes(mb, route):
     changes all wait on a missing dependency (its megabatch intent skips
     the device upload, then nothing is touched); the port returns the
     hashes, [0, 0], then the reference's AMTPU_MEGABATCH=0 hashes once the
-    missing changes arrive."""
+    missing changes arrive. The frames are eager: with the route priced
+    to win ("forced") the frame that admits nothing stays unplanned and
+    the next, which admits both docs' changes, takes the route."""
     if route == "forced":
         force_route()
     ids = ["a", "b"]
@@ -702,39 +728,44 @@ def test_dangling_dependencies_return_hashes(mb, route):
     with pytest.raises(RefDeviceDispatchError):
         ref.apply_round_frames([ref_encode_round_frame(rounds[0])])
     _, want = per_doc(mb, lambda: ref_frames(ids, rounds))
+    planned = frame_plans(mb)
     ds, got = port_frames(ids, rounds)
     np.testing.assert_array_equal(got[0], np.zeros(2, np.uint32))
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_array_equal(got[1], want[1])
     assert got[1].all()
+    assert [p.route for p in planned] == \
+        ["megabatch" if route == "forced" else "per_doc"]
 
 
 def test_empty_round_after_a_megabatch_round_returns_hashes(mb):
-    """The same sequence after a read that took the route: the port
-    returns the unchanged hashes, then the reference's AMTPU_MEGABATCH=0
-    ones. The reference raises here too, after its frame route has
-    dropped its device copy."""
+    """The same sequence after a megabatch round, both ways the route
+    runs: a read that took it (lazy frames, then hashes_for) and an eager
+    frame that took it. The port returns the unchanged hashes, then the
+    reference's AMTPU_MEGABATCH=0 ones. The reference raises here too,
+    after its frame route has dropped its device copy."""
     force_route()
     changes = [("doc-big", big_doc_changes())]
     changes += [(f"doc{i:03d}", small_doc_changes(i)) for i in range(6)]
     ids = with_idle([d for d, _ in changes] + ["a", "b"])
     storm, dangling = storm_rounds(changes), _dangling_rounds()
-    ds = ResidentRowsDocSet(ids, device="cpu")
-    ds.lazy_dispatch = True
-    before = mega_totals(dispatchledger)
-    for r in rounds_to_port(storm):
-        ds.apply_round_frames([encode_round_frame(r)])
-        ds.hashes_for(round_idx(ids, r))
-    assert moved(before, mega_totals(dispatchledger))["rounds"] == 1
-    settled = ds.hashes()
-    ds.lazy_dispatch = False
-    got = [hashes_to_numpy(ds.apply_round_frames(
-        [encode_round_frame(r)]))[:len(ids)]
-        for r in rounds_to_port(dangling)]
-    np.testing.assert_array_equal(got[0], settled)
     _, want = per_doc(mb, lambda: ref_frames(ids, storm + dangling))
-    np.testing.assert_array_equal(got[0], want[2])
-    np.testing.assert_array_equal(got[1], want[3])
+    for lazy in (True, False):
+        ds = ResidentRowsDocSet(ids, device="cpu")
+        ds.lazy_dispatch = lazy
+        before = mega_totals(dispatchledger)
+        for r in rounds_to_port(storm):
+            ds.apply_round_frames([encode_round_frame(r)])
+            ds.hashes_for(round_idx(ids, r))
+        assert moved(before, mega_totals(dispatchledger))["rounds"] == 1
+        settled = ds.hashes()
+        ds.lazy_dispatch = False
+        got = [hashes_to_numpy(ds.apply_round_frames(
+            [encode_round_frame(r)]))[:len(ids)]
+            for r in rounds_to_port(dangling)]
+        np.testing.assert_array_equal(got[0], settled)
+        np.testing.assert_array_equal(got[0], want[2])
+        np.testing.assert_array_equal(got[1], want[3])
     ref = RefRows(ids, native=True)
     for r in storm:
         ref.apply_round_frames([ref_encode_round_frame(r)])

@@ -60,8 +60,13 @@ def main() -> None:
                               lambda x: x.__setitem__("winner", actor))
             ds.set_doc("doc0", api.merge(ds.get_doc("doc0"), mine))
 
-    wait_for(lambda: all(f"host{h}" in ds.get_doc("doc0")._doc.opset.clock
-                         for h in range(nprocs)), 90,
+    # every host's winner write: doc0's author (host0, rank 0) made it
+    # at seq 2, the others at seq 1. Waiting only for each actor to
+    # appear lets a spoke go on before host0's write reaches it (host0 is
+    # in the clock since the doc arrived), and its reconcile then differs
+    # from the other processes'.
+    wait_for(lambda: all(ds.get_doc("doc0")._doc.opset.clock.get(
+        f"host{h}", 0) >= (2 if h == 0 else 1) for h in range(nprocs)), 90,
              f"[{rank}] concurrent-edit sync did not converge")
     winner = ds.get_doc("doc0")["winner"]
     assert winner in {f"host{h}" for h in range(nprocs)}, winner
