@@ -24,6 +24,7 @@ element-wise max all-reduce over int32 clock matrices
 from __future__ import annotations
 
 import contextlib
+import sys
 import time
 from typing import Callable
 
@@ -259,16 +260,33 @@ class Connection:
     # -- lifecycle (connection.js:49-56) ------------------------------------
 
     def open(self) -> None:
-        # The handler goes in first and the docs are walked under the state
-        # lock, so a doc that another peer's reader admits meanwhile is
-        # either in the walk or announced through the handler. Walking
-        # first and registering after (connection.js:49-52, and the
-        # reference) never advertises a doc admitted in between: on a hub,
-        # the peer that connected then never learns of it.
-        with self._state_lock:
-            self._doc_set.register_handler(self.doc_changed)
-            for doc_id in self._doc_set.doc_ids:
+        # The handler goes in first, then the walk, so a doc that another
+        # peer's reader admits meanwhile is advertised either by the walk
+        # or by the handler. Walking first and registering after
+        # (connection.js:49-52, and the reference) never advertises a doc
+        # admitted in between: on a hub, the peer that connected then
+        # never learns of it. Each doc is read and advertised in one
+        # section of the state lock, so no advert is older than one the
+        # handler already sent (a plain DocSet's states are immutable: a
+        # read outside the section could predate it), and the lock, which
+        # a transport shares among every connection on the doc set, is
+        # free between documents for the other peers.
+        #
+        # Python's locks are not fair: a walk that takes the lock again
+        # straight after each document keeps it, and a waiting reader
+        # gets in only when the scheduler happens to run it in that gap
+        # (tenths of a second apart at 10,000 docs). So once a switch
+        # interval has passed, the walk sleeps for a moment outside the
+        # lock, which hands it, and the GIL, to whoever waits.
+        self._doc_set.register_handler(self.doc_changed)
+        slice_s = sys.getswitchinterval()
+        t_slice = time.perf_counter()
+        for doc_id in self._doc_set.doc_ids:
+            with self._state_lock:
                 self.doc_changed(doc_id, self._doc_set.get_doc(doc_id))
+            if time.perf_counter() - t_slice >= slice_s:
+                time.sleep(0)
+                t_slice = time.perf_counter()
 
     def close(self) -> None:
         auditor = self.auditor

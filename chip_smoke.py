@@ -3224,6 +3224,15 @@ FLEET_MINORITY = 200
 # 17 s a storm round on an H100 80GB HBM3 at 700 W).
 TCP_ROUNDS = 2
 KILL_ROUNDS = 2
+# Phase 14 (b)'s lock probe: while one more connection opens on the
+# server node, another thread's longest wait for the doc set's shared
+# sync lock must stay under this share of open()'s wall (a walk that held
+# the lock throughout made it wait for all of it).
+OPEN_PROBE_MAX_SHARE = 0.25
+# seconds the probe sleeps between two takes of the lock (a peer's reader
+# does other work between its sections; a thread that takes it back to
+# back starves the walk of it, since the lock is not fair)
+OPEN_PROBE_GAP_S = 0.001
 
 
 def fleet_base(i):
@@ -3467,16 +3476,55 @@ def quiet(seconds: float):
     return pred
 
 
+def open_lock_waits(node) -> tuple[float, list]:
+    """One more `LockedConnection` opens on `node` (its adverts go to a
+    counter) while a thread `amtpu-torch-lock-probe` takes the node's
+    shared sync lock in a loop, as another peer's reader does. Returns
+    open()'s wall and each of the probe's waits for the lock, in seconds;
+    the connection is closed and the probe joined before it returns."""
+    import threading
+
+    from automerge_tpu_torch.sync.tcp import LockedConnection, sync_lock
+
+    lock = sync_lock(node)
+    waits, sent, stop = [], [0], threading.Event()
+
+    def probe():
+        while not stop.is_set():
+            t0 = time.perf_counter()
+            with lock:
+                waits.append(time.perf_counter() - t0)
+            time.sleep(OPEN_PROBE_GAP_S)
+
+    def sink(msg):
+        sent[0] += 1
+
+    conn = LockedConnection(node, sink)
+    thread = threading.Thread(target=probe, name="amtpu-torch-lock-probe")
+    thread.start()
+    try:
+        t0 = time.perf_counter()
+        conn.open()
+        wall = time.perf_counter() - t0
+    finally:
+        stop.set()
+        thread.join()
+        conn.close()
+    check(sent[0] >= len(node.doc_ids),
+          f"phase 14 (b): the probed open() sent {sent[0]} adverts")
+    return wall, waits
+
 
 def tcp_storm(torch, dev, ids, rounds, wire="columnar", supervised=False,
-              before_round=None):
+              before_round=None, after_open=None):
     """Write `rounds` into a rows node on `dev`, carried over TCP on
     127.0.0.1 (TcpSyncClient, or a SupervisedTcpClient) to a second rows
     node behind a TcpSyncServer; after each round wait until the server's
-    hashes() equal the writer's. `before_round(k)` runs before round k.
-    Returns (walls, wire bytes, messages a round, launches by node, final
-    hashes of both, the client, the seconds open()'s adverts took to
-    drain)."""
+    hashes() equal the writer's. `after_open(node)` runs on the server's
+    node once the writer's open() has drained, `before_round(k)` before
+    round k. Returns (walls, wire bytes, messages a round, launches by
+    node, final hashes of both, the client, the seconds open()'s adverts
+    took to drain)."""
     from automerge_tpu_torch.sync.service import EngineDocSet
     from automerge_tpu_torch.sync.tcp import (SupervisedTcpClient,
                                               TcpSyncClient, TcpSyncServer)
@@ -3516,6 +3564,8 @@ def tcp_storm(torch, dev, ids, rounds, wire="columnar", supervised=False,
                    "phase 14 (b): open()'s clock adverts never drained",
                    every=0.005)
         open_s = time.perf_counter() - t0
+        if after_open is not None:
+            after_open(node)
         with launches_by_node({"writer": writer, "server": node}) as counts:
             for k, rnd in enumerate(rounds):
                 if before_round is not None:
@@ -3558,8 +3608,20 @@ def drive_tcp_pair(torch, dev, map_rounds, n_rounds=TCP_ROUNDS,
 
     ids, heavy, rounds = storm or map_storm()
     rounds = [heavy] + rounds[:n_rounds]
+    probed = []
     walls, nbytes, msgs, counts, (hw, hs), _, open_s = tcp_storm(
-        torch, dev, ids, rounds)
+        torch, dev, ids, rounds,
+        after_open=lambda node: probed.append(open_lock_waits(node)))
+    (open_wall, waits), = probed
+    longest, mid = max(waits), p50(waits)
+    print(f"phase 14: (b) lock probe: one more LockedConnection opened on "
+          f"the server's {len(ids)}-doc node in {open_wall:.4f} s while a "
+          f"thread took the node's sync lock {len(waits)} times: longest "
+          f"wait {longest * 1e3:.3f} ms ({longest / open_wall:.4f} of the "
+          f"open), p50 {mid * 1e3:.4f} ms [{card()}]")
+    check(longest < OPEN_PROBE_MAX_SHARE * open_wall,
+          f"phase 14 (b): the probe waited {longest:.4f} s for the sync "
+          f"lock during a {open_wall:.4f} s open()")
     for name, h in (("writer", hw), ("server", hs)):
         got = np.array([h[d] for d in ids], np.uint32)
         check((got == map_rounds[n_rounds - 1]).all(),
@@ -4865,6 +4927,33 @@ def hold_lanes_to_plain(torch, ds, final, lanes, what) -> int:
     return err
 
 
+def time_kernel_at_scale(torch, ds) -> None:
+    """B1 over the engine's own row buffer at SCALE_DOCS docs, in the
+    windows of `launch_times` over 20 launches (the graph's L2 flushed
+    before each, as phase 2 times it at 10,000 docs), beside what the
+    frame planner prices that launch at (`dispatch._reconcile_s`: the
+    buffer's bytes over `dev_bytes_per_s`), the buffer read once at the
+    HBM peak, and the bound of this data's work (`bound`)."""
+    from automerge_tpu_torch.engine import cuda_kernels as ck
+    from automerge_tpu_torch.engine import dispatch
+    rows, dims = ds.rows_dev, ds.dims()
+    t = launch_times(lambda: ck.reconcile_rows_hash(rows, dims), 20,
+                     cold=True)
+    nbytes = rows.numel() * rows.element_size()
+    model_ms = dispatch._reconcile_s(nbytes) * 1e3
+    read_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    b_ms, b_by, b_bytes, ops = bound(rows, dims)
+    cold = t["graph_cold_ms"]
+    print(f"phase 18: B1 over the planner's {nbytes}-byte row buffer "
+          f"(dims={dims} lanes={rows.shape[1]}): {times_text(t)}; the "
+          f"planner's model {model_ms:.4f} ms (dev_bytes_per_s "
+          f"{dispatch._LINK['dev_bytes_per_s']:.4e}), {cold / model_ms:.3f}x "
+          f"of it; the buffer read once at {PEAK_BYTES_PER_S / 1e12} TB/s "
+          f"{read_ms:.4f} ms ({cold / read_ms:.2f}x); this data's bound "
+          f"{b_ms:.5f} ms ({b_by}; bytes={b_bytes} compares={ops}) "
+          f"[{card()}]")
+
+
 def drive_frame_route_at_scale(torch, dev, report):
     """Phase 18: config 20's storm at SCALE_DOCS docs, the heavy frame and
     the 8 storm frames a call each way of FRAME_WAYS in turns (phase 2
@@ -4872,8 +4961,9 @@ def drive_frame_route_at_scale(torch, dev, report):
     launches, fused dispatches per dirty doc against config 20's
     MEGABATCH_AMP_MAX, the planner's pick held no slower than the other
     route, and the last round's lanes of every way's engine held to the
-    plain version. Returns the phase's B1 launches and the ways' megabatch
-    account."""
+    plain version; then B1 timed over the planner's buffer
+    (time_kernel_at_scale). Returns the phase's B1 launches and the ways'
+    megabatch account."""
     from automerge_tpu_torch.engine import cuda_kernels as ck
     from automerge_tpu_torch.engine.resident_rows import ResidentRowsDocSet
     from automerge_tpu_torch.perf.history import MEGABATCH_AMP_MAX
@@ -4920,6 +5010,7 @@ def drive_frame_route_at_scale(torch, dev, report):
     for w in ways.values():
         report["reconcile_rows_hash"].append(hold_lanes_to_plain(
             torch, w.engine, w.hashes[-1], lanes, f"phase 18 ({w.name})"))
+    time_kernel_at_scale(torch, ds)
     print(f"phase 18: the last round's {len(lanes)} lanes of each way's "
           f"engine: device copy equal to the host mirror, hashes equal to "
           f"the plain version; launches {launches}; phase 18 took "

@@ -277,3 +277,135 @@ def test_doc_admitted_while_a_connection_opens_is_advertised():
         advertised = {m["docId"] for m in sent}
         assert "early" in advertised
         assert ("late" in advertised) is reaches, ds_cls
+
+
+# ---------------------------------------------------------------------------
+# the shared lock while a connection opens
+
+#: documents an opening connection walks, and the id before which the
+#: walk's hook runs
+WALK_DOCS = 300
+WALK_HOOK_AT = 150
+
+
+class _HookedIds(list):
+    """A doc id list whose iterator calls `hook` before it yields the
+    `at`-th id: between two of the walk's documents, outside any section
+    the walk takes for one of them."""
+
+    def __init__(self, ids, at, hook):
+        super().__init__(ids)
+        self.at, self.hook = at, hook
+
+    def __iter__(self):
+        for k, doc_id in enumerate(super().__iter__()):
+            if k == self.at:
+                self.hook()
+            yield doc_id
+
+
+def _hooked(ds_cls):
+    """`ds_cls` whose `doc_ids` runs `self.walk_hook` (when set) in the
+    middle of the next walk over them."""
+    class Hooked(ds_cls):
+        walk_hook = None
+
+        @property
+        def doc_ids(self):
+            ids = super().doc_ids
+            hook, self.walk_hook = self.walk_hook, None
+            return ids if hook is None else _HookedIds(ids, WALK_HOOK_AT,
+                                                       hook)
+    return Hooked
+
+
+def _walk_doc_set(package, kind):
+    """A doc set of WALK_DOCS documents, of the package's rows
+    `EngineDocSet` or its plain `DocSet`, and the package's `tcp`
+    module."""
+    ref = package == "reference"
+    if ref:
+        from automerge_tpu.sync import tcp
+        from automerge_tpu.sync.docset import DocSet as PlainDocSet
+    else:
+        from automerge_tpu_torch.sync import tcp
+        from automerge_tpu_torch.sync.docset import DocSet as PlainDocSet
+    ids = [f"d{i:03d}" for i in range(WALK_DOCS)]
+    if kind == "rows_engine":
+        cls = _hooked(RefEngineDocSet if ref else EngineDocSet)
+        kw = {} if ref else {"device": "cpu"}
+        return cls(ids, backend="rows", ingest_mode="locked", **kw), tcp
+    ds = _hooked(PlainDocSet)(**({} if ref else {"device": "cpu"}))
+    am_mod = ref_am if ref else api
+    doc = am_mod.change(
+        ref_am.init("hub") if ref else api.init("hub", device="cpu"),
+        lambda d: d.__setitem__("n", 0))
+    for doc_id in ids:
+        ds.set_doc(doc_id, doc)
+    return ds, tcp
+
+
+@pytest.mark.parametrize("kind", ["rows_engine", "plain"])
+@pytest.mark.parametrize("package", ["reference", "port"])
+def test_shared_lock_is_free_between_the_documents_open_walks(package,
+                                                               kind):
+    """Under a transport every connection on a doc set shares one lock.
+    An opening connection takes it one document at a time, so another
+    peer's reader gets it between two documents of the walk instead of
+    waiting for the whole walk: here a second thread's non-blocking
+    acquire, made halfway through, succeeds. Every document is still
+    advertised."""
+    import threading
+
+    ds, tcp = _walk_doc_set(package, kind)
+    got = []
+
+    def probe():
+        lock = tcp.sync_lock(ds)
+        if lock.acquire(blocking=False):
+            lock.release()
+            got.append(True)
+        else:
+            got.append(False)
+
+    def hook():
+        t = threading.Thread(target=probe, name="amtpu-torch-lock-probe")
+        t.start()
+        t.join()
+
+    sent = []
+    conn = tcp.LockedConnection(ds, sent.append)
+    try:
+        ds.walk_hook = hook
+        conn.open()
+        assert got == [True]
+        assert {m["docId"] for m in sent} == set(ds.doc_ids)
+    finally:
+        conn.close()
+        if kind == "rows_engine":
+            ds.close()
+
+
+@pytest.mark.parametrize("replaced", ["walked", "next"])
+def test_doc_replaced_while_a_connection_opens_sends_its_newest_clock(
+        replaced):
+    """A plain DocSet's doc is replaced by a newer state in the middle of
+    open()'s walk, through set_doc, which fires the connection's handler:
+    a doc the walk has advertised already, or the one it reads next.
+    open() raises no "old state" error, and the last clock sent for the
+    doc is the newest."""
+    from automerge_tpu_torch.sync.tcp import LockedConnection
+
+    ds, _tcp = _walk_doc_set("port", "plain")
+    target = "d000" if replaced == "walked" else f"d{WALK_HOOK_AT:03d}"
+    newer = api.change(ds.get_doc(target), lambda d: d.__setitem__("n", 1))
+    ds.walk_hook = lambda: ds.set_doc(target, newer)
+    sent = []
+    conn = LockedConnection(ds, sent.append)
+    try:
+        conn.open()
+        clocks = [m["clock"] for m in sent if m["docId"] == target]
+        assert clocks[-1] == newer._doc.opset.clock == {"hub": 2}
+        assert {m["docId"] for m in sent} == set(ds.doc_ids)
+    finally:
+        conn.close()
